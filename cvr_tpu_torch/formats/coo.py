@@ -1,0 +1,79 @@
+"""COO (coordinate) sparse matrix container (host NumPy)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass
+class COOMatrix:
+    rows: np.ndarray  # [nnz] int
+    cols: np.ndarray  # [nnz] int
+    vals: np.ndarray  # [nnz] float
+    shape: tuple[int, int]
+
+    def __post_init__(self):
+        self.rows = np.asarray(self.rows)
+        self.cols = np.asarray(self.cols)
+        self.vals = np.asarray(self.vals)
+        if not (self.rows.shape == self.cols.shape == self.vals.shape):
+            raise ValueError("rows/cols/vals must have identical shapes")
+        if self.rows.ndim != 1:
+            raise ValueError("COO arrays must be 1-D")
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.shape[0])
+
+    def sum_duplicates(self) -> "COOMatrix":
+        """Coalesce duplicate (row, col) entries by summation."""
+        order = np.lexsort((self.cols, self.rows))
+        r, c, v = self.rows[order], self.cols[order], self.vals[order]
+        if r.size == 0:
+            return COOMatrix(r, c, v, self.shape)
+        new_group = np.empty(r.size, dtype=bool)
+        new_group[0] = True
+        new_group[1:] = (r[1:] != r[:-1]) | (c[1:] != c[:-1])
+        idx = np.flatnonzero(new_group)
+        sums = np.add.reduceat(v.astype(np.float64), idx).astype(v.dtype)
+        return COOMatrix(r[idx], c[idx], sums, self.shape)
+
+    def to_csr(self, sort_cols: bool = True) -> "CSRMatrix":
+        """Assemble CSR.  sort_cols=True yields canonical (col-sorted rows)
+        form via lexsort; sort_cols=False keeps insertion order within rows
+        and uses the native O(nnz) counting sort when available."""
+        from cvr_tpu_torch import _native
+        from cvr_tpu_torch.formats.csr import CSRMatrix
+
+        nrows = self.shape[0]
+        if (
+            not sort_cols
+            and self.vals.dtype == np.float32
+            and _native.available()
+        ):
+            rowptr, cols, vals = _native.coo_to_csr_native(
+                nrows, self.rows, self.cols, self.vals
+            )
+            return CSRMatrix(
+                rowptr=rowptr, cols=cols, vals=vals, shape=self.shape
+            )
+        if sort_cols:
+            order = np.lexsort((self.cols, self.rows))
+        else:
+            order = np.argsort(self.rows, kind="stable")
+        counts = np.bincount(self.rows, minlength=nrows).astype(np.int64)
+        rowptr = np.zeros(nrows + 1, dtype=np.int64)
+        np.cumsum(counts, out=rowptr[1:])
+        return CSRMatrix(
+            rowptr=rowptr,
+            cols=self.cols[order].astype(np.int32),
+            vals=self.vals[order],
+            shape=self.shape,
+        )
+
+    def to_dense(self) -> np.ndarray:
+        dense = np.zeros(self.shape, dtype=np.float64)
+        np.add.at(dense, (self.rows, self.cols), self.vals.astype(np.float64))
+        return dense.astype(self.vals.dtype)

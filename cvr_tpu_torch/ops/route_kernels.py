@@ -1,0 +1,328 @@
+"""The routed SpMV's device passes: four Hopper kernels and their wrappers.
+
+Each pass has three parts side by side:
+
+  * a wrapper (``expand``, ``route_middle``, ``reduce_slices``,
+    ``route_small``) that launches the CUDA kernel of
+    cvr_tpu_torch/csrc/route_kernels.cu for CUDA tensors and counts the
+    launch in its ``launches`` attribute.  A wrapper given CPU tensors
+    runs the plain version instead, and only then: on a CUDA tensor it
+    launches or raises;
+  * the plain PyTorch version (``*_plain``) of the same function, written
+    with advanced indexing and int16 planes widened to int64: the CPU path
+    and the reference each kernel is held against on the card;
+  * an entry in KERNELS naming the TPU kernels it replaces.
+
+Layouts: see cvr_tpu_torch/ops/route_planes.py.  The stream<->mstream
+and flat<->stream relayouts are plain tensor permutes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from cvr_tpu_torch.ops import route_planes as rp
+
+SOURCE = "cvr_tpu_torch/csrc/route_kernels.cu"
+
+
+# ---------------------------------------------------------------------------
+# layout helpers
+# ---------------------------------------------------------------------------
+
+
+def flat_to_stream(v: torch.Tensor, T: int) -> torch.Tensor:
+    """(T*1024,) -> (8, T, 128) stream layout."""
+    return v.reshape(T, 8, 128).permute(1, 0, 2)
+
+
+def stream_to_flat(g: torch.Tensor) -> torch.Tensor:
+    """(8, T, 128) -> (T*1024,)."""
+    return g.permute(1, 0, 2).reshape(-1)
+
+
+def stream_to_mstream(g: torch.Tensor, Tk: int) -> torch.Tensor:
+    """(8,T,128) [qh, a, ql] -> (8, Tk*1024, 128) [pH, ca*1024+q, pL]
+    where a = ca*1024 + p (p = within-chunk position)."""
+    h = g.reshape(8, Tk, 8, 128, 128)  # [qh, ca, pH, pL, ql]
+    return h.permute(2, 1, 0, 4, 3).reshape(8, Tk * 1024, 128)
+
+
+def expand_x_table(x: torch.Tensor, segw: int, n_segs: int) -> torch.Tensor:
+    """The TPU expand kernel's x table: per-segment row ranges of x as
+    (rows, 128), each with an 8-row halo (segw*8 + 8 rows per segment)."""
+    segw8 = segw * 8
+    xp = F.pad(x, (0, (n_segs * segw8 + 8) * 128 - x.shape[0])).reshape(-1, 128)
+    if n_segs == 1:
+        return xp
+    return torch.cat(
+        [xp[s * segw8 : s * segw8 + segw8 + 8] for s in range(n_segs)]
+    )
+
+
+# ---------------------------------------------------------------------------
+# launching
+# ---------------------------------------------------------------------------
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """True when the pass gets CUDA tensors (launch the kernel), False for
+    CPU tensors (run the plain version); raise on anything else."""
+    devs = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devs):
+        return False
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{name}: tensors on mixed devices {sorted(map(str, devs))}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    return True
+
+
+def _check_dtype(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+
+
+def _launch(fn: str, device: torch.device, *args) -> None:
+    from cvr_tpu_torch.ops import _build
+
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
+
+
+def _p(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# K1 expand: windowed x gather with route stage 1 fused
+# ---------------------------------------------------------------------------
+
+
+def expand_plain(w8, gcls, seg_blk, li, x, segw: int, n_segs: int):
+    """g1 (8, T, 128): for idx = li[i,t,l], the x value at column
+    128*(seg*segw*8 + w8[t] + (idx>>7)) + (idx&127) of tile t's segment,
+    or 0 where idx>>7 is not below the tile group's class gcls[t>>3]."""
+    T = w8.shape[0]
+    x2 = expand_x_table(x, segw, n_segs)
+    idx = li.long()
+    hi, lo = idx >> 7, idx & 127
+    row = (seg_blk.long() * (segw * 8 + 8)).repeat_interleave(rp.TB)[:T]
+    row = (row + w8.long()).view(1, T, 1)
+    ncand = gcls.long().repeat_interleave(8).view(1, T, 1)
+    return torch.where(hi < ncand, x2[row + hi, lo], 0.0)
+
+
+def expand(w8, gcls, seg_blk, li, x, segw: int, n_segs: int):
+    """K1: the expanded x stream g1 (8, T, 128); see expand_plain.
+
+    w8 (T,) int32 segment-relative sublane bases; gcls (T//8,) int32
+    gather classes; seg_blk (T//TB,) int32 x segments; li (8, T, 128)
+    int16 in-window offsets (stage 1 composed); x (ncols,) f32.
+    """
+    if not _on_card("expand", w8, gcls, seg_blk, li, x):
+        return expand_plain(w8, gcls, seg_blk, li, x, segw, n_segs)
+    for t, dt in ((w8, torch.int32), (gcls, torch.int32),
+                  (seg_blk, torch.int32), (li, torch.int16),
+                  (x, torch.float32)):
+        _check_dtype("expand", t, dt)
+    T = w8.shape[0]
+    if T % rp.TB or li.shape != (8, T, 128):
+        raise ValueError("expand: tiles must be padded to TB, li (8, T, 128)")
+    g1 = torch.empty((8, T, 128), dtype=torch.float32, device=x.device)
+    if T:
+        _launch("cvr_expand", x.device, _p(li), _p(w8), _p(gcls),
+                _p(seg_blk), _p(x), _p(g1), T, segw * 8, x.shape[0], rp.TB)
+        expand.launches += 1
+    return g1
+
+
+expand.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2 route_middle: M1 (relayout + within-chunk perm) + M2 (chunk select)
+# ---------------------------------------------------------------------------
+
+
+def route_middle_plain(g1, m1, csel):
+    """mstream (8, T, 128): mid[i, cd*1024+Q, l] =
+    g1[Q>>7, ca*1024 + m1[i, ca*1024+Q, l], Q&127], ca = csel[i, cd*1024+Q, l]
+    (0 where ca is not a chunk)."""
+    T = g1.shape[1]
+    Tk = T // 1024
+    ca = csel.long()
+    valid = (ca >= 0) & (ca < Tk)
+    ca = ca.clamp(0, Tk - 1)
+    Q = (torch.arange(T, device=g1.device) % 1024).view(1, T, 1)
+    m = torch.gather(m1.long(), 1, ca * 1024 + Q)
+    return torch.where(valid, g1[Q >> 7, ca * 1024 + m, Q & 127], 0.0)
+
+
+def route_middle(g1, m1, csel):
+    """K2: the recursive route middle's M1 and chunk-select stages on
+    g1 (8, Tk*1024, 128) f32 with planes m1, csel (8, Tk*1024, 128) int16;
+    see route_middle_plain.  M3 is fused into reduce_slices."""
+    if not _on_card("route_middle", g1, m1, csel):
+        return route_middle_plain(g1, m1, csel)
+    _check_dtype("route_middle", g1, torch.float32)
+    _check_dtype("route_middle", m1, torch.int16)
+    _check_dtype("route_middle", csel, torch.int16)
+    T = g1.shape[1]
+    if T % 1024 or g1.shape != (8, T, 128) or m1.shape != g1.shape or (
+        csel.shape != g1.shape
+    ):
+        raise ValueError("route_middle: planes must be (8, Tk*1024, 128)")
+    out = torch.empty_like(g1)
+    _launch("cvr_route_middle", g1.device, _p(g1), _p(m1), _p(csel),
+            _p(out), T, T // 1024)
+    route_middle.launches += 1
+    return out
+
+
+route_middle.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 reduce_slices: M3 + relayout + stage 3 + x vals + per-slice sums
+# ---------------------------------------------------------------------------
+
+
+def reduce_products_plain(m, m3, vals, p3, rows, fast):
+    """P (8, len(rows), 128): the products of plane rows ``rows`` (int64),
+    with stage 3 aligned (``fast``, bool per row) on zone-A rows.
+
+    For row R: c = R>>7, fL = R&127, base = (c>>3)*1024,
+    idx = p3[i,R,l], hi = i if fast else idx>>7, q = base + (hi<<7 | idx&127),
+    i3 = m3[c&7, q, fL], P = vals[i,R,l] * m[i3>>7, q, i3&127]."""
+    c = (rows >> 7).view(1, -1, 1)
+    fL = (rows & 127).view(1, -1, 1)
+    idx = p3[:, rows, :].long()
+    sub = torch.arange(8, device=m.device).view(8, 1, 1)
+    hi = torch.where(fast.view(1, -1, 1), sub, idx >> 7)
+    q = ((c >> 3) << 10) + ((hi << 7) | (idx & 127))
+    i3 = m3[c & 7, q, fL].long()
+    return vals[:, rows, :] * m[i3 >> 7, q, i3 & 127]
+
+
+def reduce_slices_plain(m, m3, vals, p3, row0, row1, out, fast, nys: int):
+    """ys (8, nys, 128): ys[:, out[k], :] = sum over plane rows
+    [row0[k], row1[k]) of the products (reduce_products_plain); slices
+    no item names stay zero."""
+    row0, row1 = row0.long(), row1.long()
+    counts = row1 - row0
+    item = torch.repeat_interleave(
+        torch.arange(row0.shape[0], device=m.device), counts
+    )
+    first = torch.cumsum(counts, 0) - counts
+    rows = row0[item] + torch.arange(item.shape[0], device=m.device) - first[item]
+    P = reduce_products_plain(m, m3, vals, p3, rows, fast.bool()[item])
+    sums = torch.zeros((8, row0.shape[0], 128), dtype=P.dtype, device=m.device)
+    sums.index_add_(1, item, P)
+    ys = torch.zeros((8, nys, 128), dtype=P.dtype, device=m.device)
+    ys[:, out.long(), :] = sums
+    return ys
+
+
+def reduce_slices(m, m3, vals, p3, row0, row1, out, fast, nys: int):
+    """K3: per-slice lane sums ys (8, nys, 128) from the mstream m
+    (8, TM, 128) f32, its M3 plane m3 (8, TM, 128) int16, the value
+    planes vals (8, S_pad, 128) f32 and stage-3 plane p3 (8, S_pad, 128)
+    int16.  Slice k sums plane rows [row0[k], row1[k]) into ys[:, out[k]];
+    fast[k] marks zone-A slices (aligned stage 3).  Tables are int32;
+    see reduce_slices_plain."""
+    if not _on_card("reduce_slices", m, m3, vals, p3, row0, row1, out, fast):
+        return reduce_slices_plain(m, m3, vals, p3, row0, row1, out, fast, nys)
+    for t, dt in ((m, torch.float32), (m3, torch.int16),
+                  (vals, torch.float32), (p3, torch.int16),
+                  (row0, torch.int32), (row1, torch.int32),
+                  (out, torch.int32), (fast, torch.int32)):
+        _check_dtype("reduce_slices", t, dt)
+    TM, S = m.shape[1], vals.shape[1]
+    if m3.shape != m.shape or p3.shape != vals.shape or TM % 1024:
+        raise ValueError("reduce_slices: plane shapes disagree")
+    ys = torch.zeros((8, nys, 128), dtype=torch.float32, device=m.device)
+    n = row0.shape[0]
+    if n:
+        _launch("cvr_reduce_slices", m.device, _p(m), _p(m3), _p(vals),
+                _p(p3), _p(row0), _p(row1), _p(out), _p(fast), _p(ys), n,
+                TM, S, nys)
+        reduce_slices.launches += 1
+    return ys
+
+
+reduce_slices.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4 route_small: a whole 1024-tile route (stage 1 + middle + stage 3)
+# ---------------------------------------------------------------------------
+
+
+def route_small_plain(ysp, s1, mid, s3, n: int):
+    """y (n,) = the route of the stream ysp (8, 1024, 128) by its stage
+    planes s1, mid (flat middle) and s3, flattened to natural order."""
+    r = torch.arange(1024, device=ysp.device).view(1, 1024, 1)
+    s1l = s1.long()
+    g = ysp[s1l >> 7, r, s1l & 127]  # stage 1, [q>>7, a, q&127]
+    g = g[r >> 7, mid.long(), r & 127]  # middle, [d>>7, q, d&127]
+    y = g[r >> 7, s3.long(), r & 127]  # stage 3, [o>>7, d, o&127]
+    return stream_to_flat(y)[:n]
+
+
+def route_small(ysp, s1, mid, s3, n: int):
+    """K4: y (n,) from ysp (8, 1024, 128) f32 and the int16 planes s1,
+    mid, s3 (8, 1024, 128) of a flat 1024-tile route; see
+    route_small_plain."""
+    if not _on_card("route_small", ysp, s1, mid, s3):
+        return route_small_plain(ysp, s1, mid, s3, n)
+    _check_dtype("route_small", ysp, torch.float32)
+    for t in (s1, mid, s3):
+        _check_dtype("route_small", t, torch.int16)
+    if ysp.shape != (8, 1024, 128) or not (
+        s1.shape == mid.shape == s3.shape == ysp.shape
+    ) or not 0 <= n <= 1024 * 1024:
+        raise ValueError("route_small: a flat route is (8, 1024, 128)")
+    y = torch.empty(n, dtype=torch.float32, device=ysp.device)
+    if n:
+        _launch("cvr_route_small", ysp.device, _p(ysp), _p(s1), _p(mid),
+                _p(s3), _p(y), n)
+        route_small.launches += 1
+    return y
+
+
+route_small.launches = 0
+
+
+# name -> (wrapper, plain version, TPU kernels it replaces)
+KERNELS = {
+    "expand": (
+        expand, expand_plain,
+        "cvr_tpu/ops/pallas_route.py:343",
+    ),
+    "route_middle": (
+        route_middle, route_middle_plain,
+        "cvr_tpu/ops/pallas_route.py:1203 + :1094",
+    ),
+    "reduce_slices": (
+        reduce_slices, reduce_slices_plain,
+        "cvr_tpu/ops/pallas_route.py:641 + :752 (+ :86)",
+    ),
+    "route_small": (
+        route_small, route_small_plain,
+        "cvr_tpu/ops/pallas_route.py:1278 + :1298",
+    ),
+}
+
+
+def reset_launches() -> None:
+    for wrapper, _plain, _src in KERNELS.values():
+        wrapper.launches = 0
