@@ -127,8 +127,9 @@ def run_spmv_benchmark(
 ) -> BenchResult:
     """End to end: convert (timed) -> SpMV iterations (timed) -> verify.
 
-    impl "sell-routed": the routed pack (hub-column
-    hybrid off) and the four-kernel SpMV; "csr": plain torch CSR.
+    impl "sell-routed": the routed pack (the hub-column hybrid where its
+    gate fires, as in the JAX harness) and the routed SpMV; "csr": plain
+    torch CSR.
     """
     from cvr_tpu_torch.formats.sell_routed import sell_pack_routed
     from cvr_tpu_torch.ops.spmv_ref import (
@@ -151,7 +152,7 @@ def run_spmv_benchmark(
 
     if impl == "sell-routed":
         t0 = time.perf_counter()
-        sr = sell_pack_routed(csr, hot="off")
+        sr = sell_pack_routed(csr)
         preproc = time.perf_counter() - t0
         padded = sr.T * 1024
         sd = to_device_routed(sr, dev)

@@ -59,6 +59,46 @@ def web_google_like(seed: int = 42) -> COOMatrix:
     return rmat_matrix(scale=20, edge_factor=6, seed=seed)
 
 
+def wiki_talk_like(seed: int = 7) -> COOMatrix:
+    """A deterministic stand-in for wiki-Talk (2.39M x 2.39M, 5.02M nnz,
+    extreme in-degree skew): steeper R-MAT quadrants produce celebrity
+    columns and rows with 10^4-10^5 nonzeros (2,097,152 rows)."""
+    return rmat_matrix(
+        scale=21, edge_factor=3, a=0.65, b=0.15, c=0.15, seed=seed
+    )
+
+
+def fsm_like(
+    n: int = 1 << 21, deg: int = 8, hub_states: int = 1024,
+    reach: int = 64, p_fail: float = 0.55, seed: int = 19,
+) -> COOMatrix:
+    """Stand-in for the FSM domain (automata transition matrices of
+    pattern-matching FSMs).
+
+    The structure of an Aho-Corasick-style automaton: near-constant row
+    out-degree (the stored alphabet transitions), columns split between
+    forward trie edges (state + small offset: spatial locality) and
+    failure links back to a small set of shallow states near the root
+    (extreme column reuse).  ``p_fail`` of the transitions land on a
+    geometric distribution over the first ``hub_states`` columns, the hub
+    columns the hub-column hybrid captures."""
+    rng = np.random.default_rng(seed)
+    nnz = n * deg
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+    fail = rng.random(nnz) < p_fail
+    g = rng.geometric(p=8.0 / hub_states, size=nnz).astype(np.int64)
+    hub = np.minimum(g - 1, hub_states - 1)
+    fwd = rows + rng.integers(1, reach + 1, size=nnz)
+    cols = np.where(fail, hub, np.minimum(fwd, n - 1))
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    return COOMatrix(
+        rows=rows.astype(np.int32),
+        cols=cols.astype(np.int32),
+        vals=vals,
+        shape=(n, n),
+    ).sum_duplicates()
+
+
 def banded_matrix(
     n: int, bandwidth: int = 27, seed: int = 0, dtype=np.float32
 ) -> COOMatrix:

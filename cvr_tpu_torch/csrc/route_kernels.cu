@@ -1,6 +1,6 @@
-// Hopper (sm_90a) kernels of the routed-gather SpMV main path.
+// Hopper (sm_90a) kernels of the routed-gather SpMV.
 //
-// Four passes replace the seven Pallas TPU kernels that the JAX package
+// Seven passes replace the eleven Pallas TPU kernels that the JAX package
 // runs on this path (cvr_tpu/ops/pallas_route.py):
 //
 //   K1 expand         <- _expand_kernel                (:343)
@@ -8,6 +8,15 @@
 //   K3 reduce_slices  <- _reduce_m3_kernel + _reduce_m3_regular_kernel
 //                        with _emission_sweep          (:641, :752, :86)
 //   K4 route_small    <- _sr1_kernel + _sr2_kernel     (:1278, :1298)
+//   K5 tileperm       <- _tileperm_kernel              (:205)
+//   K6 route_m3       <- _m3_fused_kernel              (:1210)
+//   K7 reduce_hot     <- _reduce_hot_kernel + _reduce_hot_regular_kernel
+//                        with _hot_gather_groups, _emission_sweep
+//                                                      (:942, :1022, :899, :86)
+//
+// K5, K2, K6, K5 in that order are the y-route above 1024 tiles (outputs
+// above 1,048,576 rows); K4 is the y-route up to 1024 tiles.  K7 runs only
+// when the pack captured hub columns (the hub-column hybrid).
 //
 // Layouts (all row-major, C contiguous):
 //   stream   (8, T, 128): element (tile a, pos p) at [p>>7, a, p&127]
@@ -17,7 +26,7 @@
 //
 // What bounds them: every pass is an index-driven gather.  Per output
 // element a pass reads ~2 B of int16 index (K3 and K4 chase two or three
-// of them) and 4 B of f32 data, and writes 4 B, so all four are bound by
+// of them) and 4 B of f32 data, and writes 4 B, so all seven are bound by
 // device-memory bytes and by the latency of the dependent loads, not by
 // arithmetic.  The design answer, for this first version: one thread per
 // output element (K3: one thread per lane of a slice), so that the index
@@ -156,6 +165,90 @@ __global__ void route_small_kernel(const float* __restrict__ ysp,
   y[e] = ysp[((s1v >> 7) * 1024 + a) * 128 + (s1v & 127)];
 }
 
+// K5: a within-tile permutation in stream layout (route stages 1 and 3
+// of a y-route above 1024 tiles):
+//   out[i,a,l] = data[v>>7, a, v&127],  v = idx[i,a,l]
+// and 0 where v is not in [0, 1024) (the TPU's 8-way select matches no
+// sublane there).  The TPU pads T to its block; here any T runs.
+__global__ void tileperm_kernel(const float* __restrict__ data,
+                                const int16_t* __restrict__ idx,
+                                float* __restrict__ out, long long T) {
+  long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= 8LL * T * 128) return;
+  long long a = (e >> 7) % T;
+  int v = idx[e];
+  out[e] = (v >= 0 && v < 1024)
+               ? data[((v >> 7) * T + a) * 128 + (v & 127)]
+               : 0.f;
+}
+
+// K6: the recursive route middle's M3 stage plus the mstream->stream
+// relayout, as the composition mstream_to_stream(gather_slabs(m, m3)):
+//   g[fH, r, fL]               = m[v>>7, r, v&127],  v = m3[fH, r, fL]
+//   out[qh, cd*1024+f, ql]     = g[fH, cd*1024+q, fL]
+// with q = qh*128+ql, f = fH*128+fL.  For fixed (cd, qh, fH) that is a
+// 128x128 transpose of g over (ql, fL); a block moves one 32x32 tile of it
+// through shared memory, so m3 is read and out written coalesced (the TPU
+// does the same transpose in VMEM, per chunk quarter).
+constexpr int kTile = 32;
+constexpr int kRows = 8;
+
+__global__ void route_m3_kernel(const float* __restrict__ m,
+                                const int16_t* __restrict__ m3,
+                                float* __restrict__ out, long long T) {
+  __shared__ float tile[kTile][kTile + 1];
+  // blockIdx.x: 16 tiles of the 128x128 slab; blockIdx.y: (cd, qh, fH)
+  int tq = (blockIdx.x >> 2) * kTile;  // ql tile base
+  int tf = (blockIdx.x & 3) * kTile;   // fL tile base
+  long long slab = blockIdx.y;
+  int fH = static_cast<int>(slab & 7);
+  int qh = static_cast<int>((slab >> 3) & 7);
+  long long cd = slab >> 6;
+  long long rbase = cd * 1024 + qh * 128;  // mstream row of ql = 0
+  for (int j = threadIdx.y; j < kTile; j += kRows) {
+    long long r = rbase + tq + j;
+    int fL = tf + threadIdx.x;
+    int v = m3[(fH * T + r) * 128 + fL];
+    tile[j][threadIdx.x] =
+        (v >= 0 && v < 1024) ? m[((v >> 7) * T + r) * 128 + (v & 127)] : 0.f;
+  }
+  __syncthreads();
+  long long dbase = cd * 1024 + fH * 128;  // stream tile of fL = 0
+  for (int j = threadIdx.y; j < kTile; j += kRows) {
+    int fL = tf + j;
+    int ql = tq + threadIdx.x;
+    out[(qh * T + dbase + fL) * 128 + ql] = tile[threadIdx.x][j];
+  }
+}
+
+// K7: the hub-column hybrid's per-slice sums.  For plane row R of slice
+// `it`: P[i,R,l] = xh[hidx[i,R,l]] * hvals[i,R,l] (0 past the table), summed
+// over rows [row0[it], row1[it]) into ys[i, out[it], l].  The TPU gathers
+// from an (8,128) VMEM hot table by 1/2/4/8 candidate windows per 8-row
+// group (the gather classes) and walks rows with the emission sweep, or
+// sums fixed width-w runs in regular regions; here the host derives each
+// slice's row range once (reduce_table over the hot planes' emissions,
+// reduce groups and regions), the table (at most 4 KB) is read in place
+// from L1/L2 by direct index, and one thread per (slice, sublane, lane)
+// loops over its rows, as K3 does.
+__global__ void reduce_hot_kernel(
+    const float* __restrict__ xh, const int16_t* __restrict__ hidx,
+    const float* __restrict__ hvals, const int32_t* __restrict__ row0,
+    const int32_t* __restrict__ row1, const int32_t* __restrict__ out,
+    float* __restrict__ ys, long long nxh, long long S, long long nys) {
+  int it = blockIdx.x;
+  long long i = blockIdx.y;
+  int l = threadIdx.x;
+  float acc = 0.f;
+  for (long long R = row0[it]; R < row1[it]; ++R) {
+    long long pe = (i * S + R) * 128 + l;
+    int v = hidx[pe];
+    float xv = (v >= 0 && v < nxh) ? __ldg(xh + v) : 0.f;
+    acc += xv * hvals[pe];
+  }
+  ys[(i * nys + out[it]) * 128 + l] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -203,6 +296,39 @@ int cvr_route_small(const void* ysp, const void* s1, const void* mid,
       static_cast<const float*>(ysp), static_cast<const int16_t*>(s1),
       static_cast<const int16_t*>(mid), static_cast<const int16_t*>(s3),
       static_cast<float*>(y), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_tileperm(const void* data, const void* idx, void* out, long long T,
+                 void* stream) {
+  tileperm_kernel<<<blocks_for(8LL * T * 128), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(data), static_cast<const int16_t*>(idx),
+      static_cast<float*>(out), T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_route_m3(const void* m, const void* m3, void* out, long long T,
+                 void* stream) {
+  // (128/32)^2 tiles per slab; Tk chunks x 8 qh x 8 fH slabs
+  dim3 grid(16, static_cast<unsigned int>((T / 1024) * 64));
+  dim3 block(kTile, kRows);
+  route_m3_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(m), static_cast<const int16_t*>(m3),
+      static_cast<float*>(out), T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_reduce_hot(const void* xh, const void* hidx, const void* hvals,
+                   const void* row0, const void* row1, const void* out,
+                   void* ys, long long nitems, long long nxh, long long S,
+                   long long nys, void* stream) {
+  dim3 grid(static_cast<unsigned int>(nitems), 8);
+  reduce_hot_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xh), static_cast<const int16_t*>(hidx),
+      static_cast<const float*>(hvals), static_cast<const int32_t*>(row0),
+      static_cast<const int32_t*>(row1), static_cast<const int32_t*>(out),
+      static_cast<float*>(ys), nxh, S, nys);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,13 +15,15 @@ On top of the SELL planes (cvr_tpu_torch.formats.sell) the pack compiles:
 
 The whole route runs at pack time in the native library and leaves static
 index planes, so the device passes have no data-dependent control flow.
-This is the host layer of the port; it builds the same arrays as the JAX
-package's pack of the same matrix, array for array.  The hub-column
-hybrid (``hot="auto"``) is not ported yet.
+With ``hot="auto"`` (the default) the hub-column hybrid
+(cvr_tpu_torch.formats.hot) may first move the hottest columns' elements
+into hot planes.  This is the host layer of the port; it builds the same
+arrays as the JAX package's pack of the same matrix, array for array.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 
@@ -36,11 +38,6 @@ TILE = 1024
 # when its longest segment has >= ZONE_MINLEN nnz; below that, the
 # round-to-8 slot padding outweighs the finer-granularity width win.
 ZONE_MINLEN = 8
-
-_HOT_TODO = (
-    "the hub-column hybrid (formats/hot.py and its two reduce kernels) is "
-    "not ported yet: ROADMAP queue 2; pack with hot='off'"
-)
 
 
 @dataclass
@@ -83,6 +80,9 @@ class SellRouted:
     nslA: int = 0  # zone-A slices (128 segments each, leading)
     zone_rows: int = 0  # padded plane rows covered by zone A
     yslices: int = 0  # y-stream tiles (nslA//8 + zone-B slices)
+    # hub-column hybrid: the captured elements' planes
+    # (cvr_tpu_torch.formats.hot.HotPlanes); None = pure routed artifact
+    hot: object | None = None
 
 
 _FIELDS = (
@@ -99,16 +99,21 @@ def from_reference(sr) -> SellRouted:
 
     Reads the reference artifact's numpy attributes only (it imports
     nothing of the JAX package), so planes packed by the reference drive
-    the port's passes unchanged.
+    the port's passes unchanged, hot planes included.
     """
-    if getattr(sr, "hot", None) is not None:
-        raise NotImplementedError(_HOT_TODO)
+    from cvr_tpu_torch.formats.hot import HotPlanes
+
     if getattr(sr, "seg_ring", None) is not None:
         raise NotImplementedError(
             "ring-scheduled artifacts (the distributed routed path) are "
             "not ported yet: ROADMAP queue 1"
         )
-    return SellRouted(**{k: getattr(sr, k) for k in _FIELDS})
+    hp = getattr(sr, "hot", None)
+    hot = None
+    if hp is not None:
+        hot = HotPlanes(**{f.name: getattr(hp, f.name)
+                           for f in dataclasses.fields(HotPlanes)})
+    return SellRouted(**{k: getattr(sr, k) for k in _FIELDS}, hot=hot)
 
 
 def _zone_plan(sm: SellMatrix, YB: int, CH: int):
@@ -188,19 +193,42 @@ def _round_up(x: int, m: int) -> int:
 
 
 def sell_pack_routed(
-    csr, split_len: int | None = None, hot: str = "off"
+    csr, split_len: int | None = None, hot: str = "auto"
 ) -> SellRouted:
     """CSR -> SELL-R in one step (the routed path's converter entry).
 
     split_len default: ``max(1024, 16 * mean_row_len)``, widened up to 4x
     while that keeps the segment count within 1024 slices (one flat
-    y-route).  ``hot`` must be "off": the hub-column hybrid is not ported
-    yet, and ``CVR_HOT=1`` (the reference's forcing switch) raises too.
+    y-route).
+
+    ``hot``: "auto" enables the hub-column hybrid when the pack-time cost
+    model predicts a win (cvr_tpu_torch/formats/hot.py), "off" disables
+    it.  The JAX package's switches apply the same way: ``CVR_HOT=0``
+    disables the hybrid (the harness and the CLI take no ``hot``
+    argument, so it is how their users pack without it), ``CVR_HOT=1``
+    forces it on whatever the model says, and ``CVR_HOT_NH`` pins the
+    hot-set size.
     """
     from cvr_tpu_torch.formats.sell import sell_pack
 
-    if hot != "off" or os.environ.get("CVR_HOT", "") == "1":
-        raise NotImplementedError(_HOT_TODO)
+    hot_env = os.environ.get("CVR_HOT", "")
+    hotinfo = None
+    pt_hot = PhaseTimer()
+    if hot == "auto" and hot_env != "0":
+        from cvr_tpu_torch.formats.hot import capture_split, plan_hot
+
+        with pt_hot.phase("hot_plan"):
+            nh_env = os.environ.get("CVR_HOT_NH", "")
+            if nh_env:
+                plan = (int(nh_env), 0.0)
+            elif hot_env == "1":
+                plan = plan_hot(csr, min_net=float("-inf"))
+            else:
+                plan = plan_hot(csr)
+        if plan is not None:
+            with pt_hot.phase("hot_capture"):
+                csr, hotinfo = capture_split(csr, plan[0], plan[1])
+
     if split_len is None:
         mean_len = -(-max(csr.nnz, 1) // max(csr.shape[0], 1))
         split_len = max(1024, 16 * mean_len)
@@ -213,8 +241,20 @@ def sell_pack_routed(
                 break
     sm = sell_pack(csr, C=TILE, split_len=split_len)
     sr = pack_routed(sm)
-    sr.convert_time += sm.convert_time
-    sr.convert_phases = {**(sm.convert_phases or {}), **sr.convert_phases}
+    if hotinfo is not None:
+        from cvr_tpu_torch.formats.hot import build_hot_planes
+        from cvr_tpu_torch.ops import route_planes as rp
+
+        with pt_hot.phase("hot_planes"):
+            sr.hot = build_hot_planes(sm, hotinfo, rp.YB, rp.CH)
+        # the artifact represents the full matrix (rest + captured)
+        sr.nnz += int(hotinfo.hot_ptr[-1])
+    sr.convert_time += sm.convert_time + pt_hot.total
+    sr.convert_phases = {
+        **(sm.convert_phases or {}),
+        **sr.convert_phases,
+        **dict(pt_hot.phases),
+    }
     return sr
 
 

@@ -85,9 +85,13 @@ def load():
         p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, p,
     ]
     lib.cvr_route_small.argtypes = [p, p, p, p, p, i64, p]
+    lib.cvr_tileperm.argtypes = [p, p, p, i64, p]
+    lib.cvr_route_m3.argtypes = [p, p, p, i64, p]
+    lib.cvr_reduce_hot.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, p]
     for fn in (
         lib.cvr_expand, lib.cvr_route_middle, lib.cvr_reduce_slices,
-        lib.cvr_route_small,
+        lib.cvr_route_small, lib.cvr_tileperm, lib.cvr_route_m3,
+        lib.cvr_reduce_hot,
     ):
         fn.restype = ctypes.c_int
     _LIB = lib

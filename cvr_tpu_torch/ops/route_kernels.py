@@ -1,9 +1,10 @@
-"""The routed SpMV's device passes: four Hopper kernels and their wrappers.
+"""The routed SpMV's device passes: seven Hopper kernels and their wrappers.
 
 Each pass has three parts side by side:
 
   * a wrapper (``expand``, ``route_middle``, ``reduce_slices``,
-    ``route_small``) that launches the CUDA kernel of
+    ``route_small``, ``tileperm``, ``route_m3``, ``reduce_hot``) that
+    launches the CUDA kernel of
     cvr_tpu_torch/csrc/route_kernels.cu for CUDA tensors and counts the
     launch in its ``launches`` attribute.  A wrapper given CPU tensors
     runs the plain version instead, and only then: on a CUDA tensor it
@@ -48,6 +49,13 @@ def stream_to_mstream(g: torch.Tensor, Tk: int) -> torch.Tensor:
     """(8,T,128) [qh, a, ql] -> (8, Tk*1024, 128) [pH, ca*1024+q, pL]
     where a = ca*1024 + p (p = within-chunk position)."""
     h = g.reshape(8, Tk, 8, 128, 128)  # [qh, ca, pH, pL, ql]
+    return h.permute(2, 1, 0, 4, 3).reshape(8, Tk * 1024, 128)
+
+
+def mstream_to_stream(m: torch.Tensor, Tk: int) -> torch.Tensor:
+    """(8, Tk*1024, 128) [fH, cd*1024+q, fL] -> (8,T,128) [qh, d, ql]
+    where d = cd*1024 + f."""
+    h = m.reshape(8, Tk, 8, 128, 128)  # [fH, cd, qh, ql, fL]
     return h.permute(2, 1, 0, 4, 3).reshape(8, Tk * 1024, 128)
 
 
@@ -302,6 +310,131 @@ def route_small(ysp, s1, mid, s3, n: int):
 route_small.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K5 tileperm: a within-tile permutation of a stream (route stages 1 and 3)
+# ---------------------------------------------------------------------------
+
+
+def tileperm_plain(data, idx):
+    """out (8, T, 128): out[i,a,l] = data[idx>>7, a, idx&127] for
+    idx = idx_[i,a,l], 0 where idx is not in [0, 1024)."""
+    T = data.shape[1]
+    v = idx.long()
+    valid = (v >= 0) & (v < 1024)
+    v = v.clamp(0, 1023)
+    a = torch.arange(T, device=data.device).view(1, T, 1)
+    return torch.where(valid, data[v >> 7, a, v & 127], 0.0)
+
+
+def tileperm(data, idx):
+    """K5: route stage 1 or 3 of a y-route above 1024 tiles, on data
+    (8, T, 128) f32 with the int16 plane idx (8, T, 128); see
+    tileperm_plain."""
+    if not _on_card("tileperm", data, idx):
+        return tileperm_plain(data, idx)
+    _check_dtype("tileperm", data, torch.float32)
+    _check_dtype("tileperm", idx, torch.int16)
+    T = data.shape[1]
+    if data.shape != (8, T, 128) or idx.shape != data.shape:
+        raise ValueError("tileperm: data and idx must be (8, T, 128)")
+    out = torch.empty_like(data)
+    if T:
+        _launch("cvr_tileperm", data.device, _p(data), _p(idx), _p(out), T)
+        tileperm.launches += 1
+    return out
+
+
+tileperm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6 route_m3: M3 (within-slab gather) + the mstream -> stream relayout
+# ---------------------------------------------------------------------------
+
+
+def route_m3_plain(m, m3):
+    """(8, T, 128) stream: mstream_to_stream(gather_slabs(m, m3), Tk),
+    where gather_slabs(m, m3)[i, r, l] = m[v>>7, r, v&127] for
+    v = m3[i, r, l] is a tileperm over the mstream's rows."""
+    return mstream_to_stream(tileperm_plain(m, m3), m.shape[1] // 1024)
+
+
+def route_m3(m, m3):
+    """K6: the recursive route middle's last stage on the mstream m
+    (8, Tk*1024, 128) f32 with its int16 plane m3, relayout to a stream;
+    see route_m3_plain."""
+    if not _on_card("route_m3", m, m3):
+        return route_m3_plain(m, m3)
+    _check_dtype("route_m3", m, torch.float32)
+    _check_dtype("route_m3", m3, torch.int16)
+    T = m.shape[1]
+    if T % 1024 or m.shape != (8, T, 128) or m3.shape != m.shape:
+        raise ValueError("route_m3: planes must be (8, Tk*1024, 128)")
+    out = torch.empty_like(m)
+    if T:
+        _launch("cvr_route_m3", m.device, _p(m), _p(m3), _p(out), T)
+        route_m3.launches += 1
+    return out
+
+
+route_m3.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7 reduce_hot: the hub-column hybrid's per-slice sums
+# ---------------------------------------------------------------------------
+
+
+def reduce_hot_plain(xh, hidx, hvals, row0, row1, out, nys: int):
+    """ys (8, nys, 128): ys[:, out[k], :] = sum over plane rows
+    [row0[k], row1[k]) of xh[hidx] * hvals (xh read as 0 past its end);
+    slices no item names stay zero."""
+    row0, row1 = row0.long(), row1.long()
+    counts = row1 - row0
+    item = torch.repeat_interleave(
+        torch.arange(row0.shape[0], device=xh.device), counts
+    )
+    first = torch.cumsum(counts, 0) - counts
+    rows = row0[item] + torch.arange(item.shape[0], device=xh.device) - first[item]
+    v = hidx[:, rows, :].long()
+    valid = (v >= 0) & (v < xh.shape[0])
+    P = torch.where(valid, xh[v.clamp(0, xh.shape[0] - 1)], 0.0)
+    P = P * hvals[:, rows, :]
+    sums = torch.zeros((8, row0.shape[0], 128), dtype=P.dtype, device=xh.device)
+    sums.index_add_(1, item, P)
+    ys = torch.zeros((8, nys, 128), dtype=P.dtype, device=xh.device)
+    ys[:, out.long(), :] = sums
+    return ys
+
+
+def reduce_hot(xh, hidx, hvals, row0, row1, out, nys: int):
+    """K7: per-slice sums ys (8, nys, 128) of the captured hot elements:
+    the hot table xh (NH,) f32 = x[hot_ids], the rank plane hidx
+    (8, S_hp, 128) int16 and the value plane hvals (8, S_hp, 128) f32.
+    Slice k sums plane rows [row0[k], row1[k]) into ys[:, out[k]]; the
+    tables are int32.  See reduce_hot_plain."""
+    if not _on_card("reduce_hot", xh, hidx, hvals, row0, row1, out):
+        return reduce_hot_plain(xh, hidx, hvals, row0, row1, out, nys)
+    for t, dt in ((xh, torch.float32), (hidx, torch.int16),
+                  (hvals, torch.float32), (row0, torch.int32),
+                  (row1, torch.int32), (out, torch.int32)):
+        _check_dtype("reduce_hot", t, dt)
+    S = hvals.shape[1]
+    if hvals.shape != (8, S, 128) or hidx.shape != hvals.shape:
+        raise ValueError("reduce_hot: hidx and hvals must be (8, S, 128)")
+    ys = torch.zeros((8, nys, 128), dtype=torch.float32, device=xh.device)
+    n = row0.shape[0]
+    if n:
+        _launch("cvr_reduce_hot", xh.device, _p(xh), _p(hidx), _p(hvals),
+                _p(row0), _p(row1), _p(out), _p(ys), n, xh.shape[0], S,
+                nys)
+        reduce_hot.launches += 1
+    return ys
+
+
+reduce_hot.launches = 0
+
+
 # name -> (wrapper, plain version, TPU kernels it replaces)
 KERNELS = {
     "expand": (
@@ -319,6 +452,18 @@ KERNELS = {
     "route_small": (
         route_small, route_small_plain,
         "cvr_tpu/ops/pallas_route.py:1278 + :1298",
+    ),
+    "tileperm": (
+        tileperm, tileperm_plain,
+        "cvr_tpu/ops/pallas_route.py:205",
+    ),
+    "route_m3": (
+        route_m3, route_m3_plain,
+        "cvr_tpu/ops/pallas_route.py:1210",
+    ),
+    "reduce_hot": (
+        reduce_hot, reduce_hot_plain,
+        "cvr_tpu/ops/pallas_route.py:942 + :1022 (+ :899, :86)",
     ),
 }
 

@@ -7,12 +7,15 @@ Pipeline (cvr_tpu_torch/formats/sell_routed.py packs the planes):
         | stream_to_mstream(g1)               relayout only (Tk == 1)
     ys  = reduce_slices(m, m3, vals, p3)  K3  M3 + stage 3 + x vals + sums
     ysp = zone-A fold, pad to the y-route's tiles
-    y   = route_small(ysp)                K4  the y-route to row order
+    ysp += reduce_hot(x[hot_ids], ...)    K7  hub-column hybrid (hot planes)
+    y   = route_small(ysp)                K4  the y-route, Tp == 1024
+        | tileperm(ysp, s1) -> route_middle -> route_m3 -> tileperm(s3)
+                                          K5, K2, K6, K5  Tp > 1024
     y   = y * ymask ; y[extra_row] += ysp[extra_src]
 
 The kernels are in cvr_tpu_torch/ops/route_kernels.py; everything else
-here is plain torch.  Routes the port has no kernel for yet (a y-route
-above 1024 tiles, hot planes) raise NotImplementedError.
+here is plain torch.  A route middle the port has no kernel for yet (the
+"brute" middle) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,10 +46,10 @@ class RouteMidDevice:
 
 @dataclass(frozen=True)
 class RouteDevice:
-    """A flat 1024-tile route (stages 1/3 + middle) for route_small."""
+    """A route's stage planes: stages 1/3 and the middle."""
 
     s1: torch.Tensor
-    mid: torch.Tensor
+    mid: RouteMidDevice
     s3: torch.Tensor
     T: int
     Tp: int
@@ -79,10 +82,24 @@ class SellRoutedDevice:
     n_segs: int
     nslA: int  # leading zone-A slices (folded before the y-route)
     yslices: int  # y-stream tiles after the zone-A fold
+    # hub-column hybrid (cvr_tpu_torch/formats/hot.py); hot_nslices == 0
+    # means no hot planes and the fields below are None
+    hidx: torch.Tensor | None = None  # (8, S_hp, 128) int16 hot ranks
+    hvals: torch.Tensor | None = None  # (8, S_hp, 128) f32
+    hot_ids: torch.Tensor | None = None  # (NH,) int64 hot column ids
+    # the hot reduce's slice table, as red_row0/red_row1/red_out
+    hot_row0: torch.Tensor | None = None
+    hot_row1: torch.Tensor | None = None
+    hot_out: torch.Tensor | None = None
+    hot_nslices: int = 0
 
 
-def reduce_table(sr: SellRouted) -> tuple[np.ndarray, ...]:
-    """The reduce pass's per-slice row ranges, derived once on the host.
+def reduce_table(emit, ycall_rows, regions, nslices: int,
+                 zone_rows: int = 0) -> tuple[np.ndarray, ...]:
+    """A reduce pass's per-slice row ranges, derived once on the host,
+    for the main planes (emit, ycall_rows, regions, nslices, zone_rows of
+    the pack) or the hot planes (hemit and the hot ycall_rows, regions and
+    slice count; no zone A).
 
     Reproduces the TPU reduce exactly: one reduce group of YB slices per
     ``ycall_rows`` range; inside a group, the regular regions sum fixed
@@ -96,11 +113,11 @@ def reduce_table(sr: SellRouted) -> tuple[np.ndarray, ...]:
     [row0[k], row1[k]) into y-stream slice out[k].
     """
     YB, CH = rp.YB, rp.CH
-    regions = [tuple(int(v) for v in r) for r in np.asarray(sr.regions)]
-    emit = np.asarray(sr.emit)
+    regions = [tuple(int(v) for v in r) for r in np.asarray(regions)]
+    emit = np.asarray(emit)
     parts = []
-    for j, (r0g, nrg) in enumerate(np.asarray(sr.ycall_rows).tolist()):
-        nsl = min(YB, sr.nslices - j * YB)
+    for j, (r0g, nrg) in enumerate(np.asarray(ycall_rows).tolist()):
+        nsl = min(YB, nslices - j * YB)
         regs = sorted(r for r in regions if r[0] == j)
         pieces, cur = [], r0g
         for _, rr0, rnr, _w, _s in regs:
@@ -119,13 +136,13 @@ def reduce_table(sr: SellRouted) -> tuple[np.ndarray, ...]:
             live = emit[e] < nsl
             e, starts = e[live], starts[live]
             parts.append((starts, e + 1, j * YB + emit[e],
-                          np.full(e.shape, r0 + nr <= sr.zone_rows)))
+                          np.full(e.shape, r0 + nr <= zone_rows)))
         for _, r0, nr, w, srel in regs:
             k = np.arange(nr // w)
             if srel + k.shape[0] > nsl:
                 raise ValueError("regular region runs past its group")
             parts.append((r0 + k * w, r0 + (k + 1) * w, j * YB + srel + k,
-                          np.full(k.shape, r0 + nr <= sr.zone_rows)))
+                          np.full(k.shape, r0 + nr <= zone_rows)))
     cols = [np.concatenate([p[i] for p in parts]) if parts else np.zeros(0)
             for i in range(4)]
     out = cols[2]
@@ -134,33 +151,54 @@ def reduce_table(sr: SellRouted) -> tuple[np.ndarray, ...]:
     return tuple(c.astype(np.int32) for c in cols)
 
 
-def to_device_routed(sr: SellRouted, device) -> SellRoutedDevice:
-    """Upload the routed artifact's planes to ``device``."""
+def _put(device):
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return put
 
-    mp = sr.mid
+
+def _mid_to_device(mp: dict, put) -> RouteMidDevice:
     if mp["kind"] == "flat":
-        mid = RouteMidDevice(kind="flat", Tk=mp["Tk"], mid=put(mp["mid"]))
-    elif mp["kind"] == "rec":
-        mid = RouteMidDevice(kind="rec", Tk=mp["Tk"], m1=put(mp["m1"]),
-                             csel=put(mp["csel"]), m3=put(mp["m3"]))
-    else:
-        raise NotImplementedError(
-            f"route middle kind {mp['kind']!r} is not ported yet: "
-            "ROADMAP queue 2"
-        )
-    ya = sr.y_ra
-    if ya["Tp"] != 1024 or ya["mid_planes"]["kind"] != "flat":
-        raise NotImplementedError(
-            f"a y-route over Tp={ya['Tp']} tiles (tileperm_ss + m3_fused) "
-            "is not ported yet: ROADMAP queue 2"
-        )
-    nrows_out = ya["n"]
+        return RouteMidDevice(kind="flat", Tk=mp["Tk"], mid=put(mp["mid"]))
+    if mp["kind"] == "rec":
+        return RouteMidDevice(kind="rec", Tk=mp["Tk"], m1=put(mp["m1"]),
+                              csel=put(mp["csel"]), m3=put(mp["m3"]))
+    raise NotImplementedError(
+        f"route middle kind {mp['kind']!r} is not ported yet: "
+        "ROADMAP queue 2"
+    )
+
+
+def route_to_device(ra: dict, device) -> RouteDevice:
+    """Upload a route's arrays (route_planes.route_arrays_from_perm) to
+    ``device``."""
+    put = _put(device)
+    mid = _mid_to_device(ra["mid_planes"], put)
+    return RouteDevice(s1=put(ra["s1"]), mid=mid, s3=put(ra["s3"]),
+                       T=ra["T"], Tp=ra["Tp"], n=ra["n"])
+
+
+def to_device_routed(sr: SellRouted, device) -> SellRoutedDevice:
+    """Upload the routed artifact's planes to ``device``."""
+    put = _put(device)
+    mid = _mid_to_device(sr.mid, put)
+    nrows_out = sr.y_ra["n"]
     # geometry-padding extras (forced dist shards) add into row nrows_out,
     # out of range: the reference drops them, the port filters them here
     keep = np.asarray(sr.extra_row) < nrows_out
-    row0, row1, out, fast = reduce_table(sr)
+    row0, row1, out, fast = reduce_table(sr.emit, sr.ycall_rows, sr.regions,
+                                         sr.nslices, sr.zone_rows)
+    hot = {}
+    hp = sr.hot
+    if hp is not None:
+        h0, h1, hout, _ = reduce_table(hp.hemit, hp.ycall_rows, hp.regions,
+                                       hp.nslices)
+        hot = dict(
+            hidx=put(hp.hidx), hvals=put(hp.hvals),
+            hot_ids=put(np.asarray(hp.hot_ids, dtype=np.int64)),
+            hot_row0=put(h0), hot_row1=put(h1), hot_out=put(hout),
+            hot_nslices=hp.nslices,
+        )
     return SellRoutedDevice(
         w8=put(sr.w8),
         gcls=put(sr.gcls),
@@ -173,10 +211,7 @@ def to_device_routed(sr: SellRouted, device) -> SellRoutedDevice:
         red_row1=put(row1),
         red_out=put(out),
         red_fast=put(fast),
-        yroute=RouteDevice(
-            s1=put(ya["s1"]), mid=put(ya["mid_planes"]["mid"]),
-            s3=put(ya["s3"]), T=ya["T"], Tp=ya["Tp"], n=nrows_out,
-        ),
+        yroute=route_to_device(sr.y_ra, device),
         extra_src=put(np.asarray(sr.extra_src, dtype=np.int64)[keep]),
         extra_row=put(np.asarray(sr.extra_row, dtype=np.int64)[keep]),
         ymask=put(sr.ymask),
@@ -187,14 +222,15 @@ def to_device_routed(sr: SellRouted, device) -> SellRoutedDevice:
         n_segs=sr.n_segs,
         nslA=sr.nslA,
         yslices=sr.yslices or sr.nslices,
+        **hot,
     )
 
 
 def spmv_routed(sd: SellRoutedDevice, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x via the compiled route; x (ncols,) on sd's device."""
-    g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li,
-                   x.to(torch.float32).contiguous(), sd.segw, sd.n_segs)
-    return route_post_expand(sd, g1)
+    x = x.to(torch.float32).contiguous()
+    g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, x, sd.segw, sd.n_segs)
+    return route_post_expand(sd, g1, x)
 
 
 def middle(sd: SellRoutedDevice, g1: torch.Tensor):
@@ -225,13 +261,36 @@ def y_stream(sd: SellRoutedDevice, ys: torch.Tensor) -> torch.Tensor:
     return F.pad(ys, (0, 0, 0, sd.yroute.Tp - sd.yslices)).contiguous()
 
 
-def route_post_expand(sd: SellRoutedDevice, g1: torch.Tensor) -> torch.Tensor:
-    """The x-independent tail of the pipeline: middle, reduce, y-route,
-    row mask and split-row extras."""
+def hot_stream(sd: SellRoutedDevice, x: torch.Tensor) -> torch.Tensor:
+    """Per-slice sums (8, hot_nslices, 128) of the captured hot-column
+    elements, in the y-stream layout (flat position of segment g is g):
+    one add into the routed y stream integrates the hybrid."""
+    xh = x[sd.hot_ids]
+    return rk.reduce_hot(xh, sd.hidx, sd.hvals, sd.hot_row0, sd.hot_row1,
+                         sd.hot_out, sd.hot_nslices)
+
+
+def apply_route_stream(ra: RouteDevice, g: torch.Tensor) -> torch.Tensor:
+    """Route the stream g (8, Tp, 128) to y (n,) in natural order: one
+    K4 pass for a flat 1024-tile route, else stage 1 (K5), the recursive
+    middle (K2, then K6) and stage 3 (K5)."""
+    if ra.mid.kind == "flat":
+        return rk.route_small(g, ra.s1, ra.mid.mid, ra.s3, ra.n)
+    g1 = rk.tileperm(g, ra.s1)
+    g2 = rk.route_m3(rk.route_middle(g1, ra.mid.m1, ra.mid.csel), ra.mid.m3)
+    return rk.stream_to_flat(rk.tileperm(g2, ra.s3))[: ra.n]
+
+
+def route_post_expand(sd: SellRoutedDevice, g1: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """The tail of the pipeline after the expand: middle, reduce, the hot
+    planes' sums (the only part that reads x), y-route, row mask and
+    split-row extras."""
     m, m3 = middle(sd, g1)
     ysp = y_stream(sd, reduce(sd, m, m3))
-    ra = sd.yroute
-    y = rk.route_small(ysp, ra.s1, ra.mid, ra.s3, ra.n)
+    if sd.hot_nslices:
+        ysp[:, : sd.hot_nslices] += hot_stream(sd, x)
+    y = apply_route_stream(sd.yroute, ysp)
     if sd.ymask.shape[0]:
         # empty rows whose segments sorted beyond the effective slices
         # route from arbitrary positions; zero them

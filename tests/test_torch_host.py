@@ -146,12 +146,6 @@ def test_mmio_roundtrip_and_truncated(tmp_path):
         t_read(p, use_native=False)
 
 
-def test_hot_hybrid_not_ported():
-    _, tcoo = rmat(9, 6, 3)
-    with pytest.raises(NotImplementedError, match="hot"):
-        t_pack_routed(tcoo.to_csr(), hot="auto")
-
-
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, pkgutil, importlib, cvr_tpu_torch\n"

@@ -151,10 +151,55 @@ def test_wrappers_refuse_mixed_devices():
                   sr.segw, sr.n_segs)
 
 
-def test_y_route_over_1024_tiles_not_ported():
-    sr, _ = _packed(lambda: powerlaw(n=3000, seed=2))
-    big = dataclasses.replace(
-        from_reference(sr), y_ra={**sr.y_ra, "Tp": 2048}
+@pytest.mark.parametrize("T", [256, 2048])
+def test_tileperm_matches_pallas(T):
+    rng = np.random.default_rng(T)
+    data = rng.standard_normal((8, T, 128)).astype(np.float32)
+    idx = rng.integers(0, 1024, (8, T, 128)).astype(np.int16)
+    want = np.asarray(jpr.tileperm_ss(jnp.asarray(data), jnp.asarray(idx)))
+    rk.reset_launches()
+    got = rk.tileperm(_t(data), _t(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert rk.tileperm.launches == 0
+
+
+def _random_route_2048():
+    """The planes of a random route over 2048 tiles (recursive middle,
+    Tk = 2), as in test_route_middle_matches_pallas."""
+    ra = jpr.route_arrays_from_perm(np.random.default_rng(4).permutation(2048 * 1024))
+    assert ra["Tp"] == 2048 and ra["mid_planes"]["kind"] == "rec"
+    return ra
+
+
+def test_route_m3_matches_pallas():
+    mp = _random_route_2048()["mid_planes"]
+    m = np.random.default_rng(9).standard_normal((8, 2048, 128)).astype(np.float32)
+    want = np.asarray(jpr._mid_fused_call(2, "m3", True)(jnp.asarray(m), mp["m3"]))
+    got = rk.route_m3(_t(m), _t(mp["m3"]))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        rk.mstream_to_stream(_t(m), 2).numpy(),
+        np.asarray(jpr.mstream_to_stream(jnp.asarray(m), 2)),
     )
-    with pytest.raises(NotImplementedError, match="y-route"):
-        tsp.to_device_routed(big, "cpu")
+
+
+def test_apply_route_stream_matches_pallas():
+    """The whole 2048-tile route (K5, K2, K6, K5 and the flatten) against
+    the JAX package's apply_route_stream, and against the permutation."""
+    ra = _random_route_2048()
+    g = np.random.default_rng(10).standard_normal((8, 2048, 128)).astype(np.float32)
+    want = np.asarray(jpr.apply_route_stream(ra, jnp.asarray(g)))
+    rd = tsp.route_to_device(ra, "cpu")
+    rk.reset_launches()
+    got = tsp.apply_route_stream(rd, _t(g)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert all(w.launches == 0 for w, _, _ in rk.KERNELS.values())
+    perm = np.random.default_rng(4).permutation(2048 * 1024)
+    np.testing.assert_array_equal(got, rk.stream_to_flat(_t(g)).numpy()[perm])
+
+
+def test_brute_route_middle_not_ported():
+    ra = _random_route_2048()
+    brute = {**ra, "mid_planes": {"kind": "brute", "mid": None, "Tk": 2}}
+    with pytest.raises(NotImplementedError, match="brute"):
+        tsp.route_to_device(brute, "cpu")

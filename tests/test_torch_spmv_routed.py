@@ -23,11 +23,11 @@ from cvr_tpu_torch.io.mmio import write_matrix_market
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops.spmv_ref import spmv_golden_numpy, spmv_row_scale, verify
 from cvr_tpu_torch.ops.spmv_routed import spmv_routed, to_device_routed
-from torch_cases import CASES, FIXTURES, powerlaw, rmat
+from torch_cases import CASES, FIXTURES, fsm, powerlaw, rmat, tall_sparse
 
 
-def _port_spmv(tcoo, x, split_len=None):
-    tsr = t_pack_routed(tcoo.to_csr(), split_len=split_len)
+def _port_spmv(tcoo, x, split_len=None, hot="off"):
+    tsr = t_pack_routed(tcoo.to_csr(), split_len=split_len, hot=hot)
     rk.reset_launches()
     y = spmv_routed(to_device_routed(tsr, "cpu"), torch.from_numpy(x)).numpy()
     # CPU tensors: every pass ran its plain version, no kernel launched
@@ -35,10 +35,10 @@ def _port_spmv(tcoo, x, split_len=None):
     return tsr, y
 
 
-def _check(jcoo, tcoo, split_len=None):
+def _check(jcoo, tcoo, split_len=None, hot="off"):
     x = np.random.default_rng(7).standard_normal(tcoo.shape[1]).astype(np.float32)
-    tsr, y = _port_spmv(tcoo, x, split_len)
-    jsr = j_pack_routed(jcoo.to_csr(), split_len=split_len, hot="off")
+    tsr, y = _port_spmv(tcoo, x, split_len, hot)
+    jsr = j_pack_routed(jcoo.to_csr(), split_len=split_len, hot=hot)
     y_jax = np.asarray(jax.jit(j_spmv)(j_to_device(jsr), x))
     csr = tcoo.to_csr()
     scale = spmv_row_scale(csr, x)
@@ -70,6 +70,29 @@ def test_slice_multi_group_matches_reference(monkeypatch):
     monkeypatch.setattr(tpr, "YB", 2)
     tsr, _ = _check(*rmat(12, 8, 4))
     assert len(tsr.ycall_rows) >= 2
+
+
+@pytest.mark.parametrize("case", ["powerlaw_forced", "fsm_auto"])
+def test_slice_with_hot_planes_matches_reference(monkeypatch, case):
+    """The hub-column hybrid end to end: a power-law pack with the hybrid
+    forced on (the reference's CVR_HOT=1) and a small fsm-like pack whose
+    gate fires by itself."""
+    if case == "powerlaw_forced":
+        monkeypatch.setenv("CVR_HOT", "1")
+        jcoo, tcoo = powerlaw(n=20000, avg_nnz=8, seed=5)
+    else:
+        jcoo, tcoo = fsm(n=1 << 17)
+    tsr, _ = _check(jcoo, tcoo, hot="auto")
+    assert tsr.hot is not None and tsr.nnz == tcoo.nnz
+    if case == "fsm_auto":
+        assert tsr.hot.regions.shape[0] > 0
+
+
+def test_slice_over_1024_y_tiles_matches_reference():
+    """Just over 1,048,576 rows: the y-route of 2048 tiles (K5, K2, K6,
+    K5) against the JAX package's and the golden."""
+    tsr, _ = _check(*tall_sparse())
+    assert tsr.y_ra["Tp"] == 2048 and tsr.y_ra["mid_planes"]["kind"] == "rec"
 
 
 @pytest.mark.parametrize("case", ["rmat_T2048", "multisegment"])

@@ -50,6 +50,24 @@ def banded(n=3000, bandwidth=9, seed=0):
     )
 
 
+def fsm(n=1 << 15, seed=19):
+    return (
+        jsyn.fsm_like(n=n, seed=seed),
+        tsyn.fsm_like(n=n, seed=seed),
+    )
+
+
+def tall_sparse(n=1_100_000, nnz=1_400_000, seed=12):
+    """Just over 1,048,576 rows with ~1.3 nnz per row: a y-route of 2048
+    tiles at a CPU-test size."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n, nnz).astype(np.int32)
+    cols = rng.integers(0, n, nnz).astype(np.int32)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    j, t = pair(rows, cols, vals, (n, n))
+    return j.sum_duplicates(), t.sum_duplicates()
+
+
 def same_arrays(t):
     """A port COO and a cvr_tpu COO built from its arrays."""
     j = JCOO(rows=t.rows, cols=t.cols, vals=t.vals, shape=t.shape)
