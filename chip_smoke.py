@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's routed SpMV paths once on one NVIDIA H100.
+"""Drive the port's SpMV paths once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -10,10 +10,11 @@ Phases, each printed on its own lines:
      sources in this checkout (print the build time and ptxas' report);
   2. the main path: web-Google-like (R-MAT scale 20, ~6.2M nnz) -> CSR ->
      sell_pack_routed (the default hot="auto": its gate declines, no hot
-     planes) -> to_device_routed -> spmv_routed; check that each kernel
-     of the path launched as often as the pack says, verify against the
-     float64 golden at rtol 1e-6 (row-scaled), and time 100 iterations
-     with CUDA events;
+     planes) -> upload -> spmv; check that each kernel of the path
+     launched as often as the pack says, verify against the float64
+     golden at rtol 1e-6 (row-scaled), time 100 iterations with CUDA
+     events, and time cuSPARSE's CSR SpMV on the same matrix beside it
+     (torch.sparse_csr_tensor @ x: a yardstick, never on the path);
   3. each of its kernels (K1-K4) against its plain PyTorch version at the
      main path's own tensors: expand, route_middle and route_small bit for
      bit, reduce_slices within 1e-6 of the row scale (it sums in another
@@ -34,7 +35,16 @@ Phases, each printed on its own lines:
      the y side, K3, K7, K5 at both stages, K6) against its plain version
      at its own tensors as in [3]; then the same matrix packed with
      hot="off", its SpMV timed beside the hybrid's;
-  6. a JSON line of the seven kernels, then the last line
+  6. pack_auto's other formats at full size, each through pack_auto ->
+     upload -> spmv as in [2], with the geometry pack_auto must reach:
+     banded-2M (2,097,152 rows, 27 diagonals) -> DIA (K8), road-usa-like
+     (8,388,608 rows, ~20.8M nnz) -> BELL (K9) with a routed spill (K1,
+     K2, K3, K4), fem-like (1,048,576 rows, ~51.9M nnz) -> SELL-W (K10);
+     the same matrix through run_spmv_benchmark(impl="auto"), and a
+     smaller one of its generator through `cli spmv` (--format auto),
+     each printing its verified three-line report; then every kernel
+     launch of each path against its plain version as in [3];
+  7. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero.  It needs a CUDA card
@@ -47,20 +57,30 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from cvr_tpu_torch import _native
+from cvr_tpu_torch import _native, cli
 from cvr_tpu_torch.bench import synthetic as syn
-from cvr_tpu_torch.bench.harness import time_iterations
-from cvr_tpu_torch.formats.sell_routed import sell_pack_routed
-from cvr_tpu_torch.ops import _build
+from cvr_tpu_torch.bench.harness import run_spmv_benchmark, time_iterations
+from cvr_tpu_torch.formats import pack_auto
+from cvr_tpu_torch.formats.bell import BellMatrix
+from cvr_tpu_torch.formats.dia import DiaMatrix
+from cvr_tpu_torch.formats.sell_routed import SellRouted, sell_pack_routed
+from cvr_tpu_torch.formats.sell_window import SellWindow
+from cvr_tpu_torch.io.mmio import write_matrix_market
+from cvr_tpu_torch.ops import _build, kernels
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops import route_planes as rp
 from cvr_tpu_torch.ops import spmv_routed as sp
+from cvr_tpu_torch.ops.spmv import spmv, upload
+from cvr_tpu_torch.ops.spmv_bell import BellDevice, gather_args
+from cvr_tpu_torch.ops.spmv_dia import DiaDevice
 from cvr_tpu_torch.ops.spmv_ref import spmv_golden_numpy, spmv_row_scale, verify
+from cvr_tpu_torch.ops.spmv_window import SellWindowDevice, reduce_args
 
 ITERS = 100
 KERNEL_ITERS = 20
@@ -106,6 +126,28 @@ GEOMETRIES = (
      lambda sr: sr.hot is not None and sr.hot.regions.shape[0] > 0),
 )
 
+
+# Phase [6]: name, matrix, the format pack_auto must pick and the geometry
+# it must reach, the kernel of the format, a smaller matrix of the same
+# generator for the CLI (it reads a MatrixMarket file).
+FORMATS = (
+    ("banded_2m", lambda: syn.banded_matrix(1 << 21, 27),
+     lambda A: isinstance(A, DiaMatrix) and A.nd == 27, "dia_spmv",
+     lambda: syn.banded_matrix(1 << 16, 27)),
+    ("road_usa_like", syn.road_usa_like,
+     lambda A: (isinstance(A, BellMatrix)
+                and (A.k, A.reach, A.ncand, A.TBb, A.R_sub)
+                == (6, 64, 10, 128, 65536)
+                and A.spill is not None and A.spill.nnz == 146396
+                and A.spill_map.shape[0] == 106239 and A.spill.T == 9216),
+     "bell_gather_mac", lambda: syn.road_usa_like(n=1 << 18)),
+    ("fem_like", syn.fem_like,
+     lambda A: (isinstance(A, SellWindow)
+                and (A.D, A.W, A.wrl, A.G, A.n_segs, A.nslices,
+                     len(A.ycall_rows), A.S_pad)
+                == (2, 1024, 8, 4, 8, 2048, 4, 55936)),
+     "window_reduce", lambda: syn.fem_like(n=1 << 15)),
+)
 
 TRACES = 3  # traces device_ms takes at most to find one that holds every call
 
@@ -212,22 +254,50 @@ def geometry(sr) -> str:
     )
 
 
-def expected_launches(sr) -> dict[str, int]:
-    """Launches of each kernel in one SpMV of pack ``sr`` on the card."""
-    yrec = sr.y_ra["mid_planes"]["kind"] == "rec"
-    return {
-        "expand": 1,
-        "route_middle": int(sr.mid["kind"] == "rec") + int(yrec),
-        "reduce_slices": 1,
-        "route_small": int(not yrec),
-        "tileperm": 2 * int(yrec),
-        "route_m3": int(yrec),
-        "reduce_hot": int(sr.hot is not None),
-    }
+def expected_launches(sd) -> dict[str, int]:
+    """Launches of each kernel in one SpMV of the device artifact ``sd``
+    on the card."""
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    if isinstance(sd, DiaDevice):
+        want["dia_spmv"] = 1
+    elif isinstance(sd, SellWindowDevice):
+        want["window_reduce"] = 1
+    elif isinstance(sd, BellDevice):
+        want["bell_gather_mac"] = 1
+        if sd.spill is not None:
+            for k, n in expected_launches(sd.spill).items():
+                want[k] += n
+    else:
+        yrec = sd.yroute.mid.kind == "rec"
+        want.update({
+            "expand": 1,
+            "route_middle": int(sd.mid.kind == "rec") + int(yrec),
+            "reduce_slices": 1,
+            "route_small": int(not yrec),
+            "tileperm": 2 * int(yrec),
+            "route_m3": int(yrec),
+            "reduce_hot": int(sd.hot_nslices > 0),
+        })
+    return want
 
 
-def read_launches() -> dict[str, int]:
-    return {k: w.launches for k, (w, _, _) in rk.KERNELS.items()}
+def describe(A) -> str:
+    """The geometry of a packed artifact, in one line."""
+    if isinstance(A, SellRouted):
+        return geometry(A)
+    if isinstance(A, DiaMatrix):
+        return (f"DIA: nd {A.nd}, offsets {int(A.offsets.min())} .. "
+                f"{int(A.offsets.max())}, {A.nnz} nnz")
+    if isinstance(A, BellMatrix):
+        spill = "none" if A.spill is None else (
+            f"{A.spill.nnz} nnz on {A.spill_map.shape[0]} rows: "
+            f"{geometry(A.spill)}")
+        return (f"BELL: k {A.k}, reach {A.reach}, ncand {A.ncand}, TBb "
+                f"{A.TBb}, R_sub {A.R_sub}, d {A.d}, pre {A.pre}, {A.nnz} "
+                f"nnz; routed spill: {spill}")
+    return (f"SELL-W: D {A.D}, W {A.W}, wrl {A.wrl}, G {A.G}, {A.n_segs} x "
+            f"segments, {A.nslices} slices in {len(A.ycall_rows)} reduce "
+            f"groups, S {A.S}, S_pad {A.S_pad}, {A.nnz} nnz")
 
 
 def build() -> None:
@@ -245,56 +315,82 @@ def build() -> None:
             print(f"[1]   {line.strip()}")
 
 
-def drive(tag, coo, device, reaches):
-    """Pack (hot="auto"), check the branch, upload, one verified SpMV with
-    the launch counts, and the timed loop.  Returns (sr, sd, x on the
-    device, launches, ms per SpMV)."""
+def cusparse_ms(tag, csr, xd, golden, scale, device) -> float:
+    """cuSPARSE's CSR SpMV of the matrix (torch.sparse_csr_tensor @ x):
+    the whole-SpMV yardstick, never on the port's path.  Checked against
+    the golden, then timed by CUDA events."""
+    dev = torch.device(device)
+    A = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.rowptr).to(dev),
+        torch.from_numpy(csr.cols.astype(np.int64)).to(dev),
+        torch.from_numpy(csr.vals.astype(np.float32)).to(dev),
+        size=csr.shape, check_invariants=False,
+    )
+    ok, _, maxrel = verify((A @ xd).cpu().numpy(), golden, rtol=1e-6,
+                           row_scale=scale)
+    if not ok:
+        raise AssertionError(f"{tag} cuSPARSE's SpMV is not the same function")
+    ms = time_iterations(lambda: A @ xd, ITERS, device) * 1e3
+    print(f"{tag} cuSPARSE CSR SpMV (torch.sparse_csr_tensor @ x, "
+          f"yardstick): {ms:.4f} ms/iter over {ITERS} iters, golden max rel "
+          f"{maxrel:.3e}")
+    return ms
+
+
+def drive(tag, coo, device, reaches, pack=sell_pack_routed,
+          marker="expand_kernel"):
+    """Pack (sell_pack_routed with hot="auto", or ``pack``), check the
+    branch, upload, one verified SpMV with the launch counts, the timed
+    loop, its device time by kernel, and cuSPARSE's time beside it.
+    Returns (packed artifact, device artifact, x on the device, launches,
+    ms per SpMV, device ms per SpMV by kernel, cuSPARSE ms)."""
     csr = coo.to_csr()
     t0 = time.perf_counter()
-    sr = sell_pack_routed(csr)
+    A = pack(csr)
     pack_s = time.perf_counter() - t0
-    phases = ", ".join(f"{k} {v:.3f}" for k, v in sr.convert_phases.items())
-    print(f"{tag} pack {pack_s:.3f} s ({phases}): {geometry(sr)}")
-    if not reaches(sr):
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in A.convert_phases.items())
+    print(f"{tag} pack {pack_s:.3f} s ({phases}): {describe(A)}")
+    if not reaches(A):
         raise AssertionError(f"{tag} pack misses its branch")
-    sd = sp.to_device_routed(sr, device)
+    sd = upload(A, device)
     x = np.random.default_rng(0).standard_normal(coo.shape[1]).astype(np.float32)
     xd = torch.from_numpy(x).to(device)
 
-    rk.reset_launches()
-    y = sp.spmv_routed(sd, xd)
+    kernels.reset_launches()
+    y = spmv(sd, xd)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = kernels.launches()
 
     yn = y.cpu().numpy()
     if yn.shape != (coo.shape[0],) or not np.isfinite(yn).all():
         raise AssertionError(f"bad output: shape {yn.shape}")
-    ok, nbad, maxrel = verify(yn, spmv_golden_numpy(csr, x), rtol=1e-6,
-                              row_scale=spmv_row_scale(csr, x))
+    golden, scale = spmv_golden_numpy(csr, x), spmv_row_scale(csr, x)
+    ok, nbad, maxrel = verify(yn, golden, rtol=1e-6, row_scale=scale)
     print(f"{tag} verify vs float64 golden (rtol 1e-6, row-scaled): "
           f"{'PASS' if ok else 'FAIL'}, {nbad} bad rows, max rel {maxrel:.3e}")
     if not ok:
         raise AssertionError(f"{tag} disagrees with the golden")
-    print(f"{tag} launches in this path's run: {launches}")
-    if launches != expected_launches(sr):
+    print(f"{tag} launches in this path's run: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    if launches != expected_launches(sd):
         raise AssertionError(f"{tag} launches {launches}, the pack needs "
-                             f"{expected_launches(sr)}")
+                             f"{expected_launches(sd)}")
 
-    ms = time_iterations(lambda: sp.spmv_routed(sd, xd), ITERS, device) * 1e3
-    print(f"{tag} spmv_routed: {ms:.4f} ms/iter over {ITERS} iters, "
-          f"{2 * sr.nnz / ms / 1e6:.3f} GFLOPS (2*nnz), "
-          f"{sr.nnz / ms / 1e6:.3f} Gnnz/s")
-    per = device_ms(lambda: sp.spmv_routed(sd, xd), KERNEL_ITERS,
-                    "expand_kernel")
+    ms = time_iterations(lambda: spmv(sd, xd), ITERS, device) * 1e3
+    print(f"{tag} spmv: {ms:.4f} ms/iter over {ITERS} iters, "
+          f"{2 * A.nnz / ms / 1e6:.3f} GFLOPS (2*nnz), "
+          f"{A.nnz / ms / 1e6:.3f} Gnnz/s")
+    per = device_ms(lambda: spmv(sd, xd), KERNEL_ITERS, marker)
     dev = sum(per.values())
     ours = {k: sum(v for n, v in per.items() if f"{k}_kernel" in n)
-            for k in rk.KERNELS}
-    print(f"{tag} spmv_routed device time {dev:.4f} ms/iter "
+            for k in kernels.KERNELS}
+    print(f"{tag} spmv device time {dev:.4f} ms/iter "
           f"(trace holds all {KERNEL_ITERS} calls; device busy "
           f"{100 * dev / ms:.1f}% of the timed loop); in the same trace: "
           + ", ".join(f"{k} {v:.4f}" for k, v in ours.items() if v)
           + f", other device work {dev - sum(ours.values()):.4f} ms")
-    return sr, sd, xd, launches, ms, ours
+    lib_ms = cusparse_ms(tag, csr, xd, golden, scale, device)
+    return A, sd, xd, launches, ms, ours, lib_ms
 
 
 def main_path(coo, device):
@@ -308,6 +404,16 @@ def main_path(coo, device):
 def kernel_cases(sd, xd):
     """Every kernel launch of one SpMV of ``sd``, in path order, as
     (kernel, which launch, its arguments at the path's own tensors)."""
+    if isinstance(sd, DiaDevice):
+        return [("dia_spmv", "", (sd.bands, sd.offsets, xd))]
+    if isinstance(sd, SellWindowDevice):
+        return [("window_reduce", "", reduce_args(sd, xd))]
+    if isinstance(sd, BellDevice):
+        cases = [("bell_gather_mac", "", gather_args(sd, xd))]
+        if sd.spill is not None:
+            cases += [(name, f"spill {which}".strip(), args)
+                      for name, which, args in kernel_cases(sd.spill, xd)]
+        return cases
     cases = []
     args = (sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw, sd.n_segs)
     cases.append(("expand", "", args))
@@ -348,6 +454,15 @@ def row_scale_args(name, args):
     if name == "reduce_slices":
         m, m3, vals, *rest = args
         return (m.abs(), m3, vals.abs(), *rest)
+    if name == "dia_spmv":
+        bands, offsets, x = args
+        return (bands.abs(), offsets, x.abs())
+    if name == "bell_gather_mac":
+        li, vals, x, *rest = args
+        return (li, vals.abs(), x.abs(), *rest)
+    if name == "window_reduce":
+        li, vals, w10, seg_blk, x, *rest = args
+        return (li, vals.abs(), w10, seg_blk, x.abs(), *rest)
     xh, hidx, hvals, *rest = args
     return (xh.abs(), hidx, hvals.abs(), *rest)
 
@@ -356,21 +471,26 @@ def bound(name, args, out) -> tuple[float, str]:
     """The least time (ms) the card could take for the kernel's work, and
     what sets it: each input byte read once and each output byte written
     once over the HBM rate, or the float32 operations over the card's
-    rate outside the tensor cores.  The reduces read only the plane rows
-    their slice tables name (this run's data)."""
+    rate outside the tensor cores (one multiply and one add per stored
+    element).  The reduces read only the plane rows their slice tables
+    name (this run's data)."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     ops = 0
-    if name in ("reduce_slices", "reduce_hot"):
-        row0, row1 = (args[4], args[5]) if name == "reduce_slices" else (
-            args[3], args[4])
-        used = int((row1.long() - row0.long()).sum()) * 8 * 128
-        planes = args[:4] if name == "reduce_slices" else args[1:3]
-        for t in planes:
+    # (row0, row1) index and the planes of each reduce
+    reduces = {"reduce_slices": (4, 5, slice(0, 4)),
+               "reduce_hot": (3, 4, slice(1, 3)),
+               "window_reduce": (5, 6, slice(0, 2))}
+    if name in reduces:
+        i0, i1, planes = reduces[name]
+        used = int((args[i1].long() - args[i0].long()).sum()) * 8 * 128
+        for t in args[planes]:
             if t.dim() == 3:  # read only the used plane elements
                 nbytes -= t.numel() * t.element_size()
                 nbytes += min(used, t.numel()) * t.element_size()
-        ops = 2 * used  # one multiply and one add per plane element
+        ops = 2 * used
+    elif name in ("dia_spmv", "bell_gather_mac"):
+        ops = 2 * args[0].numel()
     nbytes += out.numel() * out.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -395,11 +515,14 @@ def library_ms(name, args, device):
                            device) * 1e3
 
 
-def check_kernels(tag, path, sd, xd, launches, spmv_dms, device):
+def check_kernels(tag, path, sd, xd, launches, spmv_dms, device,
+                  library=None):
     """Each kernel launch of the path (kernel_cases) against its plain
     version at the same inputs, with times, bound and library call.
     ``launches`` and ``spmv_dms`` (device ms per SpMV by kernel) come from
-    the path's own run and trace."""
+    the path's own run and trace; ``library`` gives the library call's ms
+    of a kernel that is the whole SpMV (cuSPARSE's, measured in drive)."""
+    library = library or {}
     rows = []
     cases = kernel_cases(sd, xd)
     launched = {k for k, n in launches.items() if n}
@@ -407,7 +530,7 @@ def check_kernels(tag, path, sd, xd, launches, spmv_dms, device):
         raise AssertionError(f"{tag} cases {[c[:2] for c in cases]} miss "
                              f"kernels the path launched: {launched}")
     for name, which, args in cases:
-        wrapper, plain, replaces = rk.KERNELS[name]
+        wrapper, plain, replaces = kernels.KERNELS[name]
         label = f"{name} ({which})" if which else name
         got, want = wrapper(*args), plain(*args)
         if name in EXACT:
@@ -426,7 +549,7 @@ def check_kernels(tag, path, sd, xd, launches, spmv_dms, device):
         pdms = sum(device_ms(lambda: plain(*args), KERNEL_ITERS,
                              None).values())
         bound_ms, bound_by = bound(name, args, got)
-        lib_ms = library_ms(name, args, device)
+        lib_ms = library.get(name) or library_ms(name, args, device)
         print(f"{tag} {label}: {verdict}, max abs err {err:.3e}, "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events); "
               f"device time kernel {dms:.4f} ms, plain {pdms:.4f} ms "
@@ -437,7 +560,7 @@ def check_kernels(tag, path, sd, xd, launches, spmv_dms, device):
         if not same:
             raise AssertionError(f"{label} disagrees with its plain version")
         rows.append({
-            "name": name, "route": "cuda", "source": rk.SOURCE,
+            "name": name, "route": "cuda", "source": kernels.SOURCES[name],
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -481,10 +604,11 @@ def check_geometries(device) -> set[str]:
                 walks |= hot_branches(sr.hot)
             x = np.random.default_rng(7).standard_normal(
                 coo.shape[1]).astype(np.float32)
-            rk.reset_launches()
-            y = sp.spmv_routed(sp.to_device_routed(sr, device),
-                               torch.from_numpy(x).to(device)).cpu().numpy()
-            launches = read_launches()
+            sd = sp.to_device_routed(sr, device)
+            kernels.reset_launches()
+            y = sp.spmv_routed(sd, torch.from_numpy(x).to(device))
+            y = y.cpu().numpy()
+            launches = kernels.launches()
             # CPU tensors take the plain versions and launch nothing.
             y_cpu = sp.spmv_routed(sp.to_device_routed(sr, "cpu"),
                                    torch.from_numpy(x)).numpy()
@@ -497,8 +621,9 @@ def check_geometries(device) -> set[str]:
                   f"{'PASS' if ok else 'FAIL'} ({nbad} bad, max rel "
                   f"{maxrel:.2e}) | CPU plain path "
                   f"{'PASS' if ok_cpu else 'FAIL'} (max rel "
-                  f"{maxrel_cpu:.2e}) | launches {launches}")
-            if not (ok and ok_cpu) or launches != expected_launches(sr):
+                  f"{maxrel_cpu:.2e}) | launches "
+                  f"{ {k: n for k, n in launches.items() if n} }")
+            if not (ok and ok_cpu) or launches != expected_launches(sd):
                 raise AssertionError(f"{name}: spmv_routed on {device} "
                                      "disagrees or skipped a kernel")
     finally:
@@ -513,15 +638,16 @@ def fsm_path(device, walks):
     coo = syn.fsm_like()
     print(f"[5] fsm_like: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} nnz, "
           f"generated in {time.perf_counter() - t0:.2f} s")
-    sr, sd, xd, launches, _ms, spmv_dms = drive(
+    sr, sd, xd, launches, _ms, spmv_dms, _lib = drive(
         "[5]", coo, device,
         lambda sr: (sr.hot is not None and sr.hot.NH == 256
                     and sr.y_ra["Tp"] == 2048
                     and sr.y_ra["mid_planes"]["kind"] == "rec"
                     and sr.mid["kind"] == "rec"),
     )
-    want = {"expand": 1, "route_middle": 2, "reduce_slices": 1,
-            "route_small": 0, "tileperm": 2, "route_m3": 1, "reduce_hot": 1}
+    want = {**dict.fromkeys(kernels.KERNELS, 0), "expand": 1,
+            "route_middle": 2, "reduce_slices": 1, "tileperm": 2,
+            "route_m3": 1, "reduce_hot": 1}
     if launches != want:
         raise AssertionError(f"[5] launches {launches}, want {want}")
     walks |= hot_branches(sr.hot)
@@ -549,6 +675,48 @@ def fsm_path(device, walks):
     return rows
 
 
+def entry_points(name, coo, small, device):
+    """The user's entry points with their defaults: the bench harness with
+    impl="auto" on ``coo``, and ``cli spmv`` (--format auto) on a
+    MatrixMarket file of the smaller matrix ``small``; each prints its
+    three-line report and must verify.  On "cuda" both run with their
+    default device."""
+    on = {} if device == "cuda" else {"device": device}
+    r = run_spmv_benchmark(coo, name=name, impl="auto", iters=ITERS, **on)
+    r.print_report()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{name}_small.mtx")
+        write_matrix_market(path, small)
+        rc = cli.main(["spmv", path, "--iters", str(ITERS),
+                       *(f"--{k}={v}" for k, v in on.items())])
+    if not r.verified or rc != 0:
+        raise AssertionError(f"[6] {name}: the harness or the CLI failed "
+                             "to verify")
+
+
+def format_paths(device):
+    """Phase [6]: each of FORMATS at full size through pack_auto and spmv,
+    the harness and the CLI, then every kernel launch of its path against
+    its plain version."""
+    rows = []
+    for name, make, reaches, kernel, small in FORMATS:
+        t0 = time.perf_counter()
+        coo = make()
+        print(f"[6] {name}: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} nnz, "
+              f"generated in {time.perf_counter() - t0:.2f} s")
+        _A, sd, xd, launches, _ms, spmv_dms, lib_ms = drive(
+            "[6]", coo, device, reaches, pack=pack_auto,
+            marker=f"{kernel}_kernel")
+        del _A
+        entry_points(name, coo, small(), device)
+        del coo
+        # K8 is the whole SpMV: cuSPARSE's SpMV is its library call
+        library = {"dia_spmv": lib_ms} if kernel == "dia_spmv" else {}
+        rows += check_kernels("[6]", name, sd, xd, launches, spmv_dms,
+                              device, library)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -565,12 +733,13 @@ def main() -> int:
     coo = syn.web_google_like()
     print(f"[2] web_google_like: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} "
           f"nnz, generated in {time.perf_counter() - t0:.2f} s")
-    _sr, sd, xd, launches, _ms, spmv_dms = main_path(coo, "cuda")
+    _sr, sd, xd, launches, _ms, spmv_dms, _lib = main_path(coo, "cuda")
     rows = check_kernels("[3]", "web_google_like", sd, xd, launches,
                          spmv_dms, "cuda")
     del sd, xd
     walks = check_geometries("cuda")
     rows += fsm_path("cuda", walks)
+    rows += format_paths("cuda")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

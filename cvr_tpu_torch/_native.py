@@ -1,11 +1,12 @@
 """ctypes bindings for the native host runtime (native/libcvr_native.so).
 
 The port shares the C++ library with the JAX package but binds it itself,
-so importing it pulls in no jax.  Only the entry points the routed SpMV
-slice calls are bound: the MatrixMarket reader, COO->CSR assembly, the
-SELL-pack converter, the routed stream builder, the zone scatter, the
-fused route compilers and the recursive-middle planes.  The library is
-built at first use with ``make -C native``.
+so importing it pulls in no jax.  Only the entry points the port's packs
+call are bound: the MatrixMarket reader, COO->CSR assembly, the SELL-pack
+converter, the routed stream builder, the zone scatter, the fused route
+compilers, the recursive-middle planes, and the DIA, BELL and SELL-W
+passes of ``pack_auto``'s other formats.  The library is built at first
+use with ``make -C native``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
 _i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 
 
@@ -149,6 +151,28 @@ def get_lib():
     lib.cvr_zone_scatter.argtypes = [
         _i64, _i64, _i64p, _i64, _i64p, _i32p, _i64p, _i64, _i32p,
         _f32p, _i32p, _f32p,
+    ]
+    lib.cvr_window_minmax.restype = ctypes.c_int
+    lib.cvr_window_minmax.argtypes = [
+        _i64, _i64, _i64, _i64p, _i32p, _i64p, _i64, _i32p, _i32p, _i32p,
+    ]
+    lib.cvr_window_fill_ss.restype = ctypes.c_int
+    lib.cvr_window_fill_ss.argtypes = [
+        _i64, _i64, _i64, _i64p, _i32p, _f32p, _i64p, _i64p, _i32p,
+        _i64, _i32p, _f32p, _i16p,
+    ]
+    lib.cvr_dia_offsets.restype = ctypes.c_int
+    lib.cvr_dia_offsets.argtypes = [_i64, _i64, _i64p, _i32p, _u8p]
+    lib.cvr_dia_fill.restype = ctypes.c_int
+    lib.cvr_dia_fill.argtypes = [
+        _i64, _i64, _i64p, _i32p, _f32p, _i64, _i64p, _f32p,
+    ]
+    lib.cvr_bell_stats.restype = _i64
+    lib.cvr_bell_stats.argtypes = [_i64, _i64p, _i32p, _i64, _i32p]
+    lib.cvr_bell_fill.restype = _i64
+    lib.cvr_bell_fill.argtypes = [
+        _i64, _i64p, _i32p, _f32p, _i64, _i64, _i64, _i64,
+        _i16p, _f32p, _i64, _i32p, _i32p, _f32p,
     ]
     if lib.cvr_version() != _VERSION:
         return None
@@ -405,3 +429,106 @@ def zone_scatter_native(
         S_padded, cols_plane, vals_plane, cols_out, vals_out,
     ))
     return cols_out, vals_out
+
+
+def window_minmax_native(nrows: int, C: int, D: int, rowptr, csr_cols,
+                         slice_offsets):
+    """Per-plane-row column min/max straight from CSR (SELL-W pass 1), rows
+    in natural order."""
+    lib = _need_lib()
+    S = int(slice_offsets[-1])
+    wmin = np.empty(S, dtype=np.int32)
+    wmax = np.empty(S, dtype=np.int32)
+    _check(lib, lib.cvr_window_minmax(
+        nrows, C, D,
+        np.ascontiguousarray(rowptr, dtype=np.int64),
+        np.ascontiguousarray(csr_cols, dtype=np.int32),
+        np.ascontiguousarray(slice_offsets, dtype=np.int64),
+        S, np.arange(nrows, dtype=np.int32), wmin, wmax,
+    ))
+    return wmin, wmax
+
+
+def window_fill_ss_native(nrows: int, C: int, D: int, rowptr, csr_cols,
+                          csr_vals, slice_offsets, rmap, base_col,
+                          S_pad: int):
+    """Value and in-window-offset planes, directly in the padded stream
+    layout (8, S_pad, 128) (SELL-W pass 2)."""
+    lib = _need_lib()
+    vals_ss = np.zeros((8, S_pad, 128), dtype=np.float32)
+    li_ss = np.zeros((8, S_pad, 128), dtype=np.int16)
+    _check(lib, lib.cvr_window_fill_ss(
+        nrows, C, D,
+        np.ascontiguousarray(rowptr, dtype=np.int64),
+        np.ascontiguousarray(csr_cols, dtype=np.int32),
+        np.ascontiguousarray(csr_vals, dtype=np.float32),
+        np.ascontiguousarray(slice_offsets, dtype=np.int64),
+        np.ascontiguousarray(rmap, dtype=np.int64),
+        np.ascontiguousarray(base_col, dtype=np.int32),
+        S_pad, np.arange(nrows, dtype=np.int32), vals_ss, li_ss,
+    ))
+    return vals_ss, li_ss
+
+
+def dia_offsets_native(rowptr, cols, nrows: int, ncols: int) -> np.ndarray:
+    """Distinct diagonals (col - row), sorted, in one native pass."""
+    lib = _need_lib()
+    flags = np.zeros(nrows + ncols, dtype=np.uint8)
+    _check(lib, lib.cvr_dia_offsets(
+        nrows, int(rowptr[-1]),
+        np.ascontiguousarray(rowptr, dtype=np.int64),
+        np.ascontiguousarray(cols, dtype=np.int32),
+        flags,
+    ))
+    return np.flatnonzero(flags).astype(np.int64) - nrows
+
+
+def dia_fill_native(rowptr, cols, vals, offsets, nrows: int) -> np.ndarray:
+    """DIA band planes (nd, nrows) in one native pass."""
+    lib = _need_lib()
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    bands = np.zeros((offsets.shape[0], nrows), dtype=np.float32)
+    _check(lib, lib.cvr_dia_fill(
+        nrows, int(rowptr[-1]),
+        np.ascontiguousarray(rowptr, dtype=np.int64),
+        np.ascontiguousarray(cols, dtype=np.int32),
+        np.ascontiguousarray(vals, dtype=np.float32),
+        offsets.shape[0], offsets, bands,
+    ))
+    return bands
+
+
+def bell_stats_native(rowptr, cols, cap: int):
+    """Per-row counts of entries within ``cap`` of the diagonal, and the
+    reach (the largest such |col - row|)."""
+    lib = _need_lib()
+    rowptr = np.ascontiguousarray(rowptr, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int32)
+    nrows = rowptr.shape[0] - 1
+    near_lens = np.empty(nrows, dtype=np.int32)
+    reach = int(lib.cvr_bell_stats(nrows, rowptr, cols, cap, near_lens))
+    return near_lens, reach
+
+
+def bell_fill_native(rowptr, cols, vals, k: int, cap: int, cr: int,
+                     R128: int, spill_cap: int):
+    """BELL (li, val) planes (k, R128) and the spill as COO triples, in one
+    pass.  Returns (li int16, vals f32, spill_rows, spill_cols,
+    spill_vals), the spill arrays cut to their count."""
+    lib = _need_lib()
+    rowptr = np.ascontiguousarray(rowptr, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int32)
+    vals = np.ascontiguousarray(vals, dtype=np.float32)
+    nrows = rowptr.shape[0] - 1
+    li = np.zeros((k, R128), dtype=np.int16)
+    vout = np.zeros((k, R128), dtype=np.float32)
+    sr = np.empty(spill_cap, dtype=np.int32)
+    sc = np.empty(spill_cap, dtype=np.int32)
+    sv = np.empty(spill_cap, dtype=np.float32)
+    ns = int(lib.cvr_bell_fill(
+        nrows, rowptr, cols, vals, k, cap, cr, R128, li, vout,
+        spill_cap, sr, sc, sv,
+    ))
+    if ns < 0:
+        raise NativeError("bell_fill: spill capacity exceeded")
+    return li, vout, sr[:ns], sc[:ns], sv[:ns]

@@ -116,6 +116,26 @@ def time_iterations(fn, iters: int, device, warmup: int = 3) -> float:
     return (time.perf_counter() - t0) / iters
 
 
+def _pack(csr, impl: str):
+    """(packed artifact, padded nnz) of ``impl``'s format."""
+    from cvr_tpu_torch.formats import pack_auto
+    from cvr_tpu_torch.formats.bell import bell_pack
+    from cvr_tpu_torch.formats.dia import dia_pack
+    from cvr_tpu_torch.formats.sell_routed import SellRouted, sell_pack_routed
+    from cvr_tpu_torch.formats.sell_window import sell_pack_window
+
+    packed = {
+        "auto": pack_auto,
+        "sell-routed": sell_pack_routed,
+        "dia": dia_pack,
+        "bell": bell_pack,
+        "sell-window": sell_pack_window,
+    }[impl](csr)
+    if isinstance(packed, SellRouted):
+        return packed, packed.T * 1024
+    return packed, packed.padded_nnz
+
+
 def run_spmv_benchmark(
     coo,
     name: str = "matrix",
@@ -127,18 +147,19 @@ def run_spmv_benchmark(
 ) -> BenchResult:
     """End to end: convert (timed) -> SpMV iterations (timed) -> verify.
 
-    impl "sell-routed": the routed pack (the hub-column hybrid where its
-    gate fires, as in the JAX harness) and the routed SpMV; "csr": plain
-    torch CSR.
+    impl "auto": ``pack_auto``'s format (DIA, BELL, SELL-W, the routed
+    path, or above its cap the plain SELL planes), as in the JAX harness;
+    "sell-routed", "dia", "bell", "sell-window": that format's pack and
+    SpMV ("sell-routed" with the hub-column hybrid where its gate fires);
+    "csr": plain torch CSR.
     """
-    from cvr_tpu_torch.formats.sell_routed import sell_pack_routed
+    from cvr_tpu_torch.ops.spmv import spmv, upload
     from cvr_tpu_torch.ops.spmv_ref import (
         spmv_csr_torch,
         spmv_golden_numpy,
         spmv_row_scale,
         verify,
     )
-    from cvr_tpu_torch.ops.spmv_routed import spmv_routed, to_device_routed
 
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -150,16 +171,7 @@ def run_spmv_benchmark(
         x = np.ones(csr.shape[1], dtype=np.float32)
     xd = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
 
-    if impl == "sell-routed":
-        t0 = time.perf_counter()
-        sr = sell_pack_routed(csr)
-        preproc = time.perf_counter() - t0
-        padded = sr.T * 1024
-        sd = to_device_routed(sr, dev)
-
-        def fn():
-            return spmv_routed(sd, xd)
-    elif impl == "csr":
+    if impl == "csr":
         t0 = time.perf_counter()
         rowptr = torch.from_numpy(csr.rowptr).to(dev)
         cols = torch.from_numpy(csr.cols.astype(np.int64)).to(dev)
@@ -172,6 +184,14 @@ def run_spmv_benchmark(
 
         def fn():
             return spmv_csr_torch(rowptr, cols, vals, xd, nrows)
+    elif impl in ("auto", "sell-routed", "dia", "bell", "sell-window"):
+        t0 = time.perf_counter()
+        packed, padded = _pack(csr, impl)
+        preproc = time.perf_counter() - t0
+        sd = upload(packed, dev)
+
+        def fn():
+            return spmv(sd, xd)
     else:
         raise ValueError(f"unknown impl {impl!r}")
 

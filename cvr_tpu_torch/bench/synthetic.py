@@ -99,6 +99,55 @@ def fsm_like(
     ).sum_duplicates()
 
 
+def road_usa_like(
+    n: int = 1 << 23, deg: float = 2.5, reach: int = 64, seed: int = 17
+) -> COOMatrix:
+    """Stand-in for the road domain (road_usa-class: millions of rows,
+    ~2.4 nnz per row, strong spatial locality under a good node order):
+    each of n*deg links joins a random row to a row within ``reach``."""
+    rng = np.random.default_rng(seed)
+    nnz = int(n * deg)
+    rows = rng.integers(0, n, nnz).astype(np.int64)
+    cols = np.clip(rows + rng.integers(-reach, reach + 1, nnz), 0, n - 1)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    return COOMatrix(
+        rows=rows.astype(np.int32), cols=cols.astype(np.int32),
+        vals=vals, shape=(n, n),
+    ).sum_duplicates()
+
+
+def rgg_like(
+    n: int = 1 << 21, deg: int = 6, reach: int = 96, seed: int = 19
+) -> COOMatrix:
+    """Stand-in for the routing domain (rgg-class random geometric graphs:
+    ~6 nnz per row, edges between spatially close nodes)."""
+    rng = np.random.default_rng(seed)
+    nnz = n * deg
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+    cols = np.clip(rows + rng.integers(-reach, reach + 1, nnz), 0, n - 1)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    return COOMatrix(
+        rows=rows.astype(np.int32), cols=cols.astype(np.int32),
+        vals=vals, shape=(n, n),
+    ).sum_duplicates()
+
+
+def fem_like(
+    n: int = 1 << 20, deg: int = 54, bw: int = 150, seed: int = 23
+) -> COOMatrix:
+    """Stand-in for the engineering domain (FEM matrices: ~50-80 nnz per
+    row within a narrow band after reordering)."""
+    rng = np.random.default_rng(seed)
+    nnz = n * deg
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+    cols = np.clip(rows + rng.integers(-bw, bw + 1, nnz), 0, n - 1)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    return COOMatrix(
+        rows=rows.astype(np.int32), cols=cols.astype(np.int32),
+        vals=vals, shape=(n, n),
+    ).sum_duplicates()
+
+
 def banded_matrix(
     n: int, bandwidth: int = 27, seed: int = 0, dtype=np.float32
 ) -> COOMatrix:

@@ -1,11 +1,14 @@
 """Command-line entry point of the port.
 
   python -m cvr_tpu_torch.cli spmv <file.mtx> [--iters N]
-      [--format sell-routed|csr] [--device cuda|cpu] [--no-verify]
+      [--format auto|sell-routed|dia|bell|sell-window|csr]
+      [--device cuda|cpu] [--no-verify]
   python -m cvr_tpu_torch.cli info <file.mtx>
 
-``spmv`` converts, runs the timed SpMV iterations, verifies against the
-float64 golden and prints the greppable report.
+``spmv`` converts (``--format auto``, the default: the format
+``pack_auto`` picks, as the JAX package's CLI does), runs the timed SpMV
+iterations, verifies against the float64 golden and prints the greppable
+report.
 """
 
 from __future__ import annotations
@@ -77,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
     common(p)
     p.add_argument("--iters", type=int, default=100)
     p.add_argument(
-        "--format", default="sell-routed", choices=["sell-routed", "csr"]
+        "--format", default="auto",
+        choices=["auto", "sell-routed", "dia", "bell", "sell-window", "csr"],
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--no-verify", action="store_true")

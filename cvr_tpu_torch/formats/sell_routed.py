@@ -193,7 +193,8 @@ def _round_up(x: int, m: int) -> int:
 
 
 def sell_pack_routed(
-    csr, split_len: int | None = None, hot: str = "auto"
+    csr, split_len: int | None = None, hot: str = "auto",
+    max_T: int | None = None,
 ) -> SellRouted:
     """CSR -> SELL-R in one step (the routed path's converter entry).
 
@@ -208,6 +209,10 @@ def sell_pack_routed(
     argument, so it is how their users pack without it), ``CVR_HOT=1``
     forces it on whatever the model says, and ``CVR_HOT_NH`` pins the
     hot-set size.
+
+    ``max_T``: raise ValueError once the stream needs more route tiles
+    (``pack_auto`` passes the JAX package's one-chip cap, so that both
+    packages pick the same format).
     """
     from cvr_tpu_torch.formats.sell import sell_pack
 
@@ -240,7 +245,7 @@ def sell_pack_routed(
                 split_len = sl
                 break
     sm = sell_pack(csr, C=TILE, split_len=split_len)
-    sr = pack_routed(sm)
+    sr = pack_routed(sm, max_T)
     if hotinfo is not None:
         from cvr_tpu_torch.formats.hot import build_hot_planes
         from cvr_tpu_torch.ops import route_planes as rp
@@ -258,8 +263,9 @@ def sell_pack_routed(
     return sr
 
 
-def pack_routed(sm: SellMatrix) -> SellRouted:
-    """Compile a SellMatrix (C=1024) into the routed-SpMV artifact.
+def pack_routed(sm: SellMatrix, max_T: int | None = None) -> SellRouted:
+    """Compile a SellMatrix (C=1024) into the routed-SpMV artifact; raise
+    ValueError when the stream needs more than ``max_T`` route tiles.
 
     Requires the native library: the stream build and the route compile
     are native passes (the reference's numpy fallback is not ported).
@@ -324,6 +330,9 @@ def pack_routed(sm: SellMatrix) -> SellRouted:
         if T_src_p < T:
             w8_arr[T_src_p:] = 0
             seg_blk[T_src_p // TB :] = 0
+    if max_T is not None and T > max_T:
+        raise ValueError(f"the routed stream needs T={T} route tiles, "
+                         f"above the cap of {max_T}")
     with pt.phase("route_plan"):
         if zone is not None:
             li_ss, mid_arr, p3_ss, r2 = _native.route_compile_zone_native(

@@ -1,9 +1,10 @@
 """Build and load the Hopper kernels of cvr_tpu_torch/csrc/.
 
-``nvcc`` compiles the sources for ``sm_90a`` into a shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds), which
-ctypes loads.  The library goes into ``cvr_tpu_torch/_build/`` under a name
-keyed by the sources' hash, at first use; nothing is built on import.
+``nvcc`` compiles each source for ``sm_90a`` into an object, all sources
+at once in parallel, and links them into one shared library with a plain
+C interface (no PyTorch headers, so the build takes seconds), which ctypes
+loads.  The library goes into ``cvr_tpu_torch/_build/`` under a name keyed
+by the sources' hash, at first use; nothing is built on import.
 """
 
 from __future__ import annotations
@@ -17,12 +18,15 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "route_kernels.cu",)
+SOURCES = tuple(
+    _PKG / "csrc" / f"{name}.cu"
+    for name in ("route_kernels", "dia_kernels", "bell_kernels",
+                 "window_kernels")
+)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB = None
@@ -46,7 +50,7 @@ def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libcvr_route_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libcvr_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -56,18 +60,43 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-        capture_output=True,
-        text=True,
-        timeout=600,
-    )
+    procs = [
+        subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs, failed = [], []
+    try:
+        for src, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate(timeout=600)
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode})")
+    finally:
+        for proc in procs:  # stop the others when one timed out
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if not failed:
+        link = subprocess.run(
+            [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True, timeout=600,
+        )
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{build_log}")
     os.replace(tmp, so)
     return so
 
@@ -88,10 +117,16 @@ def load():
     lib.cvr_tileperm.argtypes = [p, p, p, i64, p]
     lib.cvr_route_m3.argtypes = [p, p, p, i64, p]
     lib.cvr_reduce_hot.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, p]
+    lib.cvr_dia_spmv.argtypes = [p, p, p, p, i32, i64, i64, p]
+    lib.cvr_bell_gather_mac.argtypes = [p, p, p, p, i32, i64, i32, i32, i64, p]
+    lib.cvr_window_reduce.argtypes = [
+        p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i32, i32, i32, i32, p,
+    ]
     for fn in (
         lib.cvr_expand, lib.cvr_route_middle, lib.cvr_reduce_slices,
         lib.cvr_route_small, lib.cvr_tileperm, lib.cvr_route_m3,
-        lib.cvr_reduce_hot,
+        lib.cvr_reduce_hot, lib.cvr_dia_spmv, lib.cvr_bell_gather_mac,
+        lib.cvr_window_reduce,
     ):
         fn.restype = ctypes.c_int
     _LIB = lib

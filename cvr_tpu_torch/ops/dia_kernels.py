@@ -1,0 +1,59 @@
+"""The DIA SpMV's device pass: K8 ``dia_spmv`` and its plain version.
+
+As in cvr_tpu_torch/ops/route_kernels.py: the wrapper launches the CUDA
+kernel of cvr_tpu_torch/csrc/dia_kernels.cu for CUDA tensors and counts
+the launch in ``dia_spmv.launches``; given CPU tensors it runs the plain
+version, and only then.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from cvr_tpu_torch.ops.route_kernels import _check_dtype, _launch, _on_card, _p
+
+SOURCE = "cvr_tpu_torch/csrc/dia_kernels.cu"
+
+
+def dia_spmv_plain(bands, offsets, x):
+    """y (nrows,) = sum_k bands[k] * x[r + offsets[k]] (x read as 0
+    outside [0, ncols)): the JAX package's shifted-slice form
+    (``spmv_dia_xla``), diagonals added in pack order."""
+    nd, nrows = bands.shape
+    offs = [int(o) for o in offsets.tolist()]
+    lo, hi = min(offs + [0]), max(offs + [0])
+    base = max(-lo, 0)
+    xp = F.pad(x, (base, max(nrows + hi - x.shape[0], 0)))
+    y = torch.zeros(nrows, dtype=torch.float32, device=x.device)
+    for k, off in enumerate(offs):
+        y = y + bands[k] * xp[base + off : base + off + nrows]
+    return y
+
+
+def dia_spmv(bands, offsets, x):
+    """K8: the whole DIA SpMV, y (nrows,) from the band planes bands
+    (nd, nrows) f32, the diagonal offsets (nd,) int64 and x (ncols,) f32;
+    see dia_spmv_plain."""
+    if not _on_card("dia_spmv", bands, offsets, x):
+        return dia_spmv_plain(bands, offsets, x)
+    for t, dt in ((bands, torch.float32), (offsets, torch.int64),
+                  (x, torch.float32)):
+        _check_dtype("dia_spmv", t, dt)
+    nd, nrows = bands.shape
+    if offsets.shape != (nd,):
+        raise ValueError("dia_spmv: one offset per band")
+    y = torch.empty(nrows, dtype=torch.float32, device=x.device)
+    if nrows:
+        _launch("cvr_dia_spmv", x.device, _p(bands), _p(offsets), _p(x),
+                _p(y), nd, nrows, x.shape[0])
+        dia_spmv.launches += 1
+    return y
+
+
+dia_spmv.launches = 0
+
+# name -> (wrapper, plain version, TPU kernel it replaces)
+KERNELS = {
+    "dia_spmv": (dia_spmv, dia_spmv_plain, "cvr_tpu/ops/pallas_dia.py:39"),
+}

@@ -1,0 +1,23 @@
+"""Every Hopper kernel of the port, by name: K1-K7 of the routed path
+(route_kernels), K8 DIA (dia_kernels), K9 BELL (bell_kernels) and K10
+SELL-W (window_kernels)."""
+
+from __future__ import annotations
+
+from cvr_tpu_torch.ops import bell_kernels, dia_kernels, route_kernels, window_kernels
+
+_MODULES = (route_kernels, dia_kernels, bell_kernels, window_kernels)
+
+# name -> (wrapper, plain version, TPU kernels it replaces)
+KERNELS = {name: entry for m in _MODULES for name, entry in m.KERNELS.items()}
+# name -> the CUDA source of its kernel
+SOURCES = {name: m.SOURCE for m in _MODULES for name in m.KERNELS}
+
+
+def reset_launches() -> None:
+    for wrapper, _plain, _src in KERNELS.values():
+        wrapper.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: w.launches for name, (w, _, _) in KERNELS.items()}

@@ -221,23 +221,36 @@ def reduce_products_plain(m, m3, vals, p3, rows, fast):
     return vals[:, rows, :] * m[i3 >> 7, q, i3 & 127]
 
 
+def slice_rows(row0, row1):
+    """(item, rows) int64 over every slice item's plane rows [row0[k],
+    row1[k]): plane row rows[j] belongs to item item[j]."""
+    row0, row1 = row0.long(), row1.long()
+    counts = row1 - row0
+    item = torch.repeat_interleave(
+        torch.arange(row0.shape[0], device=row0.device), counts
+    )
+    first = torch.cumsum(counts, 0) - counts
+    rows = row0[item] + torch.arange(item.shape[0], device=row0.device) - first[item]
+    return item, rows
+
+
+def slice_sums(P, item, out, nys: int):
+    """ys (8, nys, 128): ys[:, out[k], :] = the sum of the products P
+    (8, len(item), 128) of item k; slices no item names stay zero."""
+    sums = torch.zeros((8, out.shape[0], 128), dtype=P.dtype, device=P.device)
+    sums.index_add_(1, item, P)
+    ys = torch.zeros((8, nys, 128), dtype=P.dtype, device=P.device)
+    ys[:, out.long(), :] = sums
+    return ys
+
+
 def reduce_slices_plain(m, m3, vals, p3, row0, row1, out, fast, nys: int):
     """ys (8, nys, 128): ys[:, out[k], :] = sum over plane rows
     [row0[k], row1[k]) of the products (reduce_products_plain); slices
     no item names stay zero."""
-    row0, row1 = row0.long(), row1.long()
-    counts = row1 - row0
-    item = torch.repeat_interleave(
-        torch.arange(row0.shape[0], device=m.device), counts
-    )
-    first = torch.cumsum(counts, 0) - counts
-    rows = row0[item] + torch.arange(item.shape[0], device=m.device) - first[item]
+    item, rows = slice_rows(row0, row1)
     P = reduce_products_plain(m, m3, vals, p3, rows, fast.bool()[item])
-    sums = torch.zeros((8, row0.shape[0], 128), dtype=P.dtype, device=m.device)
-    sums.index_add_(1, item, P)
-    ys = torch.zeros((8, nys, 128), dtype=P.dtype, device=m.device)
-    ys[:, out.long(), :] = sums
-    return ys
+    return slice_sums(P, item, out, nys)
 
 
 def reduce_slices(m, m3, vals, p3, row0, row1, out, fast, nys: int):
@@ -389,22 +402,11 @@ def reduce_hot_plain(xh, hidx, hvals, row0, row1, out, nys: int):
     """ys (8, nys, 128): ys[:, out[k], :] = sum over plane rows
     [row0[k], row1[k]) of xh[hidx] * hvals (xh read as 0 past its end);
     slices no item names stay zero."""
-    row0, row1 = row0.long(), row1.long()
-    counts = row1 - row0
-    item = torch.repeat_interleave(
-        torch.arange(row0.shape[0], device=xh.device), counts
-    )
-    first = torch.cumsum(counts, 0) - counts
-    rows = row0[item] + torch.arange(item.shape[0], device=xh.device) - first[item]
+    item, rows = slice_rows(row0, row1)
     v = hidx[:, rows, :].long()
     valid = (v >= 0) & (v < xh.shape[0])
     P = torch.where(valid, xh[v.clamp(0, xh.shape[0] - 1)], 0.0)
-    P = P * hvals[:, rows, :]
-    sums = torch.zeros((8, row0.shape[0], 128), dtype=P.dtype, device=xh.device)
-    sums.index_add_(1, item, P)
-    ys = torch.zeros((8, nys, 128), dtype=P.dtype, device=xh.device)
-    ys[:, out.long(), :] = sums
-    return ys
+    return slice_sums(P * hvals[:, rows, :], item, out, nys)
 
 
 def reduce_hot(xh, hidx, hvals, row0, row1, out, nys: int):
@@ -467,7 +469,3 @@ KERNELS = {
     ),
 }
 
-
-def reset_launches() -> None:
-    for wrapper, _plain, _src in KERNELS.values():
-        wrapper.launches = 0

@@ -1,0 +1,39 @@
+"""y = A @ x on the DIA artifact: one K8 pass over the band planes.
+
+The JAX package picks its Pallas roll kernel or an XLA shifted-slice form
+by a VMEM size gate; on the card K8 serves every size.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from cvr_tpu_torch.formats.dia import DiaMatrix
+from cvr_tpu_torch.ops import dia_kernels as dk
+
+
+@dataclass(frozen=True)
+class DiaDevice:
+    bands: torch.Tensor  # (nd, nrows) f32
+    offsets: torch.Tensor  # (nd,) int64
+    shape: tuple[int, int]
+    nnz: int
+
+
+def to_device_dia(dm: DiaMatrix, device="cuda") -> DiaDevice:
+    """Upload the DIA artifact's planes to ``device``."""
+    return DiaDevice(
+        bands=torch.from_numpy(np.ascontiguousarray(dm.bands)).to(device),
+        offsets=torch.from_numpy(
+            np.ascontiguousarray(dm.offsets, dtype=np.int64)).to(device),
+        shape=tuple(dm.shape),
+        nnz=dm.nnz,
+    )
+
+
+def spmv_dia(sd: DiaDevice, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x; x (ncols,) on sd's device."""
+    return dk.dia_spmv(sd.bands, sd.offsets, x.to(torch.float32).contiguous())

@@ -25,6 +25,7 @@ from cvr_tpu_torch.formats.hot import capture_split as t_capture
 from cvr_tpu_torch.formats.hot import plan_hot as t_plan_hot
 from cvr_tpu_torch.formats.sell_routed import _FIELDS, from_reference
 from cvr_tpu_torch.formats.sell_routed import sell_pack_routed as t_pack_routed
+from cvr_tpu_torch.ops import kernels
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops import spmv_routed as tsp
 from torch_cases import banded, fsm, powerlaw, rmat
@@ -187,7 +188,7 @@ def test_reduce_hot_matches_pallas(monkeypatch, NH, case):
     want = np.asarray(jsr_mod._hot_stream(jsd, jnp.asarray(x)))
     tsd = tsp.to_device_routed(from_reference(sr), "cpu")
     xt = torch.from_numpy(x)
-    rk.reset_launches()
+    kernels.reset_launches()
     got = tsp.hot_stream(tsd, xt).numpy()
     assert rk.reduce_hot.launches == 0  # CPU tensors: the plain version ran
     scale = rk.reduce_hot(xt[tsd.hot_ids].abs(), tsd.hidx, tsd.hvals.abs(),

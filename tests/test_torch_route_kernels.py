@@ -21,6 +21,7 @@ from cvr_tpu.formats.sell_routed import sell_pack_routed as j_pack_routed
 
 import cvr_tpu_torch.ops.route_planes as tpr
 from cvr_tpu_torch.formats.sell_routed import from_reference
+from cvr_tpu_torch.ops import kernels
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops import spmv_routed as tsp
 from torch_cases import CASES, multisegment, powerlaw, rmat, uniform_rows
@@ -45,7 +46,7 @@ def test_expand_matches_pallas(case):
     np.testing.assert_array_equal(
         rk.expand_x_table(_t(x), sr.segw, sr.n_segs).numpy(), np.asarray(x2)
     )
-    rk.reset_launches()
+    kernels.reset_launches()
     got = rk.expand(_t(sr.w8), _t(sr.gcls), _t(sr.seg_blk), _t(sr.li), _t(x),
                     sr.segw, sr.n_segs)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -157,7 +158,7 @@ def test_tileperm_matches_pallas(T):
     data = rng.standard_normal((8, T, 128)).astype(np.float32)
     idx = rng.integers(0, 1024, (8, T, 128)).astype(np.int16)
     want = np.asarray(jpr.tileperm_ss(jnp.asarray(data), jnp.asarray(idx)))
-    rk.reset_launches()
+    kernels.reset_launches()
     got = rk.tileperm(_t(data), _t(idx))
     np.testing.assert_array_equal(got.numpy(), want)
     assert rk.tileperm.launches == 0
@@ -190,10 +191,10 @@ def test_apply_route_stream_matches_pallas():
     g = np.random.default_rng(10).standard_normal((8, 2048, 128)).astype(np.float32)
     want = np.asarray(jpr.apply_route_stream(ra, jnp.asarray(g)))
     rd = tsp.route_to_device(ra, "cpu")
-    rk.reset_launches()
+    kernels.reset_launches()
     got = tsp.apply_route_stream(rd, _t(g)).numpy()
     np.testing.assert_array_equal(got, want)
-    assert all(w.launches == 0 for w, _, _ in rk.KERNELS.values())
+    assert all(w.launches == 0 for w, _, _ in kernels.KERNELS.values())
     perm = np.random.default_rng(4).permutation(2048 * 1024)
     np.testing.assert_array_equal(got, rk.stream_to_flat(_t(g)).numpy()[perm])
 

@@ -20,6 +20,7 @@ from cvr_tpu_torch.bench.harness import run_spmv_benchmark
 from cvr_tpu_torch.formats.sell_routed import sell_pack_routed as t_pack_routed
 from cvr_tpu_torch.io.mmio import read_matrix_market as t_read
 from cvr_tpu_torch.io.mmio import write_matrix_market
+from cvr_tpu_torch.ops import kernels
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops.spmv_ref import spmv_golden_numpy, spmv_row_scale, verify
 from cvr_tpu_torch.ops.spmv_routed import spmv_routed, to_device_routed
@@ -28,10 +29,10 @@ from torch_cases import CASES, FIXTURES, fsm, powerlaw, rmat, tall_sparse
 
 def _port_spmv(tcoo, x, split_len=None, hot="off"):
     tsr = t_pack_routed(tcoo.to_csr(), split_len=split_len, hot=hot)
-    rk.reset_launches()
+    kernels.reset_launches()
     y = spmv_routed(to_device_routed(tsr, "cpu"), torch.from_numpy(x)).numpy()
     # CPU tensors: every pass ran its plain version, no kernel launched
-    assert all(w.launches == 0 for w, _, _ in rk.KERNELS.values())
+    assert all(w.launches == 0 for w, _, _ in kernels.KERNELS.values())
     return tsr, y
 
 

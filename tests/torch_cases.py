@@ -95,3 +95,70 @@ CASES = {
     "rmat_T2048": (lambda: rmat(17, 8, 4), None),
     "multisegment": (multisegment, None),
 }
+
+
+def rgg(n=20000, reach=48, seed=3):
+    return (
+        jsyn.rgg_like(n=n, reach=reach, seed=seed),
+        tsyn.rgg_like(n=n, reach=reach, seed=seed),
+    )
+
+
+def road(n=1 << 17, reach=48, seed=17):
+    return (
+        jsyn.road_usa_like(n=n, reach=reach, seed=seed),
+        tsyn.road_usa_like(n=n, reach=reach, seed=seed),
+    )
+
+
+def fem(n=1 << 15, deg=54, bw=150, seed=23):
+    return (
+        jsyn.fem_like(n=n, deg=deg, bw=bw, seed=seed),
+        tsyn.fem_like(n=n, deg=deg, bw=bw, seed=seed),
+    )
+
+
+def diagonals(nrows, ncols, offsets, seed=4):
+    """Dense diagonals at ``offsets`` of an nrows x ncols matrix."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for off in offsets:
+        r = np.arange(max(0, -off), min(nrows, ncols - off))
+        rows.append(r)
+        cols.append(r + off)
+    rows = np.concatenate(rows).astype(np.int32)
+    cols = np.concatenate(cols).astype(np.int32)
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    return pair(rows, cols, vals, (nrows, ncols))
+
+
+def window_rect(seed=6):
+    """A wide band (~0.6 rows per column: 8000 x 13000), 12 nnz per row."""
+    rng = np.random.default_rng(seed)
+    nrows, ncols = 8000, 13000
+    rows = np.repeat(np.arange(nrows), 12)
+    cols = np.clip(rows * 13 // 8 + rng.integers(-200, 200, rows.shape[0]),
+                   0, ncols - 1)
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    j, t = pair(rows.astype(np.int32), cols.astype(np.int32), vals,
+                (nrows, ncols))
+    return j.sum_duplicates(), t.sum_duplicates()
+
+
+def window_empty_rows(seed=8):
+    """A band with every third block of 2048 rows empty: zero-width
+    slices, and whole zero-width reduce groups at YB 2."""
+    j, t = fem(n=1 << 14, deg=10, bw=100, seed=seed)
+    keep = (t.rows // 2048) % 3 != 1
+    return pair(t.rows[keep], t.cols[keep], t.vals[keep], t.shape)
+
+
+# SELL-W packs, each reaching one geometry: builder, segw (None: default)
+WINDOW_CASES = {
+    "fem_D2": (fem, None),
+    "banded_D2_wrl7": (lambda: banded(20000, 9), None),
+    "W2048_wrl15": (lambda: fem(n=1 << 14, deg=8, bw=400), None),
+    "segw2": (lambda: fem(n=1 << 13, deg=10, bw=100), 2),
+    "rectangular": (window_rect, None),
+    "empty_rows": (window_empty_rows, None),
+}
