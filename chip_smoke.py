@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's SpMV paths once on one NVIDIA H100.
+"""Drive the port's SpMV and SpMM paths once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -44,7 +44,21 @@ Phases, each printed on its own lines:
      smaller one of its generator through `cli spmv` (--format auto),
      each printing its verified three-line report; then every kernel
      launch of each path against its plain version as in [3];
-  7. a JSON line of the kernels of every path, then the last line
+  7. SpMM at full size, each case through the entry point a user calls
+     (``cli spmv --rhs K`` with --format auto, or ``spmm`` on pack_auto's
+     artifact) with the format it must pick: banded-2M at K 64 -> BSR
+     (K12) through the CLI and DIA (K11) through spmm, fem-like at K 64 ->
+     BSR (K12), fsm-like at K 32 -> PMM (K14), web-Google-like at K 128
+     -> lane (K13) and at K 8 -> the routed SpMV once per column (K1-K4,
+     8 launches each), road-usa-like at K 8 -> BELL once per column (K9
+     and the spill's K1-K4, 8 launches each); launch counts, 8 columns of
+     Y against the float64 golden, the SpMM timed by CUDA events and as
+     device time, cuSPARSE's CSR SpMM (torch.sparse_csr_tensor @ X) and
+     for BSR also torch's BSR matmul on the same bricks as yardsticks;
+     each new kernel's launch against its plain version over all K
+     columns; then ``cli spmv --rhs K`` on a smaller MatrixMarket file of
+     each generator, verified;
+  8. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero.  It needs a CUDA card
@@ -53,6 +67,7 @@ and the repository around it; it imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -61,6 +76,7 @@ import tempfile
 import time
 
 import numpy as np
+import scipy.sparse as sps
 import torch
 
 from cvr_tpu_torch import _native, cli
@@ -76,7 +92,11 @@ from cvr_tpu_torch.ops import _build, kernels
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops import route_planes as rp
 from cvr_tpu_torch.ops import spmv_routed as sp
-from cvr_tpu_torch.ops.spmv import spmv, upload
+from cvr_tpu_torch.ops import spmm_bsr, spmm_lane, spmm_pmm
+from cvr_tpu_torch.ops.spmm_bsr import BsrDevice
+from cvr_tpu_torch.ops.spmm_lane import LaneDevice
+from cvr_tpu_torch.ops.spmm_pmm import PmmDevice
+from cvr_tpu_torch.ops.spmv import spmm, spmv, upload
 from cvr_tpu_torch.ops.spmv_bell import BellDevice, gather_args
 from cvr_tpu_torch.ops.spmv_dia import DiaDevice
 from cvr_tpu_torch.ops.spmv_ref import spmv_golden_numpy, spmv_row_scale, verify
@@ -149,7 +169,29 @@ FORMATS = (
      "window_reduce", lambda: syn.fem_like(n=1 << 15)),
 )
 
-TRACES = 3  # traces device_ms takes at most to find one that holds every call
+# Phase [7]: name, matrix, the smaller matrix of its generator for the
+# CLI, and its cases: (K, entry point, the format it must pick).  "cli"
+# runs cli._spmm with --format auto, "spmm" runs spmm on pack_auto's
+# artifact.
+SPMM_CASES = (
+    ("banded_2m", lambda: syn.banded_matrix(1 << 21, 27),
+     lambda: syn.banded_matrix(1 << 16, 27),
+     ((64, "cli", "bsr"), (64, "spmm", "dia"))),
+    ("fem_like", syn.fem_like, lambda: syn.fem_like(n=1 << 15),
+     ((64, "cli", "bsr"),)),
+    ("fsm_like", syn.fsm_like, lambda: syn.fsm_like(n=1 << 17),
+     ((32, "cli", "pmm"),)),
+    ("web_google_like", syn.web_google_like,
+     lambda: syn.rmat_matrix(14, 6, seed=42),
+     ((128, "cli", "lane"), (8, "cli", "sell-routed"))),
+    ("road_usa_like", syn.road_usa_like,
+     lambda: syn.road_usa_like(n=1 << 18),
+     ((8, "cli", "bell"),)),
+)
+SPMM_CHECK_COLS = 8  # columns of Y held against the float64 golden
+
+TRACES = 5  # traces device_ms takes at most to find one that holds every call
+MARGIN_S = 0.02  # idle time around the kept calls of a trace
 
 
 def device_ms(fn, iters: int, marker: str | None) -> dict[str, float]:
@@ -165,8 +207,11 @@ def device_ms(fn, iters: int, marker: str | None) -> dict[str, float]:
     them: ``marker``, a kernel that one call launches once, ``iters`` times
     (None where ``fn`` launches no kernel of ours), and every device event
     a multiple of ``iters`` times, since each call launches the same
-    kernels.  Up to TRACES traces are taken; it raises when none holds
-    every call."""
+    kernels.  The range opens and closes with MARGIN_S of idle time: the
+    device's timestamps may stand off the host's by a fraction of a
+    millisecond, and the kept calls of a short kernel take little more.
+    Up to TRACES traces are taken; it raises when none holds every
+    call."""
     faults = []
     for _ in range(TRACES):
         per, count = _trace(fn, iters)
@@ -198,11 +243,13 @@ def _trace(fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-        time.sleep(0.001)
+        time.sleep(MARGIN_S)
         with record_function(kept):
+            time.sleep(MARGIN_S)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(MARGIN_S)
     events = prof.events()
     dt = torch.autograd.DeviceType
     window = [e.time_range for e in events
@@ -279,6 +326,17 @@ def expected_launches(sd) -> dict[str, int]:
             "reduce_hot": int(sd.hot_nslices > 0),
         })
     return want
+
+
+def expected_spmm_launches(sd, K: int) -> dict[str, int]:
+    """Launches of each kernel in one SpMM of the device artifact ``sd``
+    at width K: one of the SpMM kernel, or K SpMVs' worth."""
+    one = {BsrDevice: "bsr_spmm", LaneDevice: "lane_reduce",
+           PmmDevice: "pmm_spmm", DiaDevice: "dia_spmm"}
+    for kind, name in one.items():
+        if isinstance(sd, kind):
+            return {**dict.fromkeys(kernels.KERNELS, 0), name: 1}
+    return {k: n * K for k, n in expected_launches(sd).items()}
 
 
 def describe(A) -> str:
@@ -405,7 +463,15 @@ def kernel_cases(sd, xd):
     """Every kernel launch of one SpMV of ``sd``, in path order, as
     (kernel, which launch, its arguments at the path's own tensors)."""
     if isinstance(sd, DiaDevice):
+        if xd.dim() == 2:
+            return [("dia_spmm", "", (sd.bands, sd.offsets, xd))]
         return [("dia_spmv", "", (sd.bands, sd.offsets, xd))]
+    if isinstance(sd, BsrDevice):
+        return [("bsr_spmm", "", spmm_bsr.kernel_args(sd, xd))]
+    if isinstance(sd, LaneDevice):
+        return [("lane_reduce", "", spmm_lane.kernel_args(sd, xd))]
+    if isinstance(sd, PmmDevice):
+        return [("pmm_spmm", "", spmm_pmm.kernel_args(sd, xd))]
     if isinstance(sd, SellWindowDevice):
         return [("window_reduce", "", reduce_args(sd, xd))]
     if isinstance(sd, BellDevice):
@@ -454,9 +520,18 @@ def row_scale_args(name, args):
     if name == "reduce_slices":
         m, m3, vals, *rest = args
         return (m.abs(), m3, vals.abs(), *rest)
-    if name == "dia_spmv":
+    if name in ("dia_spmv", "dia_spmm"):
         bands, offsets, x = args
         return (bands.abs(), offsets, x.abs())
+    if name == "bsr_spmm":
+        vals, brow, bcol, row_start, X, nrows = args
+        return (vals.abs(), brow, bcol, row_start, X.abs(), nrows)
+    if name == "lane_reduce":
+        cols, vals, row0, row1, X = args
+        return (cols, vals.abs(), row0, row1, X.abs())
+    if name == "pmm_spmm":
+        col, val, rl, chunk_start, X, nrows = args
+        return (col, val.abs(), rl, chunk_start, X.abs(), nrows)
     if name == "bell_gather_mac":
         li, vals, x, *rest = args
         return (li, vals.abs(), x.abs(), *rest)
@@ -472,8 +547,10 @@ def bound(name, args, out) -> tuple[float, str]:
     what sets it: each input byte read once and each output byte written
     once over the HBM rate, or the float32 operations over the card's
     rate outside the tensor cores (one multiply and one add per stored
-    element).  The reduces read only the plane rows their slice tables
-    name (this run's data)."""
+    element, and per column of X for an SpMM kernel: BSR counts its dense
+    bricks, lane the plane rows its slots sum, PMM the element slots that
+    hold an entry).  The reduces read only the plane rows their slice
+    tables name (this run's data)."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     ops = 0
@@ -491,6 +568,13 @@ def bound(name, args, out) -> tuple[float, str]:
         ops = 2 * used
     elif name in ("dia_spmv", "bell_gather_mac"):
         ops = 2 * args[0].numel()
+    elif name in ("dia_spmm", "bsr_spmm"):
+        ops = 2 * args[0].numel() * out.shape[1]
+    elif name == "lane_reduce":
+        used = int((args[3].long() - args[2].long()).sum()) * 1024
+        ops = 2 * used * out.shape[1]
+    elif name == "pmm_spmm":
+        ops = 2 * int((args[0] >= 0).sum()) * out.shape[1]
     nbytes += out.numel() * out.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -553,8 +637,9 @@ def check_kernels(tag, path, sd, xd, launches, spmv_dms, device,
         print(f"{tag} {label}: {verdict}, max abs err {err:.3e}, "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events); "
               f"device time kernel {dms:.4f} ms, plain {pdms:.4f} ms "
-              f"(traces hold all {KERNEL_ITERS} calls); in the SpMV "
-              f"{spmv_dms[name]:.4f} ms over {launches[name]} launches; "
+              f"(traces hold all {KERNEL_ITERS} calls); in the path's "
+              f"trace {spmv_dms[name]:.4f} ms over {launches[name]} "
+              "launches; "
               f"bound {bound_ms:.4f} ms ({bound_by}); library call "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
         if not same:
@@ -717,6 +802,164 @@ def format_paths(device):
     return rows
 
 
+def spmm_golden(csr, X):
+    """Float64 golden Y and the row scale |A| @ |X| for the columns of the
+    host array X."""
+    A64 = sps.csr_matrix((csr.vals.astype(np.float64), csr.cols, csr.rowptr),
+                         shape=csr.shape)
+    X64 = X.astype(np.float64)
+    return A64 @ X64, abs(A64) @ np.abs(X64)
+
+
+def check_columns(tag, what, Y, golden, scale) -> float:
+    """Y's first columns against the golden at rtol 1e-6, row-scaled."""
+    ok, nbad, maxrel = verify(Y, golden, rtol=1e-6, row_scale=scale)
+    print(f"{tag} {what} vs float64 golden over {Y.shape[1]} columns (rtol "
+          f"1e-6, row-scaled): {'PASS' if ok else 'FAIL'}, {nbad} bad "
+          f"entries, max rel {maxrel:.3e}")
+    if not ok:
+        raise AssertionError(f"{tag} {what} disagrees with the golden")
+    return maxrel
+
+
+def library_spmm(tag, csr, Xd, golden, scale, device, sd=None):
+    """The yardsticks, never on the port's path, checked against the
+    golden and timed by CUDA events: cuSPARSE's CSR SpMM
+    (torch.sparse_csr_tensor @ X), and for a BSR artifact torch's BSR
+    matmul on the same bricks (torch.sparse_bsr_tensor @ X, where torch
+    takes it).  Returns {"csr": ms, "bsr": ms or None}."""
+    dev = torch.device(device)
+    c = SPMM_CHECK_COLS
+    A = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.rowptr).to(dev),
+        torch.from_numpy(csr.cols.astype(np.int64)).to(dev),
+        torch.from_numpy(csr.vals.astype(np.float32)).to(dev),
+        size=csr.shape, check_invariants=False,
+    )
+    check_columns(tag, "cuSPARSE CSR SpMM", (A @ Xd)[:, :c].cpu().numpy(),
+                  golden, scale)
+    out = {"csr": time_iterations(lambda: A @ Xd, KERNEL_ITERS, device) * 1e3,
+           "bsr": None}
+    print(f"{tag} cuSPARSE CSR SpMM (torch.sparse_csr_tensor @ X, "
+          f"yardstick): {out['csr']:.4f} ms/iter over {KERNEL_ITERS} iters")
+    del A
+    if isinstance(sd, BsrDevice):
+        nrows, ncols = sd.shape
+        try:
+            Ab = torch.sparse_bsr_tensor(
+                sd.row_start, sd.brick_col.long(), sd.vals,
+                size=(sd.nrb * 128, sd.ncb * 128), check_invariants=False)
+            Xp = torch.nn.functional.pad(Xd, (0, 0, 0, sd.ncb * 128 - ncols))
+            check_columns(tag, "torch BSR matmul",
+                          (Ab @ Xp)[:nrows, :c].cpu().numpy(), golden, scale)
+            out["bsr"] = time_iterations(lambda: Ab @ Xp, KERNEL_ITERS,
+                                         device) * 1e3
+            print(f"{tag} torch BSR matmul (torch.sparse_bsr_tensor @ X, "
+                  f"yardstick): {out['bsr']:.4f} ms/iter over "
+                  f"{KERNEL_ITERS} iters")
+        except (RuntimeError, NotImplementedError) as e:
+            print(f"{tag} torch BSR matmul: not taken by torch here "
+                  f"({type(e).__name__}: {str(e).splitlines()[0][:200]})")
+    return out
+
+
+def spmm_case(tag, name, coo, K, entry, want, device):
+    """One case of SPMM_CASES: the entry point with its pick, one SpMM of
+    random X with the launch counts, the golden over the first columns,
+    the SpMM's time and device time, the yardsticks, and every new
+    kernel's launch against its plain version.  Returns the kernel rows."""
+    csr = coo.to_csr()
+    if entry == "cli":
+        args = argparse.Namespace(matrix=name, format="auto", rhs=K,
+                                  iters=ITERS, device=device, no_verify=False)
+        run = cli._spmm(args, coo)
+        if run.rc != 0 or run.fmt != want:
+            raise AssertionError(f"{tag} cli spmv --rhs {K} picked "
+                                 f"{run.fmt!r} (rc {run.rc}), want {want!r}")
+        sd = run.sd
+    else:
+        A = pack_auto(csr)
+        print(f"{tag} pack_auto: {describe(A)}")
+        if not isinstance(A, DiaMatrix) or want != "dia":
+            raise AssertionError(f"{tag} pack_auto gave {type(A).__name__}")
+        sd = upload(A, device)
+        del A
+    X = np.random.default_rng(K).standard_normal(
+        (coo.shape[1], K)).astype(np.float32)
+    Xd = torch.from_numpy(X).to(device)
+
+    kernels.reset_launches()
+    Y = spmm(sd, Xd)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+
+    if Y.shape != (coo.shape[0], K) or not bool(torch.isfinite(Y).all()):
+        raise AssertionError(f"{tag} bad output: shape {tuple(Y.shape)}")
+    golden, scale = spmm_golden(csr, X[:, :SPMM_CHECK_COLS])
+    check_columns(tag, f"{want} SpMM", Y[:, :SPMM_CHECK_COLS].cpu().numpy(),
+                  golden, scale)
+    del Y
+    print(f"{tag} launches in this path's run: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    if launches != expected_spmm_launches(sd, K):
+        raise AssertionError(f"{tag} launches {launches}, the {want} SpMM "
+                             f"needs {expected_spmm_launches(sd, K)}")
+    ms = time_iterations(lambda: spmm(sd, Xd), ITERS, device) * 1e3
+    ours_one = [k for k, n in launches.items() if n == 1]
+    marker = f"{ours_one[0]}_kernel" if ours_one else None
+    per = device_ms(lambda: spmm(sd, Xd), KERNEL_ITERS, marker)
+    dev_ms = sum(per.values())
+    ours = {k: sum(v for n, v in per.items() if f"{k}_kernel" in n)
+            for k in kernels.KERNELS}
+    print(f"{tag} {want} SpMM, K {K}: {ms:.4f} ms/iter over {ITERS} iters "
+          f"(CUDA events), {2 * csr.nnz * K / ms / 1e6:.3f} GFLOPS "
+          f"(2*nnz*K); device time {dev_ms:.4f} ms/iter (trace holds all "
+          f"{KERNEL_ITERS} calls; busy {100 * dev_ms / ms:.1f}%); in the "
+          "same trace: " + ", ".join(f"{k} {v:.4f}" for k, v in ours.items()
+                                     if v)
+          + f", other device work {dev_ms - sum(ours.values()):.4f} ms")
+    lib = library_spmm(tag, csr, Xd, golden, scale, device, sd)
+    rows = []
+    if marker is not None:  # an SpMM kernel: hold it against its plain
+        name_k = ours_one[0]
+        lib_ms = lib["bsr"] if name_k == "bsr_spmm" and lib["bsr"] else (
+            None if name_k == "lane_reduce" else lib["csr"])
+        rows = check_kernels(tag, f"{name} K {K}", sd, Xd, launches, ours,
+                             device, {name_k: lib_ms})
+        for r in rows:
+            r["spmm_ms"], r["cusparse_spmm_ms"] = ms, lib["csr"]
+            r["torch_bsr_ms"] = lib["bsr"]
+    return rows
+
+
+def spmm_paths(device):
+    """Phase [7]: each of SPMM_CASES at full size, then ``cli spmv --rhs
+    K`` on a MatrixMarket file of the smaller matrix of its generator."""
+    rows = []
+    for name, make, small, cases in SPMM_CASES:
+        t0 = time.perf_counter()
+        coo = make()
+        print(f"[7] {name}: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} nnz, "
+              f"generated in {time.perf_counter() - t0:.2f} s")
+        for K, entry, want in cases:
+            tag = f"[7] {name} K {K} ({entry})"
+            rows += spmm_case(tag, name, coo, K, entry, want, device)
+        del coo
+        on = [] if device == "cuda" else [f"--device={device}"]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{name}_small.mtx")
+            write_matrix_market(path, small())
+            for K, entry, _ in cases:
+                if entry != "cli":
+                    continue
+                rc = cli.main(["spmv", path, "--rhs", str(K), "--iters",
+                               str(ITERS), *on])
+                if rc != 0:
+                    raise AssertionError(f"[7] cli spmv --rhs {K} on "
+                                         f"{name}_small: rc {rc}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -740,6 +983,7 @@ def main() -> int:
     walks = check_geometries("cuda")
     rows += fsm_path("cuda", walks)
     rows += format_paths("cuda")
+    rows += spmm_paths("cuda")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -4,9 +4,9 @@ The port shares the C++ library with the JAX package but binds it itself,
 so importing it pulls in no jax.  Only the entry points the port's packs
 call are bound: the MatrixMarket reader, COO->CSR assembly, the SELL-pack
 converter, the routed stream builder, the zone scatter, the fused route
-compilers, the recursive-middle planes, and the DIA, BELL and SELL-W
-passes of ``pack_auto``'s other formats.  The library is built at first
-use with ``make -C native``.
+compilers, the recursive-middle planes, the DIA, BELL and SELL-W
+passes of ``pack_auto``'s other formats, and the BSR-128 densification.
+The library is built at first use with ``make -C native``.
 """
 
 from __future__ import annotations
@@ -173,6 +173,12 @@ def get_lib():
     lib.cvr_bell_fill.argtypes = [
         _i64, _i64p, _i32p, _f32p, _i64, _i64, _i64, _i64,
         _i16p, _f32p, _i64, _i32p, _i32p, _f32p,
+    ]
+    lib.cvr_bsr_count.restype = _i64
+    lib.cvr_bsr_count.argtypes = [_i64, _i64, _i64p, _i32p]
+    lib.cvr_bsr_fill.restype = ctypes.c_int
+    lib.cvr_bsr_fill.argtypes = [
+        _i64, _i64, _i64p, _i32p, _f32p, _i64, _i32p, _i32p, _f32p,
     ]
     if lib.cvr_version() != _VERSION:
         return None
@@ -532,3 +538,31 @@ def bell_fill_native(rowptr, cols, vals, k: int, cap: int, cr: int,
     if ns < 0:
         raise NativeError("bell_fill: spill capacity exceeded")
     return li, vout, sr[:ns], sc[:ns], sv[:ns]
+
+
+def bsr_count_native(nrows: int, ncb: int, rowptr, cols) -> int:
+    """Occupied 128x128 brick count (BSR pass 1)."""
+    lib = _need_lib()
+    return int(lib.cvr_bsr_count(
+        nrows, ncb,
+        np.ascontiguousarray(rowptr, dtype=np.int64),
+        np.ascontiguousarray(cols, dtype=np.int32),
+    ))
+
+
+def bsr_fill_native(nrows: int, ncb: int, rowptr, cols, vals, nbricks: int):
+    """Brick coordinates (sorted by row block, then column block) and the
+    dense value planes (BSR pass 2): (brick_row, brick_col, vals
+    (nbricks, 128, 128) f32)."""
+    lib = _need_lib()
+    brick_row = np.empty(nbricks, dtype=np.int32)
+    brick_col = np.empty(nbricks, dtype=np.int32)
+    bvals = np.zeros((nbricks, 128, 128), dtype=np.float32)
+    _check(lib, lib.cvr_bsr_fill(
+        nrows, ncb,
+        np.ascontiguousarray(rowptr, dtype=np.int64),
+        np.ascontiguousarray(cols, dtype=np.int32),
+        np.ascontiguousarray(vals, dtype=np.float32),
+        nbricks, brick_row, brick_col, bvals,
+    ))
+    return brick_row, brick_col, bvals

@@ -121,10 +121,12 @@ def _pack(csr, impl: str):
     from cvr_tpu_torch.formats import pack_auto
     from cvr_tpu_torch.formats.bell import bell_pack
     from cvr_tpu_torch.formats.dia import dia_pack
+    from cvr_tpu_torch.formats.sell import sell_pack
     from cvr_tpu_torch.formats.sell_routed import SellRouted, sell_pack_routed
     from cvr_tpu_torch.formats.sell_window import sell_pack_window
 
     packed = {
+        "sell-xla": sell_pack,
         "auto": pack_auto,
         "sell-routed": sell_pack_routed,
         "dia": dia_pack,
@@ -139,7 +141,7 @@ def _pack(csr, impl: str):
 def run_spmv_benchmark(
     coo,
     name: str = "matrix",
-    impl: str = "sell-routed",
+    impl: str = "sell-xla",
     iters: int = 100,
     device="cuda",
     verify_result: bool = True,
@@ -147,11 +149,12 @@ def run_spmv_benchmark(
 ) -> BenchResult:
     """End to end: convert (timed) -> SpMV iterations (timed) -> verify.
 
-    impl "auto": ``pack_auto``'s format (DIA, BELL, SELL-W, the routed
-    path, or above its cap the plain SELL planes), as in the JAX harness;
-    "sell-routed", "dia", "bell", "sell-window": that format's pack and
-    SpMV ("sell-routed" with the hub-column hybrid where its gate fires);
-    "csr": plain torch CSR.
+    impl "sell-xla" (the default, as in the JAX harness): the plain SELL
+    planes (``sell_pack``) through ``sell_spmv``, torch ops; "auto":
+    ``pack_auto``'s format (DIA, BELL, SELL-W, the routed path, or above
+    its cap the plain SELL planes); "sell-routed", "dia", "bell",
+    "sell-window": that format's pack and SpMV ("sell-routed" with the
+    hub-column hybrid where its gate fires); "csr": plain torch CSR.
     """
     from cvr_tpu_torch.ops.spmv import spmv, upload
     from cvr_tpu_torch.ops.spmv_ref import (
@@ -184,7 +187,8 @@ def run_spmv_benchmark(
 
         def fn():
             return spmv_csr_torch(rowptr, cols, vals, xd, nrows)
-    elif impl in ("auto", "sell-routed", "dia", "bell", "sell-window"):
+    elif impl in ("sell-xla", "auto", "sell-routed", "dia", "bell",
+                  "sell-window"):
         t0 = time.perf_counter()
         packed, padded = _pack(csr, impl)
         preproc = time.perf_counter() - t0

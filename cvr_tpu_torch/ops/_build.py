@@ -21,7 +21,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(
     _PKG / "csrc" / f"{name}.cu"
     for name in ("route_kernels", "dia_kernels", "bell_kernels",
-                 "window_kernels")
+                 "window_kernels", "bsr_kernels", "lane_kernels",
+                 "pmm_kernels")
 )
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -122,11 +123,16 @@ def load():
     lib.cvr_window_reduce.argtypes = [
         p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i32, i32, i32, i32, p,
     ]
+    lib.cvr_dia_spmm.argtypes = [p, p, p, p, i32, i64, i64, i32, p]
+    lib.cvr_bsr_spmm.argtypes = [p, p, p, p, p, i64, i64, i64, i32, p]
+    lib.cvr_lane_reduce.argtypes = [p, p, p, p, p, p, i64, i32, p]
+    lib.cvr_pmm_spmm.argtypes = [p, p, p, p, p, p, i64, i64, i32, p]
     for fn in (
         lib.cvr_expand, lib.cvr_route_middle, lib.cvr_reduce_slices,
         lib.cvr_route_small, lib.cvr_tileperm, lib.cvr_route_m3,
         lib.cvr_reduce_hot, lib.cvr_dia_spmv, lib.cvr_bell_gather_mac,
-        lib.cvr_window_reduce,
+        lib.cvr_window_reduce, lib.cvr_dia_spmm, lib.cvr_bsr_spmm,
+        lib.cvr_lane_reduce, lib.cvr_pmm_spmm,
     ):
         fn.restype = ctypes.c_int
     _LIB = lib

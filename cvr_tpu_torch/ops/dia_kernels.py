@@ -1,9 +1,10 @@
-"""The DIA SpMV's device pass: K8 ``dia_spmv`` and its plain version.
+"""The DIA device passes: K8 ``dia_spmv``, K11 ``dia_spmm`` and their
+plain versions.
 
-As in cvr_tpu_torch/ops/route_kernels.py: the wrapper launches the CUDA
+As in cvr_tpu_torch/ops/route_kernels.py: each wrapper launches its CUDA
 kernel of cvr_tpu_torch/csrc/dia_kernels.cu for CUDA tensors and counts
-the launch in ``dia_spmv.launches``; given CPU tensors it runs the plain
-version, and only then.
+the launch in its ``launches`` attribute; given CPU tensors it runs the
+plain version, and only then.
 """
 
 from __future__ import annotations
@@ -19,16 +20,9 @@ SOURCE = "cvr_tpu_torch/csrc/dia_kernels.cu"
 def dia_spmv_plain(bands, offsets, x):
     """y (nrows,) = sum_k bands[k] * x[r + offsets[k]] (x read as 0
     outside [0, ncols)): the JAX package's shifted-slice form
-    (``spmv_dia_xla``), diagonals added in pack order."""
-    nd, nrows = bands.shape
-    offs = [int(o) for o in offsets.tolist()]
-    lo, hi = min(offs + [0]), max(offs + [0])
-    base = max(-lo, 0)
-    xp = F.pad(x, (base, max(nrows + hi - x.shape[0], 0)))
-    y = torch.zeros(nrows, dtype=torch.float32, device=x.device)
-    for k, off in enumerate(offs):
-        y = y + bands[k] * xp[base + off : base + off + nrows]
-    return y
+    (``spmv_dia_xla``), diagonals added in pack order; the SpMM's plain
+    version at one column."""
+    return dia_spmm_plain(bands, offsets, x[:, None])[:, 0]
 
 
 def dia_spmv(bands, offsets, x):
@@ -53,7 +47,47 @@ def dia_spmv(bands, offsets, x):
 
 dia_spmv.launches = 0
 
+
+def dia_spmm_plain(bands, offsets, X):
+    """Y (nrows, K) = sum_k bands[k][:, None] * X[r + offsets[k], :] (X rows
+    read as 0 outside [0, ncols)): the JAX package's ``spmm_dia_xla``,
+    diagonals added in pack order."""
+    nd, nrows = bands.shape
+    offs = [int(o) for o in offsets.tolist()]
+    lo, hi = min(offs + [0]), max(offs + [0])
+    base = max(-lo, 0)
+    Xp = F.pad(X, (0, 0, base, max(nrows + hi - X.shape[0], 0)))
+    Y = torch.zeros((nrows, X.shape[1]), dtype=torch.float32, device=X.device)
+    for k, off in enumerate(offs):
+        Y = Y + bands[k][:, None] * Xp[base + off : base + off + nrows]
+    return Y
+
+
+def dia_spmm(bands, offsets, X):
+    """K11: the whole DIA SpMM, Y (nrows, K) from the band planes bands
+    (nd, nrows) f32, the diagonal offsets (nd,) int64 and X (ncols, K) f32
+    row-major; see dia_spmm_plain."""
+    if not _on_card("dia_spmm", bands, offsets, X):
+        return dia_spmm_plain(bands, offsets, X)
+    for t, dt in ((bands, torch.float32), (offsets, torch.int64),
+                  (X, torch.float32)):
+        _check_dtype("dia_spmm", t, dt)
+    nd, nrows = bands.shape
+    if offsets.shape != (nd,) or X.dim() != 2:
+        raise ValueError("dia_spmm: one offset per band, X (ncols, K)")
+    K = X.shape[1]
+    Y = torch.empty((nrows, K), dtype=torch.float32, device=X.device)
+    if nrows and K:
+        _launch("cvr_dia_spmm", X.device, _p(bands), _p(offsets), _p(X),
+                _p(Y), nd, nrows, X.shape[0], K)
+        dia_spmm.launches += 1
+    return Y
+
+
+dia_spmm.launches = 0
+
 # name -> (wrapper, plain version, TPU kernel it replaces)
 KERNELS = {
     "dia_spmv": (dia_spmv, dia_spmv_plain, "cvr_tpu/ops/pallas_dia.py:39"),
+    "dia_spmm": (dia_spmm, dia_spmm_plain, "cvr_tpu/ops/pallas_dia.py:137"),
 }

@@ -1,12 +1,23 @@
 """Every Hopper kernel of the port, by name: K1-K7 of the routed path
 (route_kernels), K8 DIA (dia_kernels), K9 BELL (bell_kernels) and K10
-SELL-W (window_kernels)."""
+SELL-W (window_kernels) of the SpMV; K11 DIA (dia_kernels), K12 BSR
+(bsr_kernels), K13 lane (lane_kernels) and K14 PMM (pmm_kernels) of the
+SpMM."""
 
 from __future__ import annotations
 
-from cvr_tpu_torch.ops import bell_kernels, dia_kernels, route_kernels, window_kernels
+from cvr_tpu_torch.ops import (
+    bell_kernels,
+    bsr_kernels,
+    dia_kernels,
+    lane_kernels,
+    pmm_kernels,
+    route_kernels,
+    window_kernels,
+)
 
-_MODULES = (route_kernels, dia_kernels, bell_kernels, window_kernels)
+_MODULES = (route_kernels, dia_kernels, bell_kernels, window_kernels,
+            bsr_kernels, lane_kernels, pmm_kernels)
 
 # name -> (wrapper, plain version, TPU kernels it replaces)
 KERNELS = {name: entry for m in _MODULES for name, entry in m.KERNELS.items()}

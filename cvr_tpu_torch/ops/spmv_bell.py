@@ -68,3 +68,10 @@ def spmv_bell(sd: BellDevice, x: torch.Tensor) -> torch.Tensor:
     if sd.spill is not None:
         y.index_add_(0, sd.spill_map, spmv_routed(sd.spill, x))
     return y
+
+
+def spmm_bell(sd: BellDevice, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for dense X (ncols, K): one SpMV per column (the JAX
+    package vmaps the SpMV over the K columns)."""
+    return torch.stack([spmv_bell(sd, X[:, k]) for k in range(X.shape[1])],
+                       1)

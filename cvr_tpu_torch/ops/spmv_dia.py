@@ -1,7 +1,9 @@
-"""y = A @ x on the DIA artifact: one K8 pass over the band planes.
+"""y = A @ x and Y = A @ X on the DIA artifact: one K8 (SpMV) or K11
+(SpMM) pass over the band planes.
 
-The JAX package picks its Pallas roll kernel or an XLA shifted-slice form
-by a VMEM size gate; on the card K8 serves every size.
+The JAX package picks its Pallas kernels or an XLA shifted-slice form by
+a VMEM size gate (SpMV) or a reach and diagonal-count gate (SpMM); on the
+card K8 and K11 serve every size.
 """
 
 from __future__ import annotations
@@ -37,3 +39,8 @@ def to_device_dia(dm: DiaMatrix, device="cuda") -> DiaDevice:
 def spmv_dia(sd: DiaDevice, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x; x (ncols,) on sd's device."""
     return dk.dia_spmv(sd.bands, sd.offsets, x.to(torch.float32).contiguous())
+
+
+def spmm_dia(sd: DiaDevice, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X; X (ncols, K) on sd's device."""
+    return dk.dia_spmm(sd.bands, sd.offsets, X.to(torch.float32).contiguous())

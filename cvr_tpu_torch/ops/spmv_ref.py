@@ -29,7 +29,8 @@ def spmv_csr_torch(
     x: torch.Tensor,
     nrows: int,
 ) -> torch.Tensor:
-    """Plain torch CSR SpMV: gather, multiply, ``index_add_`` by row.
+    """Plain torch CSR SpMV: gather, multiply, ``index_add_`` by row; for
+    x of shape (ncols, K) the SpMM.
 
     The CSR baseline of the benchmark; the JAX package wrote no kernel
     for it (its counterpart is a jnp gather + segment_sum), so neither
@@ -39,8 +40,9 @@ def spmv_csr_torch(
     row_ids = torch.repeat_interleave(
         torch.arange(nrows, device=x.device), lengths
     )
-    y = torch.zeros(nrows, dtype=x.dtype, device=x.device)
-    return y.index_add_(0, row_ids, vals * x[cols])
+    contrib = vals.view(-1, *[1] * (x.dim() - 1)) * x[cols]
+    y = torch.zeros((nrows, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    return y.index_add_(0, row_ids, contrib)
 
 
 def spmv_row_scale(csr: CSRMatrix, x: np.ndarray) -> np.ndarray:

@@ -233,6 +233,13 @@ def spmv_routed(sd: SellRoutedDevice, x: torch.Tensor) -> torch.Tensor:
     return route_post_expand(sd, g1, x)
 
 
+def spmm_routed(sd: SellRoutedDevice, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for dense X (ncols, K): one SpMV per column (the JAX
+    package vmaps the SpMV over the K columns)."""
+    return torch.stack([spmv_routed(sd, X[:, k]) for k in range(X.shape[1])],
+                       1)
+
+
 def middle(sd: SellRoutedDevice, g1: torch.Tensor):
     """The route middle up to the mstream, and the M3 plane the reduce
     applies: (m, m3)."""

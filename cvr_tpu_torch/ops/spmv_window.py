@@ -71,3 +71,10 @@ def spmv_window(sd: SellWindowDevice, x: torch.Tensor) -> torch.Tensor:
     if sd.D > 1:
         flat = flat.reshape(sd.nslices, 1024 // sd.D, sd.D).sum(dim=2)
     return flat.reshape(-1)[: sd.shape[0]]
+
+
+def spmm_window(sd: SellWindowDevice, X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for dense X (ncols, K): one SpMV per column (the JAX
+    package vmaps the SpMV over the K columns)."""
+    return torch.stack([spmv_window(sd, X[:, k]) for k in range(X.shape[1])],
+                       1)

@@ -162,3 +162,25 @@ WINDOW_CASES = {
     "rectangular": (window_rect, None),
     "empty_rows": (window_empty_rows, None),
 }
+
+
+def random_rect(nrows=500, ncols=700, density=0.03, seed=4):
+    """Uniformly scattered entries of a rectangular matrix."""
+    rng = np.random.default_rng(seed)
+    nnz = int(nrows * ncols * density)
+    rows = rng.integers(0, nrows, nnz).astype(np.int32)
+    cols = rng.integers(0, ncols, nnz).astype(np.int32)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    j, t = pair(rows, cols, vals, (nrows, ncols))
+    return j.sum_duplicates(), t.sum_duplicates()
+
+
+def empty_blocks(seed=6):
+    """900 x 1000 with rows 0-127 and 640-899 empty: whole empty row
+    blocks (BSR) and row tiles (PMM) at both ends."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(128, 640, 3000).astype(np.int32)
+    cols = rng.integers(0, 1000, 3000).astype(np.int32)
+    vals = rng.standard_normal(3000).astype(np.float32)
+    j, t = pair(rows, cols, vals, (900, 1000))
+    return j.sum_duplicates(), t.sum_duplicates()
