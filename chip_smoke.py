@@ -58,7 +58,19 @@ Phases, each printed on its own lines:
      each new kernel's launch against its plain version over all K
      columns; then ``cli spmv --rhs K`` on a smaller MatrixMarket file of
      each generator, verified;
-  8. a JSON line of the kernels of every path, then the last line
+  8. the row-sharded routed SpMV (dist_routed_pack, dist_spmv_routed) on a
+     mesh of 4 shards that all share this one card, so the all-gather and
+     the ring's moves are copies inside it and the times are not scaling
+     figures: web-Google-like with x replicated, x all-gathered
+     (x_sharded) and x moved round the ring (overlap: K15 per ring step
+     instead of K1), wiki-Talk-like (2,097,152 columns, two x segments:
+     ring tables at segment 1) on the ring and all-gathered; each with its
+     pack's phases and geometry, launch counts, the float64 golden, its
+     time by CUDA events and as device time beside the one-card
+     spmv_routed of the same matrix; then K15 on every ring step of every
+     shard against its plain version, bit for bit, with its time alone and
+     its bound, and shard 0's K1-K6 in the all-gather mode as in [3];
+  9. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero.  It needs a CUDA card
@@ -68,6 +80,7 @@ and the repository around it; it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -85,7 +98,12 @@ from cvr_tpu_torch.bench.harness import run_spmv_benchmark, time_iterations
 from cvr_tpu_torch.formats import pack_auto
 from cvr_tpu_torch.formats.bell import BellMatrix
 from cvr_tpu_torch.formats.dia import DiaMatrix
-from cvr_tpu_torch.formats.sell_routed import SellRouted, sell_pack_routed
+from cvr_tpu_torch.formats.sell_routed import (
+    RingSpec,
+    SellRouted,
+    ring_table_base,
+    sell_pack_routed,
+)
 from cvr_tpu_torch.formats.sell_window import SellWindow
 from cvr_tpu_torch.io.mmio import write_matrix_market
 from cvr_tpu_torch.ops import _build, kernels
@@ -101,6 +119,11 @@ from cvr_tpu_torch.ops.spmv_bell import BellDevice, gather_args
 from cvr_tpu_torch.ops.spmv_dia import DiaDevice
 from cvr_tpu_torch.ops.spmv_ref import spmv_golden_numpy, spmv_row_scale, verify
 from cvr_tpu_torch.ops.spmv_window import SellWindowDevice, reduce_args
+from cvr_tpu_torch.parallel.dist import make_mesh
+from cvr_tpu_torch.parallel.dist_routed import (
+    dist_routed_pack,
+    dist_spmv_routed,
+)
 
 ITERS = 100
 KERNEL_ITERS = 20
@@ -190,11 +213,32 @@ SPMM_CASES = (
 )
 SPMM_CHECK_COLS = 8  # columns of Y held against the float64 golden
 
+# Phase [8]: the row-sharded routed SpMV on DIST_SHARDS shards of the one
+# card.  Per matrix: (mode, on the ring pack, check shard 0's kernels
+# against their plain versions) for each mode it runs; each pack has one
+# checked mode per expand (K1 or the ring's K15) and every ring mode
+# checks its K15 launches.
+DIST_SHARDS = 4
+DIST_MODES = {
+    "replicated": {},
+    "x_sharded": {"x_sharded": True},
+    "overlap": {"x_sharded": True, "overlap": True},
+}
+DIST_CASES = (
+    ("web_google_like", syn.web_google_like,
+     (("replicated", False, False), ("x_sharded", False, True),
+      ("overlap", True, True))),
+    # 2,097,152 columns: two x segments, ring tables at segment 1
+    ("wiki_talk_like", syn.wiki_talk_like,
+     (("overlap", True, True), ("x_sharded", True, True))),
+)
+
 TRACES = 5  # traces device_ms takes at most to find one that holds every call
 MARGIN_S = 0.02  # idle time around the kept calls of a trace
 
 
-def device_ms(fn, iters: int, marker: str | None) -> dict[str, float]:
+def device_ms(fn, iters: int, marker: str | None,
+              per_call: int = 1) -> dict[str, float]:
     """Device time per call of ``fn``, by kernel name: the durations of the
     device events in a torch.profiler trace over ``iters`` calls (CUDA
     events around back-to-back calls also count the host, when enqueueing
@@ -204,8 +248,9 @@ def device_ms(fn, iters: int, marker: str | None) -> dict[str, float]:
     then one or two calls' kernels in the middle.  So ``iters`` lead calls
     open the trace, only the events inside the range of the ``iters``
     calls after them count, and a trace counts only if it holds all of
-    them: ``marker``, a kernel that one call launches once, ``iters`` times
-    (None where ``fn`` launches no kernel of ours), and every device event
+    them: ``marker``, a kernel that one call launches ``per_call`` times,
+    ``iters * per_call`` times (None where ``fn`` launches no kernel of
+    ours), and every device event
     a multiple of ``iters`` times, since each call launches the same
     kernels.  The range opens and closes with MARGIN_S of idle time: the
     device's timestamps may stand off the host's by a fraction of a
@@ -218,12 +263,13 @@ def device_ms(fn, iters: int, marker: str | None) -> dict[str, float]:
         seen = sum(c for n, c in count.items()
                    if marker is None or marker in n)
         uneven = {n: c for n, c in count.items() if c % iters}
-        if count and not uneven and (marker is None or seen == iters):
+        if count and not uneven and (marker is None
+                                     or seen == iters * per_call):
             if faults:
                 print(f"    (trace {len(faults) + 1} holds every call; "
                       f"the earlier lost device events: {faults})")
             return per
-        faults.append(f"{marker} seen {seen} times of {iters}, "
+        faults.append(f"{marker} seen {seen} times of {iters * per_call}, "
                       f"{len(uneven)} kernels seen a count not a multiple "
                       f"of {iters}")
     raise AssertionError(f"{TRACES} traces of {iters} calls each lost "
@@ -600,19 +646,26 @@ def library_ms(name, args, device):
 
 
 def check_kernels(tag, path, sd, xd, launches, spmv_dms, device,
-                  library=None):
+                  library=None, ring=False):
     """Each kernel launch of the path (kernel_cases) against its plain
     version at the same inputs, with times, bound and library call.
     ``launches`` and ``spmv_dms`` (device ms per SpMV by kernel) come from
     the path's own run and trace; ``library`` gives the library call's ms
-    of a kernel that is the whole SpMV (cuSPARSE's, measured in drive)."""
+    of a kernel that is the whole SpMV (cuSPARSE's, measured in drive).
+    ``ring``: the path's expand ran as K15's ring steps, which
+    check_ring_kernel holds against their plain version; the cases here
+    are the passes after it, on the g1 that K1 gives the same shard."""
     library = library or {}
     rows = []
     cases = kernel_cases(sd, xd)
+    checked = {name for name, _, _ in cases}
+    if ring:
+        cases = [c for c in cases if c[0] != "expand"]
+        checked = checked - {"expand"} | {"expand_ring"}
     launched = {k for k, n in launches.items() if n}
-    if {name for name, _, _ in cases} != launched:
-        raise AssertionError(f"{tag} cases {[c[:2] for c in cases]} miss "
-                             f"kernels the path launched: {launched}")
+    if checked != launched:
+        raise AssertionError(f"{tag} cases {sorted(checked)} are not the "
+                             f"kernels the path launched: {sorted(launched)}")
     for name, which, args in cases:
         wrapper, plain, replaces = kernels.KERNELS[name]
         label = f"{name} ({which})" if which else name
@@ -960,6 +1013,276 @@ def spmm_paths(device):
     return rows
 
 
+def dist_launches(dm, mode) -> dict[str, int]:
+    """Launches of each kernel in one SpMV of the row-sharded artifact
+    ``dm``: every shard runs one shard's passes (one geometry); the ring
+    mode replaces each shard's K1 by one K15 per ring step with blocks."""
+    want = {k: n * dm.n_shards
+            for k, n in expected_launches(dm.shards[0]).items()}
+    if mode == "overlap":
+        want["expand"] = 0
+        want["expand_ring"] = dm.n_shards * sum(
+            1 for c in dm.meta["ring_cnt"] if c)
+    return want
+
+
+def dist_geometry(dm) -> str:
+    m = dm.meta
+    rows = np.diff(dm.bounds).tolist()
+    ring = ""
+    if "ring_cnt" in m:
+        off = np.concatenate([[0], np.cumsum(m["ring_cnt"])])
+        # each shard's own table span per step (the meta holds the max)
+        own = [[int(pl["seg_ring"][off[s]:off[s + 1]].max(initial=-1)) + 1
+                for s in range(dm.n_shards)] for pl in dm.planes]
+        k_lo = [ring_base(dm, i).tolist() for i in range(dm.n_shards)]
+        ring = (f"; ring_cnt {m['ring_cnt']} blocks of {rp.TB} tiles, "
+                f"ring_nsegtab {m['ring_nsegtab']} (per shard {own}), ring "
+                f"piece {m['ring_Wr']} x 128 columns, table base per shard "
+                f"and step {k_lo}")
+    return (f"{dm.n_shards} shards, rows {rows}, nnz "
+            f"{dm.balance['part_nnz'].tolist()} (imbalance "
+            f"{dm.balance['imbalance']:.4f}); per shard: T {m['T']} tiles, "
+            f"middle {m['mid_kind']!r} Tk {m['mid_Tk']}, S_pad {m['S_pad']}, "
+            f"{m['nslices']} slices in {len(m['ycall_rows'])} reduce groups, "
+            f"y-route Tp {m['y_Tp']} {m['ymid_kind']!r} over {m['y_n']} rows, "
+            f"{m['n_segs']} x segments, "
+            f"{dm.planes[0]['extra_src'].shape[0]} split-row extras"
+            f"{ring}")
+
+
+def ring_base(dm, i):
+    m = dm.meta
+    return ring_table_base(RingSpec(dm.n_shards, i, m["ring_Wr"],
+                                    m["ring_cnt"]), m["segw"])
+
+
+def ring_reached(args) -> int:
+    """The distinct gathered-x elements one K15 launch reads: those its
+    tiles' windows reach (this run's data; the rest of the step's table,
+    pieces not yet arrived among them, is never read)."""
+    w8_s, gcls_s, seg_s, li, xg, off, k_lo, segw = args
+    n = seg_s.shape[0] * rp.TB
+    idx = li[:, off * rp.TB : off * rp.TB + n].long()
+    hi = idx >> 7
+    row = ((k_lo + seg_s.long()) * segw * 8).repeat_interleave(rp.TB)
+    row = (row + w8_s.long()).view(1, n, 1) + hi
+    ok = ((hi < gcls_s.long().repeat_interleave(8).view(1, n, 1))
+          & (row < xg.shape[0]))
+    return int(torch.unique((row * 128 + (idx & 127))[ok]).numel())
+
+
+def ring_steps(dm, xd):
+    """Every K15 launch of a ring SpMV of ``dm``, in path order, as (shard,
+    step, arguments at the path's own tensors with the gathered-x buffer
+    as it stands at that step, the step's table span)."""
+    m, D = dm.meta, dm.n_shards
+    TB, Wr, segw = rp.TB, m["ring_Wr"], m["segw"]
+    off = np.concatenate([[0], np.cumsum(m["ring_cnt"])])
+    xp = torch.nn.functional.pad(xd, (0, D * Wr * 128 - xd.shape[0]))
+    xp = xp.reshape(D * Wr, 128)
+    XGR = max(m["n_segs"] * segw * 8 + 8, D * Wr)
+    out = []
+    for i, sd in enumerate(dm.shards):
+        k_lo = ring_base(dm, i)
+        xg = torch.zeros((XGR, 128), dtype=torch.float32, device=xd.device)
+        for s in range(D):
+            p = (i - s) % D
+            xg[p * Wr : (p + 1) * Wr] = xp[p * Wr : (p + 1) * Wr]
+            o0, o1 = int(off[s]), int(off[s + 1])
+            if o1 > o0:
+                args = (sd.w8[o0 * TB : o1 * TB],
+                        sd.gcls[o0 * TB // 8 : o1 * TB // 8],
+                        dm.seg_ring[i][o0:o1], sd.li, xg.clone(), o0,
+                        int(k_lo[s]), segw)
+                out.append((i, s, args, max(int(m["ring_nsegtab"][s]), 1)))
+    return out
+
+
+def check_ring_kernel(tag, path, dm, xd, launches, spmv_dms, device):
+    """K15 on every step of every shard against expand_ring_plain, bit for
+    bit, with its time alone (CUDA events per launch; device time of all
+    the launches of one SpMV from one trace) and its bound: li 2 B and g1
+    4 B per element, the step's w8, gcls and seg_ring slices, and 4 B per
+    gathered-x element the step's windows reach (ring_reached), over the
+    HBM rate.  Returns one kernels-JSON row over all the launches of one
+    SpMV (times and bounds summed)."""
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0)
+    segw8 = dm.meta["segw"] * 8
+    steps = ring_steps(dm, xd)
+    if len(steps) != launches["expand_ring"]:
+        raise AssertionError(f"{tag} {len(steps)} ring steps, "
+                             f"{launches['expand_ring']} launches")
+    g1 = torch.zeros((8, dm.meta["T"], 128), dtype=torch.float32,
+                     device=xd.device)
+    for i, s, args, nseg in steps:
+        got = rk.expand_ring(*args, g1)
+        want = rk.expand_ring_plain(*args)
+        same = torch.equal(got, want)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        ms = time_iterations(lambda: rk.expand_ring(*args, g1),
+                             KERNEL_ITERS, device) * 1e3
+        plain_ms = time_iterations(lambda: rk.expand_ring_plain(*args),
+                                   KERNEL_ITERS, device) * 1e3
+        reached = ring_reached(args)
+        nbytes = got.numel() * (2 + 4) + reached * 4 + sum(
+            a.numel() * a.element_size() for a in args[:3])
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"{tag} expand_ring shard {i} step {s} (blocks "
+              f"{args[2].shape[0]}, table base {args[6]}, span {nseg}; "
+              f"reads {reached} x elements of the table's "
+              f"{nseg * (segw8 + 8) * 128}): "
+              f"{'bit-exact' if same else 'DIFFERS'}, max abs err "
+              f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(CUDA events); bound {bound_ms:.4f} ms (bytes)")
+        if not same:
+            raise AssertionError(f"{tag} expand_ring shard {i} step {s} "
+                                 "disagrees with its plain version")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms)):
+            tot[k] += v
+        tot["err"] = max(tot["err"], err)
+
+    def all_steps():
+        for _, _, args, _ in steps:
+            rk.expand_ring(*args, g1)
+
+    # K15 launches K1's kernel: its device events carry that name
+    dms = sum(device_ms(all_steps, KERNEL_ITERS, "expand_kernel",
+                        per_call=len(steps)).values())
+    print(f"{tag} expand_ring over the {len(steps)} launches of one SpMV: "
+          f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms (CUDA "
+          f"events, summed), device time {dms:.4f} ms alone, "
+          f"{spmv_dms['expand_ring']:.4f} ms in the path's trace; bound "
+          f"{tot['bound_ms']:.4f} ms; library call none")
+    return {
+        "name": "expand_ring", "route": "cuda",
+        "source": kernels.SOURCES["expand_ring"],
+        "replaces": kernels.KERNELS["expand_ring"][2],
+        "launches": launches["expand_ring"], "max_abs_err": tot["err"],
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "path": path,
+        "launch": f"all {len(steps)} ring steps of one SpMV, summed",
+        "device_ms": dms, "spmv_device_ms": spmv_dms["expand_ring"],
+    }
+
+
+def dist_mode(tag, dm, mode, xd, golden, scale, device):
+    """One row-sharded SpMV in ``mode`` with the launch counts and the
+    golden, then its time by CUDA events and as device time.  Returns
+    (launches, ms, device ms by kernel)."""
+    kw = DIST_MODES[mode]
+    kernels.reset_launches()
+    y = dist_spmv_routed(dm, xd, **kw)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    yn = y.cpu().numpy()
+    if yn.shape != golden.shape or not np.isfinite(yn).all():
+        raise AssertionError(f"{tag} bad output: shape {yn.shape}")
+    ok, nbad, maxrel = verify(yn, golden, rtol=1e-6, row_scale=scale)
+    print(f"{tag} {mode}: verify vs float64 golden (rtol 1e-6, row-scaled): "
+          f"{'PASS' if ok else 'FAIL'}, {nbad} bad rows, max rel "
+          f"{maxrel:.3e}; launches "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    if not ok:
+        raise AssertionError(f"{tag} {mode} disagrees with the golden")
+    if launches != dist_launches(dm, mode):
+        raise AssertionError(f"{tag} {mode} launches {launches}, the pack "
+                             f"needs {dist_launches(dm, mode)}")
+    fn = functools.partial(dist_spmv_routed, dm, xd, **kw)
+    ms = time_iterations(fn, ITERS, device) * 1e3
+    per = device_ms(fn, KERNEL_ITERS, "reduce_slices_kernel",
+                    per_call=dm.n_shards)
+    dev = sum(per.values())
+    ours = {k: sum(v for n, v in per.items() if f"{k}_kernel" in n)
+            for k in kernels.KERNELS}
+    if mode == "overlap":  # K15 launches K1's kernel
+        ours["expand_ring"], ours["expand"] = ours["expand"], 0.0
+    print(f"{tag} {mode}: {ms:.4f} ms/iter over {ITERS} iters (CUDA events), "
+          f"{2 * dm.nnz / ms / 1e6:.3f} GFLOPS (2*nnz); device time "
+          f"{dev:.4f} ms/iter (busy {100 * dev / ms:.1f}%); in the same "
+          "trace: " + ", ".join(f"{k} {v:.4f}" for k, v in ours.items() if v)
+          + f", other device work {dev - sum(ours.values()):.4f} ms "
+          f"(copies, pads, the all-gather or the ring's moves)")
+    return launches, ms, ours
+
+
+def dist_paths(device, main_sd, main_coo):
+    """Phase [8]: the row-sharded routed SpMV on DIST_SHARDS shards that
+    share the one card, in each mode of DIST_CASES, beside the one-card
+    SpMV of the same matrix; K15 on every ring step against its plain
+    version, and K1-K6 at a shard's shapes against theirs."""
+    print(f"[8] the {DIST_SHARDS} shards share one card: the all-gather and "
+          "the ring's moves are copies inside it, and these times are not "
+          "scaling figures")
+    mesh = make_mesh(devices=[device] * DIST_SHARDS)
+    rows = []
+    for name, make, modes in DIST_CASES:
+        t0 = time.perf_counter()
+        coo = main_coo if name == "web_google_like" else make()
+        csr = coo.to_csr()
+        print(f"[8] {name}: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} nnz, "
+              f"generated in {time.perf_counter() - t0:.2f} s")
+        x = np.random.default_rng(0).standard_normal(
+            coo.shape[1]).astype(np.float32)
+        xd = torch.from_numpy(x).to(device)
+        golden, scale = spmv_golden_numpy(csr, x), spmv_row_scale(csr, x)
+        if name == "web_google_like":
+            sd1 = main_sd  # the pack of [2]
+        else:
+            t0 = time.perf_counter()
+            sr1 = sell_pack_routed(csr)
+            print(f"[8] {name} one-card pack {time.perf_counter() - t0:.3f} "
+                  f"s: {geometry(sr1)}")
+            sd1 = sp.to_device_routed(sr1, device)
+            del sr1
+        one = functools.partial(sp.spmv_routed, sd1, xd)
+        ok, _, maxrel = verify(one().cpu().numpy(), golden, rtol=1e-6,
+                               row_scale=scale)
+        if not ok:
+            raise AssertionError(f"[8] {name} one-card SpMV disagrees")
+        one_ms = time_iterations(one, ITERS, device) * 1e3
+        one_dev = sum(device_ms(one, KERNEL_ITERS, "expand_kernel").values())
+        print(f"[8] {name} one-card spmv_routed: {one_ms:.4f} ms/iter (CUDA "
+              f"events), device time {one_dev:.4f} ms/iter, golden max rel "
+              f"{maxrel:.3e}")
+        packs = {}
+        for overlap in sorted({ring for _, ring, _ in modes}):
+            t0 = time.perf_counter()
+            dm = dist_routed_pack(csr, mesh, overlap=overlap)
+            phases = ", ".join(f"{k} {v:.3f}"
+                               for k, v in dm.convert_phases.items())
+            print(f"[8] {name} dist_routed_pack(overlap={overlap}) "
+                  f"{time.perf_counter() - t0:.3f} s ({phases}): "
+                  f"{dist_geometry(dm)}")
+            packs[overlap] = dm
+        for mode, ring, check in modes:
+            dm = packs[ring]  # a ring pack also runs the all-gather modes
+            tag = f"[8] {name}"
+            launches, ms, ours = dist_mode(tag, dm, mode, xd, golden, scale,
+                                           device)
+            path = f"{name} {DIST_SHARDS} shards {mode}"
+            ring_mode = mode == "overlap"
+            if ring_mode:
+                rows.append(check_ring_kernel(tag, path, dm, xd, launches,
+                                              ours, device))
+            if check:
+                # shard 0's passes at their own tensors (every shard runs
+                # the same ones): every kernel the mode launched
+                got = check_kernels(f"{tag} {mode} shard 0", path,
+                                    dm.shards[0], xd, launches, ours, device,
+                                    ring=ring_mode)
+                for r in got:
+                    r["launch"] = f"shard 0 {r['launch']}".strip()
+                rows += got
+            print(f"[8] {name} {mode}: {ms:.4f} ms/iter on {DIST_SHARDS} "
+                  f"shards of one card vs {one_ms:.4f} ms/iter for the "
+                  f"one-card spmv_routed (x{ms / one_ms:.2f})")
+        del packs, coo, csr
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -979,11 +1302,12 @@ def main() -> int:
     _sr, sd, xd, launches, _ms, spmv_dms, _lib = main_path(coo, "cuda")
     rows = check_kernels("[3]", "web_google_like", sd, xd, launches,
                          spmv_dms, "cuda")
-    del sd, xd
+    del _sr, xd
     walks = check_geometries("cuda")
     rows += fsm_path("cuda", walks)
     rows += format_paths("cuda")
     rows += spmm_paths("cuda")
+    rows += dist_paths("cuda", sd, coo)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

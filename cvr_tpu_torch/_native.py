@@ -307,14 +307,34 @@ def sell_pack_native(rowptr, csr_cols, csr_vals, C: int, split_len: int):
     )
 
 
+def stream_count2_native(
+    rmap, cols_plane, S_padded: int, nsw_total: int, segw: int, TB: int,
+):
+    """The stream builder's first pass: (T_src_p, swcnt), the real tile
+    count (segments padded to TB tiles) and the per-subwindow counts."""
+    lib = _need_lib()
+    rmap = np.ascontiguousarray(rmap, dtype=np.int64)
+    cols_plane = np.ascontiguousarray(cols_plane, dtype=np.int32)
+    swcnt = np.empty(nsw_total, dtype=np.int64)
+    T_src_p = int(
+        lib.cvr_stream_count2(
+            rmap.shape[0], S_padded, rmap, cols_plane, nsw_total, segw * 8,
+            TB, swcnt,
+        )
+    )
+    return T_src_p, swcnt
+
+
 def stream_build2_native(
     rmap, cols_plane, S_padded: int, nsw_total: int, segw: int, TB: int,
+    force_T: int = 0,
 ):
     """Subwindow-granular routed-pack stream builder.
 
     Tiles slide at 128-column granularity, and each tile carries its
     gather-candidate count for the expand pass.  ``segw`` is in
-    1024-column windows (segw * 8 subwindows per x segment).
+    1024-column windows (segw * 8 subwindows per x segment).  ``force_T``
+    (0: off) pins the tile count, which must cover the stream's own.
 
     Returns (perm int32[T*1024], li_flat int16[T*1024],
     w8 int32[T] segment-relative sublane bases, cand int8[T],
@@ -325,13 +345,13 @@ def stream_build2_native(
     cols_plane = np.ascontiguousarray(cols_plane, dtype=np.int32)
     S = rmap.shape[0]
     segw8 = segw * 8
-    swcnt = np.empty(nsw_total, dtype=np.int64)
-    T_src_p = int(
-        lib.cvr_stream_count2(
-            S, S_padded, rmap, cols_plane, nsw_total, segw8, TB, swcnt
-        )
-    )
+    T_src_p, swcnt = stream_count2_native(rmap, cols_plane, S_padded,
+                                          nsw_total, segw, TB)
     T = -(-max(T_src_p, S_padded) // 1024) * 1024
+    if force_T:
+        if force_T < T:
+            raise ValueError(f"force_T {force_T} < required T {T}")
+        T = force_T
     perm = np.empty(T * 1024, dtype=np.int32)
     li_flat = np.empty(T * 1024, dtype=np.int16)
     w8 = np.empty(T, dtype=np.int32)

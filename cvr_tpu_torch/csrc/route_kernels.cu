@@ -1,9 +1,13 @@
 // Hopper (sm_90a) kernels of the routed-gather SpMV.
 //
-// Seven passes replace the eleven Pallas TPU kernels that the JAX package
+// Seven passes replace the twelve Pallas TPU kernels that the JAX package
 // runs on this path (cvr_tpu/ops/pallas_route.py):
 //
 //   K1 expand         <- _expand_kernel                (:343)
+//   K15 expand_ring   <- _expand_kernel over a tile-block range, one ring
+//                        step of the row-sharded path's overlapped expand
+//                        (_expand_ring_call, :477): K1's kernel, launched
+//                        over the step's blocks
 //   K2 route_middle   <- _m1_fused_kernel + _chunksel_kernel (:1203, :1094)
 //   K3 reduce_slices  <- _reduce_m3_kernel + _reduce_m3_regular_kernel
 //                        with _emission_sweep          (:641, :752, :86)
@@ -52,32 +56,51 @@ inline unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
-// K1: windowed x gather with route stage 1 fused (the expand plane li
-// already carries the stage-1 permutation).
-//   g1[i,t,l] = hi < gcls[t>>3]
-//       ? x[128*(seg[t/TB]*segw8 + w8[t] + hi) + lo] : 0
-// with idx = li[i,t,l], hi = idx>>7, lo = idx&127.  The TPU reads x
-// through a per-segment VMEM table with an 8-row halo; here x is read in
-// place, and the zero padding of that table becomes a bounds check.
+// K1 and K15: windowed x gather with route stage 1 fused (the expand
+// plane li already carries the stage-1 permutation), over the n tiles
+// [off_t, off_t + n) of the stream.  For local tile t (stream tile
+// off_t + t):
+//   g1[i, off_t+t, l] = hi < gcls[t>>3]
+//       ? x[128*((k_lo + seg[t/TB])*segw8 + w8[t] + hi) + lo] : 0
+// with idx = li[i, off_t+t, l], hi = idx>>7, lo = idx&127; w8, gcls and
+// seg are indexed by local tile.  The TPU reads x through a per-segment
+// VMEM table with an 8-row halo; here x is read in place, and the zero
+// padding of that table becomes a bounds check against xlen.
+//   K1 (one SpMV's expand): off_t 0, n T, k_lo 0, x the whole x, xlen
+//     ncols.
+//   K15 (one ring step of the row-sharded path's overlapped expand,
+//     _expand_ring_call :477): the step's tile blocks [off, off + cnt)
+//     with the step's slices of w8, gcls and seg_ring, x the shard's
+//     gathered-x buffer xg (xg_rows x 128, holding only the ring pieces
+//     that have arrived so far; xlen xg_rows*128) and k_lo the step's
+//     table base.  The TPU copies the step's table (the nsegtab slices
+//     xg[(k_lo+c)*segw8 : +segw8+8] concatenated) into VMEM and writes a
+//     (8, cnt*TB, 128) block the caller concatenates; table row
+//     c*(segw8+8)+r is xg row (k_lo+c)*segw8+r, so here xg is read in
+//     place and the step writes straight into its columns of the shard's
+//     g1.
 __global__ void expand_kernel(const int16_t* __restrict__ li,
                               const int32_t* __restrict__ w8,
                               const int32_t* __restrict__ gcls,
                               const int32_t* __restrict__ seg,
                               const float* __restrict__ x,
                               float* __restrict__ g1, long long T,
-                              long long segw8, long long ncols, int tb) {
+                              long long off_t, long long n, long long k_lo,
+                              long long segw8, long long xlen, int tb) {
   long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= 8LL * T * 128) return;
-  long long t = (e >> 7) % T;
-  int idx = li[e];
+  if (e >= 8LL * n * 128) return;
+  long long i = (e >> 7) / n;
+  long long t = (e >> 7) - i * n;
+  long long ge = (i * T + off_t + t) * 128 + (e & 127);
+  int idx = li[ge];
   int hi = idx >> 7;
   float v = 0.f;
   if (hi < gcls[t >> 3]) {
     long long col =
-        128LL * (seg[t / tb] * segw8 + w8[t] + hi) + (idx & 127);
-    if (col < ncols) v = __ldg(x + col);
+        128LL * ((k_lo + seg[t / tb]) * segw8 + w8[t] + hi) + (idx & 127);
+    if (col < xlen) v = __ldg(x + col);
   }
-  g1[e] = v;
+  g1[ge] = v;
 }
 
 // K2: the recursive route middle's first two stages in one pass: the
@@ -255,13 +278,14 @@ extern "C" {
 
 int cvr_expand(const void* li, const void* w8, const void* gcls,
                const void* seg, const void* x, void* g1, long long T,
-               long long segw8, long long ncols, int tb, void* stream) {
-  expand_kernel<<<blocks_for(8LL * T * 128), kThreads, 0,
+               long long off_t, long long n, long long k_lo, long long segw8,
+               long long xlen, int tb, void* stream) {
+  expand_kernel<<<blocks_for(8LL * n * 128), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(li), static_cast<const int32_t*>(w8),
       static_cast<const int32_t*>(gcls), static_cast<const int32_t*>(seg),
-      static_cast<const float*>(x), static_cast<float*>(g1), T, segw8, ncols,
-      tb);
+      static_cast<const float*>(x), static_cast<float*>(g1), T, off_t, n,
+      k_lo, segw8, xlen, tb);
   return static_cast<int>(cudaGetLastError());
 }
 

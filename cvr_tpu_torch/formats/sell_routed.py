@@ -19,6 +19,10 @@ With ``hot="auto"`` (the default) the hub-column hybrid
 (cvr_tpu_torch.formats.hot) may first move the hottest columns' elements
 into hot planes.  This is the host layer of the port; it builds the same
 arrays as the JAX package's pack of the same matrix, array for array.
+
+The row-sharded path (cvr_tpu_torch/parallel/dist_routed.py) packs each
+shard under one forced geometry (``RoutedForce``) and, for the
+ring-overlapped expand, in a ring-schedule tile order (``RingSpec``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,64 @@ TILE = 1024
 # when its longest segment has >= ZONE_MINLEN nnz; below that, the
 # round-to-8 slot padding outweighs the finer-granularity width win.
 ZONE_MINLEN = 8
+
+
+@dataclass
+class RoutedForce:
+    """Geometry overrides so that independently packed row shards share
+    one geometry (cvr_tpu_torch/parallel/dist_routed.py).  Every field
+    must be >= the shard's natural value."""
+
+    rcp: np.ndarray | None = None  # per-reduce-group padded row counts
+    nslices: int | None = None  # uniform slice count
+    T: int | None = None  # uniform route tiles
+    nrows_out: int | None = None  # y-route output length (>= nrows)
+    n_extras: int | None = None  # pad split-row extras to this count
+
+
+@dataclass
+class RingSpec:
+    """The ring schedule of the overlapped expand.
+
+    x enters row-sharded; a D-step ring moves the pieces.  Shard
+    ``shard`` holds piece ``(shard - s) mod D`` at step ``s``, and every
+    expand tile block is scheduled at the step where the last x piece its
+    window reads has arrived.  The pack bakes the schedule into the
+    stream's tile order (the route absorbs any tile order), so each
+    step's expand is one pass over a contiguous block range.
+    """
+
+    D: int  # ring size == mesh size
+    shard: int  # this shard's position on the mesh
+    Wr: int  # x rows (128 columns each) per ring piece
+    cnt: np.ndarray  # (D,) unified per-step tile-block counts
+
+
+@dataclass
+class RoutedStream:
+    """The stream build's output, before the route compile: the
+    distributed pack computes every shard's natural ring schedule from it
+    (w8, seg_blk) and unifies the per-step counts before the route is
+    compiled against the scheduled tile order."""
+
+    perm: np.ndarray  # (T*1024,) int32 dest plane pos -> src stream pos
+    li_flat: np.ndarray  # (T*1024,) int16 in-window offsets (pre-fuse)
+    w8: np.ndarray  # (T,) int32 segment-relative sublane bases
+    gcls: np.ndarray  # (T//8,) int32 gather class per 8-tile group
+    seg_blk: np.ndarray  # (T//TB,) int32 x segment per block
+    T: int
+    T_src_p: int  # real (unpadded-to-1024) tile count, a TB multiple
+    segw: int
+    n_segs: int
+    rmap: np.ndarray
+    offs: np.ndarray
+    ycall_rows: np.ndarray
+    regions: np.ndarray
+    S_padded: int
+    nslices_u: int  # the slice count of the y stream (forced or natural)
+    pt: PhaseTimer
+    zone: dict | None = None  # lambda-segment zone plan (see _zone_plan)
+    vals_prov: np.ndarray | None = None  # (S_padded,1024) f32 zone layout
 
 
 @dataclass
@@ -76,6 +138,10 @@ class SellRouted:
     n_fillers: int
     convert_time: float = 0.0
     convert_phases: dict | None = None
+    # ring-overlap schedule (pack_routed(ring=...); see RingSpec)
+    seg_ring: np.ndarray | None = None  # (T//TB,) int32 segment - table base
+    ring_cnt: tuple | None = None  # tile blocks per ring step
+    ring_nsegtab: tuple = ()  # per ring step: segments its x table spans
     # lambda-segment zone (aligned stage-3); 0 = legacy layout
     nslA: int = 0  # zone-A slices (128 segments each, leading)
     zone_rows: int = 0  # padded plane rows covered by zone A
@@ -89,8 +155,8 @@ _FIELDS = (
     "w8", "li", "seg_blk", "gcls", "mid", "vals_ss", "p3", "emit",
     "ycall_rows", "regions", "y_ra", "extra_src", "extra_row", "ymask",
     "shape", "nnz", "T", "S", "S_pad", "nslices", "segw", "n_segs",
-    "n_fillers", "convert_time", "convert_phases", "nslA", "zone_rows",
-    "yslices",
+    "n_fillers", "convert_time", "convert_phases", "seg_ring", "ring_cnt",
+    "ring_nsegtab", "nslA", "zone_rows", "yslices",
 )
 
 
@@ -99,15 +165,10 @@ def from_reference(sr) -> SellRouted:
 
     Reads the reference artifact's numpy attributes only (it imports
     nothing of the JAX package), so planes packed by the reference drive
-    the port's passes unchanged, hot planes included.
+    the port's passes unchanged, hot planes and ring schedules included.
     """
     from cvr_tpu_torch.formats.hot import HotPlanes
 
-    if getattr(sr, "seg_ring", None) is not None:
-        raise NotImplementedError(
-            "ring-scheduled artifacts (the distributed routed path) are "
-            "not ported yet: ROADMAP queue 1"
-        )
     hp = getattr(sr, "hot", None)
     hot = None
     if hp is not None:
@@ -263,29 +324,28 @@ def sell_pack_routed(
     return sr
 
 
-def pack_routed(sm: SellMatrix, max_T: int | None = None) -> SellRouted:
-    """Compile a SellMatrix (C=1024) into the routed-SpMV artifact; raise
-    ValueError when the stream needs more than ``max_T`` route tiles.
-
-    Requires the native library: the stream build and the route compile
-    are native passes (the reference's numpy fallback is not ported).
-    """
+def routed_stream_phase(sm: SellMatrix,
+                        force: RoutedForce | None = None) -> RoutedStream:
+    """The layout plan and the native stream build, stopping before the
+    route compile (see RoutedStream).  A forced pack never takes the zone
+    layout (shards need one reduce structure) and refuses more than
+    ROUTED_T_CAP route tiles, as the JAX package does."""
     from cvr_tpu_torch import _native
     from cvr_tpu_torch.ops import route_planes as rp
 
-    if sm.C != TILE:
-        raise ValueError("routed path requires C == 1024")
     if not _native.available():
         raise RuntimeError("the routed pack requires the native library")
     CH, YB, TB = rp.CH, rp.YB, rp.TB
     pt = PhaseTimer()
     S = sm.n_slots
-    nrows, ncols = sm.shape
+    ncols = sm.shape[1]
+    zone = None
     vals_prov = None
-    with pt.phase("zone_plan"):
-        zone = _zone_plan(sm, YB, CH)
+    if force is None:
+        with pt.phase("zone_plan"):
+            zone = _zone_plan(sm, YB, CH)
     if zone is not None:
-        nslices = zone["nslices"]
+        nslices = nslices_u = zone["nslices"]
         offs = zone["offs"]
         rmap = zone["rmap"]
         ycall_rows = zone["ycall_rows"]
@@ -304,21 +364,30 @@ def pack_routed(sm: SellMatrix, max_T: int | None = None) -> SellRouted:
         if (widths_all[nslices:] != 0).any():
             raise AssertionError("zero-width slices must be trailing")
         nslices = max(nslices, 1)
+        nslices_u = nslices
+        if force is not None and force.nslices is not None:
+            if force.nslices < nslices:
+                raise ValueError("force.nslices below natural slice count")
+            nslices_u = force.nslices
         offs = sm.slice_offsets.astype(np.int64)
         rmap, ycall_rows, regions, S_padded = _plan_layout(
-            offs, nslices, S, YB, CH
+            offs, nslices, S, YB, CH, nslices_u=nslices_u, force=force
         )
         cols_used = sm.cols_plane
         rmap_used = rmap
+    force_T = 0 if force is None or force.T is None else int(force.T)
     nwin_total = -(-max(ncols, 1) // 1024)
     segw = min(rp.SEGW, _round_up(nwin_total, 8))
     n_segs = -(-nwin_total // segw)
     with pt.phase("stream"):
         perm, li_flat, w8_arr, cand, seg_blk, T, T_src_p = (
             _native.stream_build2_native(
-                rmap_used, cols_used, S_padded, segw * 8 * n_segs, segw, TB
+                rmap_used, cols_used, S_padded, segw * 8 * n_segs, segw, TB,
+                force_T,
             )
         )
+        if force is not None:
+            _check_T(T)
         cls_tile = np.where(
             cand <= 1, 1, np.where(cand <= 2, 2, np.where(cand <= 4, 4, 8))
         ).astype(np.int32)
@@ -326,46 +395,232 @@ def pack_routed(sm: SellMatrix, max_T: int | None = None) -> SellRouted:
             cls_tile.reshape(-1, 8).max(axis=1).astype(np.int32)
         )
         # tiles past the real stream are pure filler: pin their window
-        # metadata to deterministic values
+        # metadata to deterministic values (the ring scheduler reads them)
         if T_src_p < T:
             w8_arr[T_src_p:] = 0
             seg_blk[T_src_p // TB :] = 0
-    if max_T is not None and T > max_T:
-        raise ValueError(f"the routed stream needs T={T} route tiles, "
-                         f"above the cap of {max_T}")
-    with pt.phase("route_plan"):
-        if zone is not None:
-            li_ss, mid_arr, p3_ss, r2 = _native.route_compile_zone_native(
-                perm, T, T, S_padded, li_flat, zone["nslA"], zone["zr0"],
-                zone["zw"], zone["zrows"], zone["row_slice"],
-            )
-        else:
-            li_ss, mid_arr, p3_ss = _native.route_compile_native(
-                perm, T, T, S_padded, li_flat
-            )
-            r2 = None
-    with pt.phase("fuse_planes"):
-        mid = rp.middle_planes_from(mid_arr, T)
-    return _pack_routed_tail(
-        sm, pt, offs, rmap, nslices, S_padded, ycall_rows, regions, w8_arr,
-        li_ss, seg_blk, mid, p3_ss, T, n_segs, segw,
-        T * TILE - S_padded * TILE, gcls, zone, vals_prov, r2,
+    return RoutedStream(
+        perm=perm, li_flat=li_flat, w8=w8_arr, gcls=gcls, seg_blk=seg_blk,
+        T=T, T_src_p=T_src_p, segw=segw, n_segs=n_segs, rmap=rmap,
+        offs=offs, ycall_rows=ycall_rows, regions=regions,
+        S_padded=S_padded, nslices_u=nslices_u, pt=pt,
+        zone=zone, vals_prov=vals_prov,
     )
 
 
+def ring_block_unlock(st: RoutedStream, ring: RingSpec) -> np.ndarray:
+    """Per tile block, the ring step at which every x piece the block's
+    windows read has arrived (the earliest step it may expand)."""
+    from cvr_tpu_torch.ops import route_planes as rp
+
+    TB = rp.TB
+    segw8 = st.segw * 8
+    D, Wr, i = ring.D, ring.Wr, ring.shard
+    ncr = D * Wr
+    seg_of_tile = np.repeat(st.seg_blk.astype(np.int64), TB)
+    base = seg_of_tile * segw8 + (st.w8.astype(np.int64) >> 3) * 8
+    p_lo = np.clip(base // Wr, 0, D - 1)
+    p_hi = np.clip(np.minimum(base + 15, ncr - 1) // Wr, 0, D - 1)
+    # piece p arrives at step (i - p) mod D; over the contiguous piece
+    # range the max is D-1 iff the last-arriving piece (i+1) is inside
+    pstar = (i + 1) % D
+    f_lo = (i - p_lo) % D
+    f_hi = (i - p_hi) % D
+    unlock = np.where(
+        (p_lo <= pstar) & (pstar <= p_hi),
+        D - 1,
+        np.maximum(f_lo, f_hi),
+    ).astype(np.int64)
+    blk = unlock.reshape(-1, TB).max(axis=1)
+    blk[st.T_src_p // TB :] = 0  # pure-filler blocks: schedule anywhere
+    return blk
+
+
+def ring_table_base(ring: RingSpec, segw: int) -> np.ndarray:
+    """(D,) the x segment each ring step's table starts at: the segment
+    of the piece that arrives at the step, and 0 at the last step.
+
+    Step D-1 is the only step whose arrived pieces wrap the ring (all of
+    them): a block whose 16-row window straddles a segment boundary can
+    need piece i+1 (unlock D-1) while sitting in a lower segment than
+    that piece's, so the last step's table starts at segment 0."""
+    p_of_step = (ring.shard - np.arange(ring.D)) % ring.D
+    k_lo = (p_of_step * ring.Wr) // (segw * 8)
+    k_lo[ring.D - 1] = 0
+    return k_lo
+
+
+def _ring_permute(st: RoutedStream, ring: RingSpec):
+    """Reorder the stream by tile blocks into ring-schedule order
+    (step-major, fillers padding each step to the unified count) and remap
+    the route permutation to it.  Returns (seg_ring, cnt_u, per-step
+    nsegtab) and updates ``st`` in place."""
+    from cvr_tpu_torch.ops import route_planes as rp
+
+    TB = rp.TB
+    D = ring.D
+    unlock = ring_block_unlock(st, ring)
+    counts = np.bincount(unlock, minlength=D)
+    cnt_u = np.asarray(ring.cnt, dtype=np.int64).copy()
+    if (counts > cnt_u).any():
+        raise ValueError("ring.cnt below this shard's natural counts")
+    T_new = int(cnt_u.sum()) * TB
+    T_req = _round_up(max(T_new, st.S_padded), 1024)
+    cnt_u[D - 1] += (T_req - T_new) // TB
+    T_new = T_req
+    _check_T(T_new)
+    off_u = np.zeros(D + 1, dtype=np.int64)
+    np.cumsum(cnt_u, out=off_u[1:])
+    order = np.argsort(unlock, kind="stable")
+    coff = np.zeros(D + 1, dtype=np.int64)
+    np.cumsum(counts, out=coff[1:])
+    nblk_new = T_new // TB
+    newb = np.full(nblk_new, -1, dtype=np.int64)
+    for s in range(D):
+        newb[off_u[s] : off_u[s] + counts[s]] = order[coff[s] : coff[s + 1]]
+    step_of_new = np.repeat(np.arange(D), cnt_u)
+    k_lo = ring_table_base(ring, st.segw)
+
+    real = newb >= 0
+    nt = (np.flatnonzero(real)[:, None] * TB + np.arange(TB)).ravel()
+    ot = (newb[real][:, None] * TB + np.arange(TB)).ravel()
+    w8_new = np.zeros(T_new, dtype=np.int32)
+    w8_new[nt] = st.w8[ot]
+    gcls_new = np.ones(T_new // 8, dtype=np.int32)
+    gcls_new.reshape(-1, TB // 8)[real] = st.gcls.reshape(-1, TB // 8)[
+        newb[real]
+    ]
+    seg_new = np.zeros(nblk_new, dtype=np.int64)
+    seg_new[real] = st.seg_blk.astype(np.int64)[newb[real]]
+    # pure-filler source blocks and padding blocks read an arbitrary
+    # valid table segment: their gather results route to trash
+    nreal_blk = st.T_src_p // TB
+    base_seg = k_lo[step_of_new]
+    seg_new[~real] = base_seg[~real]
+    filler_real = real.copy()
+    filler_real[real] = newb[real] >= nreal_blk
+    seg_new[filler_real] = base_seg[filler_real]
+    seg_ring = (seg_new - base_seg).astype(np.int32)
+    if (seg_ring < 0).any():
+        raise AssertionError("block segment below its ring table base")
+    # per-step table spans: the last step's base-0 table may reach any
+    # segment, earlier steps only the window-straddle span
+    nsegtab = np.ones(D, dtype=np.int64)
+    for s in range(D):
+        sl = seg_ring[off_u[s] : off_u[s + 1]]
+        if sl.size:
+            nsegtab[s] = int(sl.max()) + 1
+
+    li_new = np.zeros(T_new * TILE, dtype=np.int16)
+    li_new.reshape(-1, TILE)[nt] = st.li_flat.reshape(-1, TILE)[ot]
+    tile_map = np.full(st.T, -1, dtype=np.int64)
+    tile_map[ot] = nt
+    N_plane = st.S_padded * TILE
+    src_old = st.perm.astype(np.int64)[:N_plane]
+    src_new = tile_map[src_old >> 10] * TILE + (src_old & (TILE - 1))
+    if (src_new < 0).any():
+        raise AssertionError("route source fell in an unmapped tile")
+    perm_new = np.empty(T_new * TILE, dtype=np.int32)
+    perm_new[:N_plane] = src_new.astype(np.int32)
+    used = np.zeros(T_new * TILE, dtype=bool)
+    used[src_new] = True
+    perm_new[N_plane:] = np.flatnonzero(~used).astype(np.int32)
+
+    st.perm = perm_new
+    st.li_flat = li_new
+    st.w8 = w8_new
+    st.gcls = gcls_new
+    st.seg_blk = seg_new.astype(np.int32)
+    st.T = T_new
+    return seg_ring, cnt_u, nsegtab
+
+
+def pack_routed(
+    sm: SellMatrix,
+    max_T: int | None = None,
+    force: RoutedForce | None = None,
+    ring: RingSpec | None = None,
+    stream: RoutedStream | None = None,
+) -> SellRouted:
+    """Compile a SellMatrix (C=1024) into the routed-SpMV artifact; raise
+    ValueError when the stream needs more than ``max_T`` route tiles.
+
+    ``force`` pins the geometry (tiles, reduce-group row counts, slice
+    count, y length, extras count) so that independently packed row
+    shards share one (cvr_tpu_torch/parallel/dist_routed.py).  ``ring``
+    also puts the stream's tile blocks in ring-schedule order for the
+    overlapped expand (RingSpec); ``stream`` reuses a stream already built
+    by routed_stream_phase (the distributed pack builds every shard's
+    first, to unify the per-step counts).
+
+    Requires the native library: the stream build and the route compile
+    are native passes (the reference's numpy fallback is not ported).
+    """
+    from cvr_tpu_torch import _native
+    from cvr_tpu_torch.ops import route_planes as rp
+
+    if sm.C != TILE:
+        raise ValueError("routed path requires C == 1024")
+    st = stream if stream is not None else routed_stream_phase(sm, force)
+    pt = st.pt
+    if max_T is not None and st.T > max_T:
+        raise ValueError(f"the routed stream needs T={st.T} route tiles, "
+                         f"above the cap of {max_T}")
+    seg_ring, ring_cnt, ring_nsegtab = None, None, ()
+    if ring is not None:
+        if st.zone is not None:
+            # checked before _ring_permute, which updates the stream
+            raise ValueError("ring scheduling requires a legacy (non-"
+                             "zone) stream; pass a force geometry")
+        with pt.phase("ring_schedule"):
+            seg_ring, cnt_u, nseg_step = _ring_permute(st, ring)
+            ring_cnt = tuple(int(c) for c in cnt_u)
+            ring_nsegtab = tuple(int(v) for v in nseg_step)
+    zone = st.zone
+    with pt.phase("route_plan"):
+        if zone is not None:
+            li_ss, mid_arr, p3_ss, r2 = _native.route_compile_zone_native(
+                st.perm, st.T, st.T, st.S_padded, st.li_flat, zone["nslA"],
+                zone["zr0"], zone["zw"], zone["zrows"], zone["row_slice"],
+            )
+        else:
+            li_ss, mid_arr, p3_ss = _native.route_compile_native(
+                st.perm, st.T, st.T, st.S_padded, st.li_flat
+            )
+            r2 = None
+    with pt.phase("fuse_planes"):
+        mid = rp.middle_planes_from(mid_arr, st.T)
+    sr = _pack_routed_tail(
+        sm, pt, force, st.offs, st.rmap, st.nslices_u, st.S_padded,
+        st.ycall_rows, st.regions, st.w8, li_ss, st.seg_blk, mid, p3_ss,
+        st.T, st.n_segs, st.segw, st.T * TILE - st.S_padded * TILE, st.gcls,
+        zone, st.vals_prov, r2,
+    )
+    sr.seg_ring = seg_ring
+    sr.ring_cnt = ring_cnt
+    sr.ring_nsegtab = ring_nsegtab
+    return sr
+
+
 def group_padded_rmap(offs, nslices: int, S: int, group_slices: int,
-                      row_mult: int):
+                      row_mult: int, n_groups: int | None = None,
+                      rcp_override=None):
     """Row map for group-tail padding: slices group ``group_slices`` per
-    reduce group, each group's rows padded to a ``row_mult`` multiple.
+    reduce group (``n_groups`` groups, by default as many as the slices
+    need), each group's rows padded to a ``row_mult`` multiple, or to the
+    per-group ``rcp_override`` (already checked >= natural by the
+    caller).
 
     Returns (rmap [S] old->padded row, gstart, rc natural rows, rcp
     padded rows, gshift).
     """
-    n_g = max(1, -(-nslices // group_slices))
+    n_g = (max(1, -(-nslices // group_slices)) if n_groups is None
+           else n_groups)
     gstart = offs[np.minimum(np.arange(n_g) * group_slices, nslices)]
     gend = offs[np.minimum((np.arange(n_g) + 1) * group_slices, nslices)]
     rc = gend - gstart
-    rcp = -(-rc // row_mult) * row_mult
+    rcp = (-(-rc // row_mult) * row_mult if rcp_override is None
+           else np.asarray(rcp_override, dtype=np.int64))
     gshift = np.zeros(n_g, dtype=np.int64)
     np.cumsum((rcp - rc)[:-1], out=gshift[1:])
     grp_of_row = np.searchsorted(gend, np.arange(S), side="right")
@@ -375,7 +630,8 @@ def group_padded_rmap(offs, nslices: int, S: int, group_slices: int,
     return rmap, gstart, rc, rcp, gshift
 
 
-def _plan_layout(offs, nslices, S, YB, CH, region_widths=(1, 2, 4, 8, 16)):
+def _plan_layout(offs, nslices, S, YB, CH, region_widths=(1, 2, 4, 8, 16),
+                 nslices_u=None, force: RoutedForce | None = None):
     """Padded plane layout: row map, reduce-group ranges and regular-width
     regions.
 
@@ -383,20 +639,33 @@ def _plan_layout(offs, nslices, S, YB, CH, region_widths=(1, 2, 4, 8, 16)):
     of >= CH/w slices of width w in ``region_widths`` becomes a REGION:
     up to w-1 zero rows are inserted first so its slice boundaries land
     on the CH grid, and the region's CH-aligned interior sums without the
-    emission sweep.
+    emission sweep.  Forced geometries (row shards, which share one reduce
+    structure) keep the plain group-tail padding, over the groups of
+    ``nslices_u`` slices and to ``force.rcp`` rows each, with no regions.
 
     Returns (rmap [S] old->padded plane row, ycall_rows (n,2) int64,
     regions (m,5) int64 rows (grp, row0, n_rows, w, slice_rel), S_padded).
     """
-    n_groups = max(1, -(-nslices // YB))
-    if S == 0:
+    n_groups = max(1, -(-(nslices_u or nslices) // YB))
+    if force is not None or S == 0:
+        rcp_over = None
+        if force is not None and force.rcp is not None:
+            _, _, _, rcp0, _ = group_padded_rmap(
+                offs, nslices, 0, YB, CH, n_groups=n_groups
+            )
+            frcp = np.asarray(force.rcp, dtype=np.int64)
+            if frcp.shape[0] != n_groups or (frcp < rcp0).any():
+                raise ValueError("force.rcp must cover natural group rows")
+            rcp_over = frcp
         rmap, gstart, _rc, rcp, gshift = group_padded_rmap(
-            offs, nslices, S, YB, CH
+            offs, nslices, S, YB, CH, n_groups=n_groups,
+            rcp_override=rcp_over,
         )
+        S_padded = int(rcp.sum()) if S or force is not None else 0
         ycall_rows = np.stack([gstart + gshift, rcp], axis=1).astype(
             np.int64
         )
-        return rmap, ycall_rows, np.zeros((0, 5), dtype=np.int64), 0
+        return rmap, ycall_rows, np.zeros((0, 5), dtype=np.int64), S_padded
 
     widths = np.diff(offs)[:nslices]
     cuts = np.flatnonzero(widths[1:] != widths[:-1]) + 1
@@ -449,15 +718,38 @@ def _plan_layout(offs, nslices, S, YB, CH, region_widths=(1, 2, 4, 8, 16)):
     )
 
 
+def _check_T(T: int) -> None:
+    """Refuse a forced pack above ROUTED_T_CAP route tiles, as the JAX
+    package refuses every pack there (its chunk-select block spans all
+    T/1024 chunks in TPU VMEM): a larger matrix takes more shards."""
+    from cvr_tpu_torch.formats import ROUTED_T_CAP
+
+    if T > ROUTED_T_CAP:
+        raise ValueError(
+            f"matrix too large for one chip's routed path (T={T}, "
+            f"Tk > {ROUTED_T_CAP // 1024}); row-shard it across devices "
+            "(cvr_tpu_torch.parallel.dist_routed)"
+        )
+
+
 def _pack_routed_tail(
-    sm, pt, offs, rmap, nslices, S_pad, ycall_rows, regions, w8_arr, li_ss,
-    seg_blk, mid, p3_ss, T, n_segs, segw, n_fillers, gcls, zone, vals_prov,
-    r2,
+    sm, pt, force, offs, rmap, nslices, S_pad, ycall_rows, regions, w8_arr,
+    li_ss, seg_blk, mid, p3_ss, T, n_segs, segw, n_fillers, gcls, zone,
+    vals_prov, r2,
 ) -> SellRouted:
-    """Reduce-pass auxiliaries and the y-route."""
+    """Reduce-pass auxiliaries and the y-route.  Under ``force`` the
+    y-route has ``force.nrows_out`` outputs, the row mask is always
+    present and the split-row extras are padded to ``force.n_extras``
+    with entries that add into row ``nrows_out``, past the output (the
+    device upload drops them)."""
     from cvr_tpu_torch.ops import route_planes as rp
 
     nrows, ncols = sm.shape
+    nrows_out = nrows
+    if force is not None and force.nrows_out is not None:
+        if force.nrows_out < nrows:
+            raise ValueError("force.nrows_out below nrows")
+        nrows_out = force.nrows_out
     with pt.phase("reduce_aux"):
         if zone is not None:
             # zone layout: values sit at provisional positions; r2 maps
@@ -492,7 +784,7 @@ def _pack_routed_tail(
         # each, compacted 8 slices per tile, so the y flat position of
         # segment g stays g in both layouts
         y_tiles = zone["yslices"] if zone is not None else nslices
-        Ty = _round_up(max(-(-nrows // TILE), y_tiles), 128)
+        Ty = _round_up(max(-(-nrows_out // TILE), y_tiles), 128)
         # rows whose (zero-length) first segment sorts beyond the effective
         # slices route from free positions; a row mask zeroes them after
         # the route (they are empty rows, y == 0)
@@ -504,15 +796,18 @@ def _pack_routed_tail(
         used[first_pos[in_range]] = True
         free = np.flatnonzero(~used)
         ypern[dropped] = free[: dropped.shape[0]]
+        # rows [nrows, nrows_out) pad a forced geometry: never read back
         ypern[nrows:] = free[
             dropped.shape[0] : dropped.shape[0] + Ty * TILE - nrows
         ]
-        if dropped.shape[0]:
-            ymask = np.ones(nrows, dtype=np.float32)
+        if dropped.shape[0] or force is not None:
+            # shards share one set of passes, so a forced geometry always
+            # carries the (possibly all-ones) mask
+            ymask = np.ones(nrows_out, dtype=np.float32)
             ymask[dropped] = 0.0
         else:
             ymask = np.zeros(0, dtype=np.float32)
-        y_ra = rp.route_arrays_from_perm(ypern, n=nrows)
+        y_ra = rp.route_arrays_from_perm(ypern, n=nrows_out)
         extra = (~is_first) & (seg_row < nrows)
         extra_pos = np.flatnonzero(extra).astype(np.int64)  # y_sorted flat
         # remap to the padded stream layout (8, Tp, 128): position
@@ -522,6 +817,17 @@ def _pack_routed_tail(
         i_, l_ = rem // 128, rem % 128
         extra_src = i_ * (yTp * 128) + sig * 128 + l_
         extra_row = seg_row[extra]
+        if force is not None and force.n_extras is not None:
+            if force.n_extras < extra_src.shape[0]:
+                raise ValueError("force.n_extras below natural count")
+            pad = force.n_extras - extra_src.shape[0]
+            if pad:
+                # padding extras read position 0 and add into row
+                # nrows_out, past the output
+                extra_src = np.concatenate(
+                    [extra_src, np.zeros(pad, dtype=np.int64)])
+                extra_row = np.concatenate(
+                    [extra_row, np.full(pad, nrows_out, dtype=np.int64)])
 
     return SellRouted(
         w8=w8_arr,

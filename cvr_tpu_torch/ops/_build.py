@@ -109,7 +109,9 @@ def load():
         return _LIB
     lib = ctypes.CDLL(str(build()))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.cvr_expand.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, p]
+    lib.cvr_expand.argtypes = [
+        p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i32, p,
+    ]
     lib.cvr_route_middle.argtypes = [p, p, p, p, i64, i32, p]
     lib.cvr_reduce_slices.argtypes = [
         p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, p,

@@ -1,6 +1,7 @@
-"""Every Hopper kernel of the port, by name: K1-K7 of the routed path
-(route_kernels), K8 DIA (dia_kernels), K9 BELL (bell_kernels) and K10
-SELL-W (window_kernels) of the SpMV; K11 DIA (dia_kernels), K12 BSR
+"""Every Hopper kernel of the port, by name: K1-K7 of the routed path and
+K15, the ring step of its row-sharded overlapped expand (route_kernels),
+K8 DIA (dia_kernels), K9 BELL (bell_kernels) and K10 SELL-W
+(window_kernels) of the SpMV; K11 DIA (dia_kernels), K12 BSR
 (bsr_kernels), K13 lane (lane_kernels) and K14 PMM (pmm_kernels) of the
 SpMM."""
 

@@ -1,9 +1,11 @@
-"""The routed SpMV's device passes: seven Hopper kernels and their wrappers.
+"""The routed SpMV's device passes: seven Hopper kernels and their
+wrappers (K1's kernel also runs the ring steps of K15).
 
 Each pass has three parts side by side:
 
   * a wrapper (``expand``, ``route_middle``, ``reduce_slices``,
-    ``route_small``, ``tileperm``, ``route_m3``, ``reduce_hot``) that
+    ``route_small``, ``tileperm``, ``route_m3``, ``reduce_hot``,
+    ``expand_ring``) that
     launches the CUDA kernel of
     cvr_tpu_torch/csrc/route_kernels.cu for CUDA tensors and counts the
     launch in its ``launches`` attribute.  A wrapper given CPU tensors
@@ -148,12 +150,73 @@ def expand(w8, gcls, seg_blk, li, x, segw: int, n_segs: int):
     g1 = torch.empty((8, T, 128), dtype=torch.float32, device=x.device)
     if T:
         _launch("cvr_expand", x.device, _p(li), _p(w8), _p(gcls),
-                _p(seg_blk), _p(x), _p(g1), T, segw * 8, x.shape[0], rp.TB)
+                _p(seg_blk), _p(x), _p(g1), T, 0, T, 0, segw * 8,
+                x.shape[0], rp.TB)
         expand.launches += 1
     return g1
 
 
 expand.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K15 expand_ring: one ring step of the overlapped expand (row-sharded path)
+# ---------------------------------------------------------------------------
+
+
+def expand_ring_plain(w8_s, gcls_s, seg_s, li, xg, off: int, k_lo: int,
+                      segw: int):
+    """(8, cnt*TB, 128): expand_plain's function over the tile blocks
+    [off, off+cnt) of li (8, T, 128), cnt = len(seg_s), reading x from the
+    gathered-x buffer xg (rows, 128) at the ring step's table base k_lo:
+    block b's segment is k_lo + seg_s[b], and a row past xg reads 0."""
+    n = seg_s.shape[0] * rp.TB
+    segw8 = segw * 8
+    idx = li[:, off * rp.TB : off * rp.TB + n, :].long()
+    hi, lo = idx >> 7, idx & 127
+    row = ((k_lo + seg_s.long()) * segw8).repeat_interleave(rp.TB)
+    row = (row + w8_s.long()).view(1, n, 1) + hi
+    ncand = gcls_s.long().repeat_interleave(8).view(1, n, 1)
+    ok = (hi < ncand) & (row < xg.shape[0])
+    return torch.where(ok, xg[row.clamp(max=xg.shape[0] - 1), lo], 0.0)
+
+
+def expand_ring(w8_s, gcls_s, seg_s, li, xg, off: int, k_lo: int,
+                segw: int, g1):
+    """K15 (K1's kernel over the step's blocks, counted apart): one ring
+    step's expand into g1 (8, T, 128) f32, columns
+    [off*TB, (off+cnt)*TB); returns that view.  w8_s (cnt*TB,), gcls_s
+    (cnt*TB//8,) and seg_s (cnt,) int32 are the step's slices of the
+    shard's w8, gcls and seg_ring; li (8, T, 128) int16 is whole; xg
+    (rows, 128) f32 is the shard's gathered-x buffer.  See
+    expand_ring_plain."""
+    cnt = seg_s.shape[0]
+    step = g1[:, off * rp.TB : (off + cnt) * rp.TB]
+    if not _on_card("expand_ring", w8_s, gcls_s, seg_s, li, xg, g1):
+        step.copy_(expand_ring_plain(w8_s, gcls_s, seg_s, li, xg, off,
+                                     k_lo, segw))
+        return step
+    for t, dt in ((w8_s, torch.int32), (gcls_s, torch.int32),
+                  (seg_s, torch.int32), (li, torch.int16),
+                  (xg, torch.float32), (g1, torch.float32)):
+        _check_dtype("expand_ring", t, dt)
+    T = li.shape[1]
+    n = cnt * rp.TB
+    if (li.shape != (8, T, 128) or g1.shape != li.shape
+            or xg.dim() != 2 or xg.shape[1] != 128
+            or w8_s.shape != (n,) or gcls_s.shape != (n // 8,)
+            or not 0 <= off <= off + cnt <= T // rp.TB):
+        raise ValueError("expand_ring: the step's slices must cover blocks "
+                         "[off, off+cnt) of li and g1 (8, T, 128)")
+    if cnt:
+        _launch("cvr_expand", xg.device, _p(li), _p(w8_s), _p(gcls_s),
+                _p(seg_s), _p(xg), _p(g1), T, off * rp.TB, n, k_lo,
+                segw * 8, xg.numel(), rp.TB)
+        expand_ring.launches += 1
+    return step
+
+
+expand_ring.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -466,6 +529,10 @@ KERNELS = {
     "reduce_hot": (
         reduce_hot, reduce_hot_plain,
         "cvr_tpu/ops/pallas_route.py:942 + :1022 (+ :899, :86)",
+    ),
+    "expand_ring": (
+        expand_ring, expand_ring_plain,
+        "cvr_tpu/ops/pallas_route.py:343 via _expand_ring_call :477",
     ),
 }
 

@@ -178,8 +178,9 @@ def route_to_device(ra: dict, device) -> RouteDevice:
                        T=ra["T"], Tp=ra["Tp"], n=ra["n"])
 
 
-def to_device_routed(sr: SellRouted, device) -> SellRoutedDevice:
-    """Upload the routed artifact's planes to ``device``."""
+def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
+    """Upload the routed artifact's planes to ``device`` (the card unless
+    the caller asks for another)."""
     put = _put(device)
     mid = _mid_to_device(sr.mid, put)
     nrows_out = sr.y_ra["n"]

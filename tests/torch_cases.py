@@ -86,6 +86,19 @@ def multisegment(seed=9):
     return same_arrays(tsyn.multisegment(seed=seed))
 
 
+def multisegment_tail(seed=9):
+    """4000 x 1,300,000 with every entry in columns >= 1,140,000: the
+    second x segment only, and at 8 row shards the last ring piece only,
+    so real tile blocks expand at ring steps whose table starts at
+    segment 1."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 4000, 40_000).astype(np.int32)
+    cols = rng.integers(1_140_000, 1_300_000, 40_000).astype(np.int32)
+    vals = rng.standard_normal(40_000).astype(np.float32)
+    j, t = pair(rows, cols, vals, (4000, 1_300_000))
+    return j.sum_duplicates(), t.sum_duplicates()
+
+
 CASES = {
     "powerlaw": (powerlaw, None),
     "banded": (banded, None),
