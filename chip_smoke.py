@@ -70,7 +70,20 @@ Phases, each printed on its own lines:
      spmv_routed of the same matrix; then K15 on every ring step of every
      shard against its plain version, bit for bit, with its time alone and
      its bound, and shard 0's K1-K6 in the all-gather mode as in [3];
-  9. a JSON line of the kernels of every path, then the last line
+  9. the route library's device API on [2]'s matrix, pack and tensors:
+     (a) [2]'s y stream through K5, middle_pass on the y-route's flat
+     planes (K16) and K5, bit for bit against K4's one pass; (b)
+     apply_route of the permutation that sorts its 6,162,120 nonzeros by
+     column (CSR -> CSC value order) compiled with tile_multiple 1 (T
+     6018, the brute middle: K5, K17, K5) and 1024 (T 6144, the recursive
+     middle: K5, K2, K6, K5), bit for bit against v[perm], with the route
+     compile time and v[perm]'s time by torch indexing beside it; (c) the
+     unfused SpMV (expand, middle_pass in full, K18 once per reduce group,
+     the y-route): its ys within 1e-6 of the row scale of K3's, its y at
+     the float64 golden, its time beside spmv_routed's; each phase with
+     its launch counts, and K16, K17 and K18 against their plain versions
+     as in [3];
+ 10. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero.  It needs a CUDA card
@@ -80,6 +93,7 @@ and the repository around it; it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
@@ -127,7 +141,12 @@ from cvr_tpu_torch.parallel.dist_routed import (
 
 ITERS = 100
 KERNEL_ITERS = 20
-EXACT = ("expand", "route_middle", "route_small", "tileperm", "route_m3")
+EXACT = ("expand", "route_middle", "route_small", "tileperm", "route_m3",
+         "route_flat", "groupperm")
+# the pure gathers library_ms times as one torch.take: kernel -> the
+# position of its data input among its arguments
+GATHERS = {"expand": 4, "route_middle": 0, "route_small": 0, "route_m3": 0,
+           "route_flat": 0, "groupperm": 0}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, 80 GB HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 FORCE_HOT = {"CVR_HOT": "1"}
@@ -313,6 +332,20 @@ def _trace(fn, iters: int):
     return per, count
 
 
+def by_kernel(per) -> dict[str, float]:
+    """Device ms by kernel of ours, from device_ms's ms by event name."""
+    return {k: sum(v for n, v in per.items() if f"{k}_kernel" in n)
+            for k in kernels.KERNELS}
+
+
+def device_split(per, ours) -> str:
+    """A trace's device ms per call: the total, ours by kernel, the rest."""
+    dev = sum(per.values())
+    parts = [f"{k} {t:.4f}" for k, t in ours.items() if t]
+    parts.append(f"other device work {dev - sum(ours.values()):.4f}")
+    return f"{dev:.4f} ms ({', '.join(parts)})"
+
+
 def hot_branches(hp) -> set[str]:
     """The row walks K7 takes on hot planes ``hp``: "regular" (regular
     regions) and "swept" (emissions outside every region)."""
@@ -486,8 +519,7 @@ def drive(tag, coo, device, reaches, pack=sell_pack_routed,
           f"{A.nnz / ms / 1e6:.3f} Gnnz/s")
     per = device_ms(lambda: spmv(sd, xd), KERNEL_ITERS, marker)
     dev = sum(per.values())
-    ours = {k: sum(v for n, v in per.items() if f"{k}_kernel" in n)
-            for k in kernels.KERNELS}
+    ours = by_kernel(per)
     print(f"{tag} spmv device time {dev:.4f} ms/iter "
           f"(trace holds all {KERNEL_ITERS} calls; device busy "
           f"{100 * dev / ms:.1f}% of the timed loop); in the same trace: "
@@ -566,6 +598,9 @@ def row_scale_args(name, args):
     if name == "reduce_slices":
         m, m3, vals, *rest = args
         return (m.abs(), m3, vals.abs(), *rest)
+    if name == "reduce_stream":
+        emit, gemit, vals, gx, p3, nys = args
+        return (emit, gemit, vals.abs(), gx.abs(), p3, nys)
     if name in ("dia_spmv", "dia_spmm"):
         bands, offsets, x = args
         return (bands.abs(), offsets, x.abs())
@@ -596,10 +631,18 @@ def bound(name, args, out) -> tuple[float, str]:
     element, and per column of X for an SpMM kernel: BSR counts its dense
     bricks, lane the plane rows its slots sum, PMM the element slots that
     hold an entry).  The reduces read only the plane rows their slice
-    tables name (this run's data)."""
+    tables name (this run's data); the unfused reduce reads emit, and per
+    element of those rows its value, p3 entry and one gx element (its
+    gemit is not read)."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     ops = 0
+    if name == "reduce_stream":
+        emit, _gemit, vals, gx, p3, nys = args
+        row0, row1, _ = rk.reduce_stream_table(emit, nys)
+        used = int((row1.long() - row0.long()).sum()) * 8 * 128
+        nbytes = emit.numel() * 4 + used * (4 + 2 + 4)
+        ops = 2 * used
     # (row0, row1) index and the planes of each reduce
     reduces = {"reduce_slices": (4, 5, slice(0, 4)),
                "reduce_hot": (3, 4, slice(1, 3)),
@@ -629,20 +672,38 @@ def bound(name, args, out) -> tuple[float, str]:
 
 def library_ms(name, args, device):
     """One PyTorch call computing the kernel's function on the same
-    inputs, timed by CUDA events; None where no single call does.  Only
-    tileperm has one: torch.gather over the flat (T, 1024) tile view
-    (its inputs are laid out flat beforehand, outside the timing)."""
-    if name != "tileperm":
+    inputs, timed by CUDA events; None where no single call does.
+    tileperm: torch.gather over the flat (T, 1024) tile view.  The other
+    pure gathers (GATHERS): torch.take of the flattened data input, with
+    one 0 appended for the outputs the kernel sets to 0, by the composed
+    flat index, which the plain version gives when the data input holds
+    its own flat positions (1-based, in float64: exact).  The index, the
+    flat views and the appended 0 are made beforehand, outside the
+    timing, and the call must give the kernel's output."""
+    if name == "tileperm":
+        data, idx = args
+        T = data.shape[1]
+        src = rk.stream_to_flat(data).view(T, 1024)
+        ix = rk.stream_to_flat(idx).long().view(T, 1024)
+        want = rk.stream_to_flat(rk.tileperm(data, idx)).view(T, 1024)
+        call = functools.partial(torch.gather, src, 1, ix)
+    elif name in GATHERS:
+        wrapper, plain, _ = kernels.KERNELS[name]
+        pos = GATHERS[name]
+        data = args[pos]
+        probe = list(args)
+        probe[pos] = torch.arange(1, data.numel() + 1, dtype=torch.float64,
+                                  device=data.device).view(data.shape)
+        ix = plain(*probe).long() - 1
+        ix[ix < 0] = data.numel()  # the appended 0
+        src = torch.cat([data.reshape(-1), data.new_zeros(1)])
+        want = wrapper(*args)
+        call = functools.partial(torch.take, src, ix)
+    else:
         return None
-    data, idx = args
-    T = data.shape[1]
-    df = rk.stream_to_flat(data).view(T, 1024)
-    ixf = rk.stream_to_flat(idx).long().view(T, 1024)
-    want = rk.stream_to_flat(rk.tileperm(data, idx)).view(T, 1024)
-    if not torch.equal(torch.gather(df, 1, ixf), want):
-        raise AssertionError("torch.gather is not tileperm's function")
-    return time_iterations(lambda: torch.gather(df, 1, ixf), KERNEL_ITERS,
-                           device) * 1e3
+    if not torch.equal(call(), want):
+        raise AssertionError(f"the library call is not {name}'s function")
+    return time_iterations(call, KERNEL_ITERS, device) * 1e3
 
 
 def check_kernels(tag, path, sd, xd, launches, spmv_dms, device,
@@ -656,7 +717,6 @@ def check_kernels(tag, path, sd, xd, launches, spmv_dms, device,
     check_ring_kernel holds against their plain version; the cases here
     are the passes after it, on the g1 that K1 gives the same shard."""
     library = library or {}
-    rows = []
     cases = kernel_cases(sd, xd)
     checked = {name for name, _, _ in cases}
     if ring:
@@ -666,47 +726,55 @@ def check_kernels(tag, path, sd, xd, launches, spmv_dms, device,
     if checked != launched:
         raise AssertionError(f"{tag} cases {sorted(checked)} are not the "
                              f"kernels the path launched: {sorted(launched)}")
-    for name, which, args in cases:
-        wrapper, plain, replaces = kernels.KERNELS[name]
-        label = f"{name} ({which})" if which else name
-        got, want = wrapper(*args), plain(*args)
-        if name in EXACT:
-            same = torch.equal(got, want)
-            verdict = "bit-exact" if same else "DIFFERS"
-        else:
-            scale = plain(*row_scale_args(name, args))
-            same = bool(((got - want).abs() <= 1e-6 * scale + 1e-30).all())
-            verdict = "within 1e-6 of the row scale" if same else "DIFFERS"
-        err = float((got - want).abs().max()) if got.numel() else 0.0
-        ms = time_iterations(lambda: wrapper(*args), KERNEL_ITERS, device) * 1e3
-        plain_ms = time_iterations(lambda: plain(*args), KERNEL_ITERS,
-                                   device) * 1e3
-        dms = sum(device_ms(lambda: wrapper(*args), KERNEL_ITERS,
-                            f"{name}_kernel").values())
-        pdms = sum(device_ms(lambda: plain(*args), KERNEL_ITERS,
-                             None).values())
-        bound_ms, bound_by = bound(name, args, got)
-        lib_ms = library.get(name) or library_ms(name, args, device)
-        print(f"{tag} {label}: {verdict}, max abs err {err:.3e}, "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events); "
-              f"device time kernel {dms:.4f} ms, plain {pdms:.4f} ms "
-              f"(traces hold all {KERNEL_ITERS} calls); in the path's "
-              f"trace {spmv_dms[name]:.4f} ms over {launches[name]} "
-              "launches; "
-              f"bound {bound_ms:.4f} ms ({bound_by}); library call "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-        if not same:
-            raise AssertionError(f"{label} disagrees with its plain version")
-        rows.append({
-            "name": name, "route": "cuda", "source": kernels.SOURCES[name],
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "path": path, "launch": which,
-            "device_ms": dms, "plain_device_ms": pdms,
-            "spmv_device_ms": spmv_dms[name],
-        })
-    return rows
+    return [check_case(tag, path, name, which, args, launches, spmv_dms,
+                       device, library.get(name))
+            for name, which, args in cases]
+
+
+def check_case(tag, path, name, which, args, launches, path_dms, device,
+               lib_ms=None):
+    """One kernel launch against its plain version at the same inputs,
+    with its times, bound and library call (``lib_ms`` where the caller
+    measured it, else library_ms); ``launches`` and ``path_dms`` (device
+    ms by kernel) come from the path's own run and trace.  Returns the
+    kernels-JSON row."""
+    wrapper, plain, replaces = kernels.KERNELS[name]
+    label = f"{name} ({which})" if which else name
+    got, want = wrapper(*args), plain(*args)
+    if name in EXACT:
+        same = torch.equal(got, want)
+        verdict = "bit-exact" if same else "DIFFERS"
+    else:
+        scale = plain(*row_scale_args(name, args))
+        same = bool(((got - want).abs() <= 1e-6 * scale + 1e-30).all())
+        verdict = "within 1e-6 of the row scale" if same else "DIFFERS"
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    ms = time_iterations(lambda: wrapper(*args), KERNEL_ITERS, device) * 1e3
+    plain_ms = time_iterations(lambda: plain(*args), KERNEL_ITERS,
+                               device) * 1e3
+    dms = sum(device_ms(lambda: wrapper(*args), KERNEL_ITERS,
+                        f"{name}_kernel").values())
+    pdms = sum(device_ms(lambda: plain(*args), KERNEL_ITERS, None).values())
+    bound_ms, bound_by = bound(name, args, got)
+    lib_ms = lib_ms or library_ms(name, args, device)
+    print(f"{tag} {label}: {verdict}, max abs err {err:.3e}, "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events); "
+          f"device time kernel {dms:.4f} ms, plain {pdms:.4f} ms "
+          f"(traces hold all {KERNEL_ITERS} calls); in the path's "
+          f"trace {path_dms[name]:.4f} ms over {launches[name]} launches; "
+          f"bound {bound_ms:.4f} ms ({bound_by}); library call "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    if not same:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return {
+        "name": name, "route": "cuda", "source": kernels.SOURCES[name],
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms, "path": path, "launch": which,
+        "device_ms": dms, "plain_device_ms": pdms,
+        "spmv_device_ms": path_dms[name],
+    }
 
 
 def pack_with(csr, split_len, hot, env):
@@ -962,8 +1030,7 @@ def spmm_case(tag, name, coo, K, entry, want, device):
     marker = f"{ours_one[0]}_kernel" if ours_one else None
     per = device_ms(lambda: spmm(sd, Xd), KERNEL_ITERS, marker)
     dev_ms = sum(per.values())
-    ours = {k: sum(v for n, v in per.items() if f"{k}_kernel" in n)
-            for k in kernels.KERNELS}
+    ours = by_kernel(per)
     print(f"{tag} {want} SpMM, K {K}: {ms:.4f} ms/iter over {ITERS} iters "
           f"(CUDA events), {2 * csr.nnz * K / ms / 1e6:.3f} GFLOPS "
           f"(2*nnz*K); device time {dev_ms:.4f} ms/iter (trace holds all "
@@ -1195,8 +1262,7 @@ def dist_mode(tag, dm, mode, xd, golden, scale, device):
     per = device_ms(fn, KERNEL_ITERS, "reduce_slices_kernel",
                     per_call=dm.n_shards)
     dev = sum(per.values())
-    ours = {k: sum(v for n, v in per.items() if f"{k}_kernel" in n)
-            for k in kernels.KERNELS}
+    ours = by_kernel(per)
     if mode == "overlap":  # K15 launches K1's kernel
         ours["expand_ring"], ours["expand"] = ours["expand"], 0.0
     print(f"{tag} {mode}: {ms:.4f} ms/iter over {ITERS} iters (CUDA events), "
@@ -1283,6 +1349,187 @@ def dist_paths(device, main_sd, main_coo):
     return rows
 
 
+def path_run(tag, fn, want):
+    """One run of ``fn`` with every launch count set to 0 just before it
+    and read just after; the counts must be ``want`` (the others 0).
+    Returns (fn's result, launches)."""
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    want = {**dict.fromkeys(kernels.KERNELS, 0), **want}
+    print(f"{tag} launches in this path's run: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, want {want}")
+    return out, launches
+
+
+def flat_middle(device, sd, xd):
+    """Phase [9] (a): [2]'s y stream through K5 (stage 1), middle_pass on
+    the y-route's flat planes (K16) and K5 (stage 3), against K4's one
+    pass; then K16 against its plain version."""
+    ra = sd.yroute
+    if ra.mid.kind != "flat":
+        raise AssertionError("[9a] the y-route of [2] is not flat")
+    g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw, sd.n_segs)
+    ysp = sp.y_stream(sd, sp.reduce(sd, *sp.middle(sd, g1)))
+    y4 = rk.route_small(ysp, ra.s1, ra.mid.mid, ra.s3, ra.n)
+
+    def path():
+        g2 = sp.middle_pass(rk.tileperm(ysp, ra.s1), ra.mid)
+        return rk.stream_to_flat(rk.tileperm(g2, ra.s3))[: ra.n]
+
+    y, launches = path_run("[9a]", path, {"tileperm": 2, "route_flat": 1})
+    if not torch.equal(y, y4):
+        raise AssertionError("[9a] K5 + K16 + K5 differ from K4")
+    ms = time_iterations(path, ITERS, device) * 1e3
+    k4_ms = time_iterations(
+        lambda: rk.route_small(ysp, ra.s1, ra.mid.mid, ra.s3, ra.n), ITERS,
+        device) * 1e3
+    per = device_ms(path, KERNEL_ITERS, "route_flat_kernel")
+    ours = by_kernel(per)
+    print(f"[9a] flat y-route of [2] (n {ra.n}) by K5 + K16 + K5: bit-exact "
+          f"with K4; {ms:.4f} ms/iter (CUDA events) vs K4 {k4_ms:.4f} ms; "
+          f"device time {device_split(per, ours)}")
+    g = rk.tileperm(ysp, ra.s1)
+    return [check_case("[9a]", "web_google_like y-route K5+K16+K5",
+                       "route_flat", "", (g, ra.mid.mid), launches, ours,
+                       device)]
+
+
+# Phase [9] (b): (tile_multiple, middle kind, launches of one apply_route)
+PERM_ROUTES = (
+    (1, "brute", {"tileperm": 2, "groupperm": 1}),
+    (1024, "rec", {"tileperm": 2, "route_middle": 1, "route_m3": 1}),
+)
+
+
+def permutation_routes(device, csr):
+    """Phase [9] (b): apply_route of the permutation that sorts the
+    matrix's nonzeros by column (the CSR -> CSC value order), compiled
+    with tile_multiple 1 (the brute middle, K17) and 1024 (the recursive
+    middle, K2 + K6), against v[perm]; then K17 against its plain
+    version."""
+    perm = np.argsort(csr.cols, kind="stable")
+    N = perm.shape[0]
+    v = np.random.default_rng(1).standard_normal(N).astype(np.float32)
+    vd = torch.from_numpy(v).to(device)
+    permd = torch.from_numpy(perm).to(device)
+    want_v = vd[permd]
+    index_ms = time_iterations(lambda: vd[permd], ITERS, device) * 1e3
+    rows = []
+    for tm, kind, want in PERM_ROUTES:
+        tag = f"[9b] {kind}"
+        t0 = time.perf_counter()
+        ra = rp.route_arrays_from_perm(perm, tile_multiple=tm)
+        compile_s = time.perf_counter() - t0
+        mp = ra["mid_planes"]
+        if mp["kind"] != kind or (kind == "brute"
+                                  and mp["Tk"] * 128 != ra["Tp"]):
+            raise AssertionError(f"{tag} route has middle {mp['kind']!r}")
+        rd = sp.route_to_device(ra, device)
+        out, launches = path_run(tag, lambda: sp.apply_route(rd, vd), want)
+        if not torch.equal(out, want_v):
+            raise AssertionError(f"{tag} apply_route differs from v[perm]")
+        fn = functools.partial(sp.apply_route, rd, vd)
+        ms = time_iterations(fn, ITERS, device) * 1e3
+        per = device_ms(fn, KERNEL_ITERS, "tileperm_kernel", per_call=2)
+        ours = by_kernel(per)
+        print(f"{tag}: {N} elements, tile_multiple {tm}: T {ra['T']}, Tp "
+              f"{ra['Tp']}, middle {kind!r} Tk {mp['Tk']}, route compile "
+              f"{compile_s:.3f} s; apply_route bit-exact with v[perm]: "
+              f"{ms:.4f} ms/iter (CUDA events), device time "
+              f"{device_split(per, ours)}; v[perm] (torch indexing) "
+              f"{index_ms:.4f} ms")
+        if kind == "brute":
+            g = rk.flat_to_stream(torch.nn.functional.pad(
+                vd, (0, rd.Tp * 1024 - N)), rd.Tp).contiguous()
+            data = rk.stream_to_middle(rk.tileperm(g, rd.s1)).contiguous()
+            rows.append(check_case(
+                "[9b]", f"web_google_like CSR->CSC apply_route, K {mp['Tk']}",
+                "groupperm", "", (data, rd.mid.mid), launches, ours, device))
+    return rows
+
+
+def unfused_reduce(device, sr, sd, csr, x, xd):
+    """Phase [9] (c): the unfused routed SpMV on [2]'s pack: the expand,
+    middle_pass in full, then K18 once per reduce group (reduce_unfused)
+    and the y-route; its ys against K3's within 1e-6 of the row scale, its
+    y against the float64 golden, its time beside spmv_routed's; then
+    each K18 launch against its plain version."""
+    emit = torch.from_numpy(sr.emit).to(device)
+    gemit = torch.from_numpy(rp.group_emit_encode(sr.emit)).to(device)
+    groups = np.asarray(sr.ycall_rows).tolist()  # (first row, rows) each
+    ngroups = sum(1 for _, nr in groups if nr)  # K18 launches
+
+    def unfused():
+        g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw,
+                       sd.n_segs)
+        ys = sp.reduce_unfused(sd, sp.middle_pass(g1, sd.mid), emit, gemit,
+                               sr.ycall_rows)
+        return ys, sp.y_from_slices(sd, ys, xd)
+
+    want = expected_launches(sd)
+    want["reduce_slices"] = 0
+    want["reduce_stream"] = ngroups
+    want["route_m3" if sd.mid.kind == "rec" else "route_flat"] += 1
+    (ys, y), launches = path_run("[9c]", unfused, want)
+    g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw, sd.n_segs)
+    m, m3 = sp.middle(sd, g1)
+    ys3 = sp.reduce(sd, m, m3)
+    abs_sd = dataclasses.replace(sd, vals_ss=sd.vals_ss.abs())
+    scale = sp.reduce(abs_sd, m.abs(), m3)
+    err = float((ys - ys3).abs().max())
+    if not bool(((ys - ys3).abs() <= 1e-6 * scale + 1e-30).all()):
+        raise AssertionError(f"[9c] K18's ys differ from K3's ({err:.3e})")
+    ok, nbad, maxrel = verify(y.cpu().numpy(), spmv_golden_numpy(csr, x),
+                              rtol=1e-6, row_scale=spmv_row_scale(csr, x))
+    print(f"[9c] unfused reduce on [2]'s pack ({ngroups} reduce groups): "
+          f"ys within 1e-6 of the row scale of K3's (max abs diff "
+          f"{err:.3e}); y vs float64 golden (rtol 1e-6, row-scaled): "
+          f"{'PASS' if ok else 'FAIL'}, {nbad} bad rows, max rel {maxrel:.3e}")
+    if not ok:
+        raise AssertionError("[9c] the unfused SpMV disagrees with the golden")
+    times = {}
+    for label, fn in (("fused", lambda: sp.spmv_routed(sd, xd)),
+                      ("unfused", unfused), ("unfused", unfused),
+                      ("fused", lambda: sp.spmv_routed(sd, xd))):
+        times.setdefault(label, []).append(
+            time_iterations(fn, ITERS, device) * 1e3)
+    per = device_ms(unfused, KERNEL_ITERS, "reduce_stream_kernel",
+                    per_call=ngroups)
+    ours = by_kernel(per)
+    print(f"[9c] ms/iter over {ITERS} iters in turns fused, unfused, "
+          f"unfused, fused: fused {times['fused']}, unfused "
+          f"{times['unfused']}; unfused device time {device_split(per, ours)}")
+    gx = sp.middle_pass(g1, sd.mid)
+    out = []
+    for j, (r0, nr) in enumerate(groups):
+        if not nr:  # a group of zero-width slices launches nothing
+            continue
+        rows = slice(r0, r0 + nr)
+        args = (emit[rows], gemit[r0 // 8 : (r0 + nr) // 8],
+                sd.vals_ss[:, rows].contiguous(), gx[:, rows].contiguous(),
+                sd.p3[:, rows].contiguous(), min(rp.YB, sd.nslices - j * rp.YB))
+        out.append(check_case("[9c]", "web_google_like unfused reduce",
+                              "reduce_stream", f"group {j}", args, launches,
+                              ours, device))
+    return out
+
+
+def route_api(device, sr, sd, coo):
+    """Phase [9]: the route library's device API on [2]'s matrix, pack
+    and tensors."""
+    csr = coo.to_csr()
+    x = np.random.default_rng(0).standard_normal(coo.shape[1]).astype(np.float32)
+    xd = torch.from_numpy(x).to(device)
+    rows = flat_middle(device, sd, xd)
+    rows += permutation_routes(device, csr)
+    rows += unfused_reduce(device, sr, sd, csr, x, xd)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1299,15 +1546,16 @@ def main() -> int:
     coo = syn.web_google_like()
     print(f"[2] web_google_like: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} "
           f"nnz, generated in {time.perf_counter() - t0:.2f} s")
-    _sr, sd, xd, launches, _ms, spmv_dms, _lib = main_path(coo, "cuda")
+    sr, sd, xd, launches, _ms, spmv_dms, _lib = main_path(coo, "cuda")
     rows = check_kernels("[3]", "web_google_like", sd, xd, launches,
                          spmv_dms, "cuda")
-    del _sr, xd
+    del xd
     walks = check_geometries("cuda")
     rows += fsm_path("cuda", walks)
     rows += format_paths("cuda")
     rows += spmm_paths("cuda")
     rows += dist_paths("cuda", sd, coo)
+    rows += route_api("cuda", sr, sd, coo)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -4,7 +4,8 @@ The port shares the C++ library with the JAX package but binds it itself,
 so importing it pulls in no jax.  Only the entry points the port's packs
 call are bound: the MatrixMarket reader, COO->CSR assembly, the SELL-pack
 converter, the routed stream builder, the zone scatter, the fused route
-compilers, the recursive-middle planes, the DIA, BELL and SELL-W
+compilers, the Euler colorings and plane passes of ``plan_route`` and
+``mid_recursive_planes``, the recursive-middle planes, the DIA, BELL and SELL-W
 passes of ``pack_auto``'s other formats, and the BSR-128 densification.
 The library is built at first use with ``make -C native``.
 """
@@ -131,6 +132,18 @@ def get_lib():
         _i64, _i64, _i64p, _i32p, _i64, _i64, _i64, _i64p, _i64,
         _i32p, _i16p, _i32p, _i8p, _i32p,
     ]
+    lib.cvr_euler_color.restype = ctypes.c_int
+    lib.cvr_euler_color.argtypes = [
+        _i64, _i32p, _i32p, _i64, ctypes.c_int32, _i32p,
+    ]
+    lib.cvr_euler_color_perm.restype = ctypes.c_int
+    lib.cvr_euler_color_perm.argtypes = [_i64, _i32p, _i64, _i32p]
+    lib.cvr_route_planes.restype = ctypes.c_int
+    lib.cvr_route_planes.argtypes = [
+        _i64, _i32p, _i32p, _i64, _i16p, _i32p, _i16p,
+    ]
+    lib.cvr_mid_planes.restype = ctypes.c_int
+    lib.cvr_mid_planes.argtypes = [_i64, _i32p, _i32p, _i16p, _i16p, _i16p]
     lib.cvr_color_rows_cap.restype = ctypes.c_int
     lib.cvr_color_rows_cap.argtypes = [_i64, _i64, _i32p, _i32p]
     lib.cvr_mid_planes_ss.restype = ctypes.c_int
@@ -362,6 +375,54 @@ def stream_build2_native(
         perm, li_flat, w8, cand, seg_blk,
     ))
     return perm, li_flat, w8, cand, seg_blk, T, T_src_p
+
+
+def euler_color_native(src, dst, n_tiles: int, k: int):
+    """k-edge-coloring of the k-regular bipartite tile multigraph with
+    edges (src[i], dst[i]) (the routing assignment of ops/route.py)."""
+    lib = _need_lib()
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    color = np.empty(src.shape[0], dtype=np.int32)
+    _check(lib, lib.cvr_euler_color(src.shape[0], src, dst, n_tiles, k,
+                                    color))
+    return color
+
+
+def euler_color_perm_native(perm, T: int):
+    """The route's edge coloring with src = perm >> 10 and dst = i >> 10
+    derived (no edge arrays)."""
+    lib = _need_lib()
+    perm = np.ascontiguousarray(perm, dtype=np.int32)
+    color = np.empty(perm.shape[0], dtype=np.int32)
+    _check(lib, lib.cvr_euler_color_perm(perm.shape[0], perm, T, color))
+    return color
+
+
+def route_planes_native(perm, colors, T: int):
+    """The logical s1 (T, 1024) i16, mid (1024, T) i32 and s3 (T, 1024)
+    i16 planes of a colored route, in one pass."""
+    lib = _need_lib()
+    perm = np.ascontiguousarray(perm, dtype=np.int32)
+    colors = np.ascontiguousarray(colors, dtype=np.int32)
+    s1 = np.empty((T, 1024), dtype=np.int16)
+    mid = np.empty((1024, T), dtype=np.int32)
+    s3 = np.empty((T, 1024), dtype=np.int16)
+    _check(lib, lib.cvr_route_planes(perm.shape[0], perm, colors, T, s1, mid,
+                                     s3))
+    return s1, mid, s3
+
+
+def mid_planes_native(mid, T: int, colors_rows):
+    """Recursive-middle planes (m1, csel, m3), logical (T, 1024) each."""
+    lib = _need_lib()
+    mid = np.ascontiguousarray(mid, dtype=np.int32)
+    colors_rows = np.ascontiguousarray(colors_rows, dtype=np.int32)
+    m1 = np.empty((T, 1024), dtype=np.int16)
+    csel = np.empty((T, 1024), dtype=np.int16)
+    m3 = np.empty((T, 1024), dtype=np.int16)
+    _check(lib, lib.cvr_mid_planes(T, mid, colors_rows, m1, csel, m3))
+    return m1, csel, m3
 
 
 def color_rows_cap_native(mid, T: int, tk: int):

@@ -117,9 +117,11 @@ def time_iterations(fn, iters: int, device, warmup: int = 3) -> float:
 
 
 def _pack(csr, impl: str):
-    """(packed artifact, padded nnz) of ``impl``'s format."""
+    """(packed artifact, padded nnz) of ``impl``'s format.  As in the JAX
+    harness, a BELL artifact counts its routed spill's stream under
+    impl="bell" but not under impl="auto"."""
     from cvr_tpu_torch.formats import pack_auto
-    from cvr_tpu_torch.formats.bell import bell_pack
+    from cvr_tpu_torch.formats.bell import BellMatrix, bell_pack
     from cvr_tpu_torch.formats.dia import dia_pack
     from cvr_tpu_torch.formats.sell import sell_pack
     from cvr_tpu_torch.formats.sell_routed import SellRouted, sell_pack_routed
@@ -135,6 +137,8 @@ def _pack(csr, impl: str):
     }[impl](csr)
     if isinstance(packed, SellRouted):
         return packed, packed.T * 1024
+    if impl == "auto" and isinstance(packed, BellMatrix):
+        return packed, packed.k * packed.R_sub * 128
     return packed, packed.padded_nnz
 
 

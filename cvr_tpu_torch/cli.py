@@ -206,6 +206,20 @@ def cmd_info(args) -> int:
         f"fill={sm.fill_ratio:.3f} splits={sm.n_splits} "
         f"convert={sm.convert_time * 1e3:.1f} ms"
     )
+    # the hub-column capture verdict (formats/hot.py): would the routed
+    # pack serve the hottest columns from the hot table?
+    from cvr_tpu_torch.formats.hot import plan_hot
+
+    plan = plan_hot(csr)
+    if plan is not None:
+        print(f"hot-column capture: ON at NH={plan[0]} "
+              f"(predicted {plan[1] / 1e3:.0f} us/SpMV saving)")
+    else:
+        counts = np.bincount(csr.cols, minlength=csr.shape[1])
+        top = int(np.sort(counts)[::-1][:1024].sum())
+        print("hot-column capture: off (top-1024 columns cover "
+              f"{top / max(csr.nnz, 1):.1%} of nnz; the gate's calibrated "
+              "model predicts no net win)")
     return 0
 
 

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) kernels of the routed-gather SpMV.
+// Hopper (sm_90a) kernels of the routed-gather SpMV and of the route
+// library's device API.
 //
-// Seven passes replace the twelve Pallas TPU kernels that the JAX package
-// runs on this path (cvr_tpu/ops/pallas_route.py):
+// Ten passes replace the fifteen Pallas TPU kernels that the JAX package
+// runs on these paths (cvr_tpu/ops/pallas_route.py):
 //
 //   K1 expand         <- _expand_kernel                (:343)
 //   K15 expand_ring   <- _expand_kernel over a tile-block range, one ring
@@ -17,10 +18,17 @@
 //   K7 reduce_hot     <- _reduce_hot_kernel + _reduce_hot_regular_kernel
 //                        with _hot_gather_groups, _emission_sweep
 //                                                      (:942, :1022, :899, :86)
+//   K16 route_flat    <- _flat_fused_kernel            (:1217)
+//   K17 groupperm     <- _groupperm_kernel             (:267)
+//   K18 reduce_stream <- _reduce_kernel with _emission_sweep (:537, :86)
 //
 // K5, K2, K6, K5 in that order are the y-route above 1024 tiles (outputs
 // above 1,048,576 rows); K4 is the y-route up to 1024 tiles.  K7 runs only
-// when the pack captured hub columns (the hub-column hybrid).
+// when the pack captured hub columns (the hub-column hybrid).  K16-K18 are
+// the route library's own calls (middle_pass, apply_route, the unfused
+// reduce_stream of ops/spmv_routed.py): K5, K16, K5 route a flat
+// 1024-tile stream in three passes where K4 takes one; K5, K17, K5 route
+// any T not a multiple of 1024 tiles (the brute middle).
 //
 // Layouts (all row-major, C contiguous):
 //   stream   (8, T, 128): element (tile a, pos p) at [p>>7, a, p&127]
@@ -272,6 +280,93 @@ __global__ void reduce_hot_kernel(
   ys[(i * nys + out[it]) * 128 + l] = acc;
 }
 
+// K16: the flat route middle (T == 1024) on a stream, in one pass: the
+// composition mstream_to_stream(tileperm(stream_to_mstream(g1, 1), mid)),
+// which reduces to
+//   out[qh, f, ql] = g1[qh, v, ql],  v = mid[fH, qh*128+ql, fL]
+// with f = fH*128+fL (0 where v is not in [0, 1024)).  The TPU transposes
+// a stream quarter in VMEM, gathers within slabs and transposes back; here
+// K6's 32x32 shared-memory transpose runs over (ql, fL) for each (qh, fH),
+// with g1 read in place through the stream->mstream index map: mid is read
+// and out written coalesced, no mstream is materialised and no relayout
+// copy is made.
+__global__ void route_flat_kernel(const float* __restrict__ g1,
+                                  const int16_t* __restrict__ mid,
+                                  float* __restrict__ out) {
+  __shared__ float tile[kTile][kTile + 1];
+  // blockIdx.x: 16 tiles of the 128x128 (ql, fL) slab; blockIdx.y: (qh, fH)
+  int tq = (blockIdx.x >> 2) * kTile;
+  int tf = (blockIdx.x & 3) * kTile;
+  int fH = static_cast<int>(blockIdx.y & 7);
+  int qh = static_cast<int>(blockIdx.y >> 3);
+  for (int j = threadIdx.y; j < kTile; j += kRows) {
+    int q = qh * 128 + tq + j;
+    int fL = tf + threadIdx.x;
+    int v = mid[(fH * 1024 + q) * 128 + fL];
+    tile[j][threadIdx.x] = (v >= 0 && v < 1024)
+                               ? g1[(qh * 1024 + v) * 128 + tq + j]
+                               : 0.f;
+  }
+  __syncthreads();
+  for (int j = threadIdx.y; j < kTile; j += kRows) {
+    int fL = tf + j;
+    int ql = tq + threadIdx.x;
+    out[(qh * 1024 + fH * 128 + fL) * 128 + ql] = tile[threadIdx.x][j];
+  }
+}
+
+// K17: the brute route middle's within-row permutation over T = K*128
+// tiles, on the middle layout (K, 1024, 128):
+//   out[k, q, l] = data[v>>7, q, v&127],  v = idx[k, q, l]
+// and 0 where v is not in [0, K*128).  The TPU selects among K static
+// slabs after K lane-gathers per output row (K*K gather-and-select pairs,
+// because dynamic slab reads were ~9x slower there); here one thread per
+// output element reads its one source directly, so the cost is one
+// scattered 4 B read per element whatever K is (K <= 256: idx is int16).
+// idx is read and out written coalesced.
+__global__ void groupperm_kernel(const float* __restrict__ data,
+                                 const int16_t* __restrict__ idx,
+                                 float* __restrict__ out, long long K) {
+  long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= K * 1024 * 128) return;
+  long long q = (e >> 7) & 1023;
+  int v = idx[e];
+  out[e] = (v >= 0 && v < K * 128)
+               ? data[((v >> 7) * 1024LL + q) * 128 + (v & 127)]
+               : 0.f;
+}
+
+// K18: the unfused reduce (the JAX package's reduce_slices) over one reduce
+// group's plane rows, from the stream-layout middle output gx: for plane
+// row R of the slice that emission row r closes (rows [start[r], r]),
+//   P[i,R,l] = gx[v>>7, R, v&127] * vals[i,R,l],  v = p3[i,R,l]
+// (0 where v is not in [0, 1024)), summed into ys[i, emit[r], l].  The TPU
+// walks the rows in one sequential grid with the emission sweep; here the
+// wrapper derives every row's slice start on the device (a running max of
+// the emission rows, no host sync), one block per (plane row, sublane)
+// returns at once unless its row is an emission with an id below nys, and
+// its threads (one per lane) loop over the slice's rows, as K3 does,
+// reading gx in place where K3 reads the mstream through M3.
+__global__ void reduce_stream_kernel(
+    const float* __restrict__ vals, const float* __restrict__ gx,
+    const int16_t* __restrict__ p3, const int32_t* __restrict__ emit,
+    const int32_t* __restrict__ start, float* __restrict__ ys, long long S,
+    long long nys) {
+  long long r = blockIdx.x;
+  int slice = emit[r];
+  if (slice < 0 || slice >= nys) return;
+  long long i = blockIdx.y;
+  int l = threadIdx.x;
+  float acc = 0.f;
+  for (long long R = start[r]; R <= r; ++R) {
+    long long pe = (i * S + R) * 128 + l;
+    int v = p3[pe];
+    if (v >= 0 && v < 1024)
+      acc += gx[((v >> 7) * S + R) * 128 + (v & 127)] * vals[pe];
+  }
+  ys[(i * nys + slice) * 128 + l] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -353,6 +448,37 @@ int cvr_reduce_hot(const void* xh, const void* hidx, const void* hvals,
       static_cast<const float*>(hvals), static_cast<const int32_t*>(row0),
       static_cast<const int32_t*>(row1), static_cast<const int32_t*>(out),
       static_cast<float*>(ys), nxh, S, nys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_route_flat(const void* g1, const void* mid, void* out,
+                   void* stream) {
+  // (128/32)^2 tiles per slab; 8 qh x 8 fH slabs
+  dim3 grid(16, 64);
+  dim3 block(kTile, kRows);
+  route_flat_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g1), static_cast<const int16_t*>(mid),
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_groupperm(const void* data, const void* idx, void* out, long long K,
+                  void* stream) {
+  groupperm_kernel<<<blocks_for(K * 1024 * 128), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(data), static_cast<const int16_t*>(idx),
+      static_cast<float*>(out), K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_reduce_stream(const void* vals, const void* gx, const void* p3,
+                      const void* emit, const void* start, void* ys,
+                      long long S, long long nys, void* stream) {
+  dim3 grid(static_cast<unsigned int>(S), 8);
+  reduce_stream_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vals), static_cast<const float*>(gx),
+      static_cast<const int16_t*>(p3), static_cast<const int32_t*>(emit),
+      static_cast<const int32_t*>(start), static_cast<float*>(ys), S, nys);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,7 +17,9 @@ within every dest tile: a proper 1024-edge-coloring of the bipartite
 multigraph (source tiles) x (dest tiles).  The graph is 1024-regular, so
 recursive Euler splitting colors it in 10 levels.  The routed pack calls
 the native compiler (``route_compile_native``); this module holds the
-pure-Python coloring and the numpy executor the route is specified by.
+colorings (native where the library loads, else pure Python), the
+recursive middle's decomposition and the numpy executor the route is
+specified by.
 """
 
 from __future__ import annotations
@@ -106,6 +108,18 @@ def euler_color_py(
     return color
 
 
+def euler_color(
+    src: np.ndarray, dst: np.ndarray, n_tiles: int, k: int = TILE
+) -> np.ndarray:
+    """The native coloring when the library loads, euler_color_py
+    otherwise (the two may color differently; each is proper)."""
+    from cvr_tpu_torch import _native
+
+    if _native.available():
+        return _native.euler_color_native(src, dst, int(n_tiles), int(k))
+    return euler_color_py(src, dst, n_tiles, k)
+
+
 @dataclass
 class RoutePlan:
     """Compiled static permutation ``out[i] = v[perm[i]]`` (bijection).
@@ -132,11 +146,14 @@ class RoutePlan:
 def plan_route(
     perm: np.ndarray, n: int | None = None, tile_multiple: int = 1
 ) -> RoutePlan:
-    """Compile a bijection into a 3-stage Clos route (pure Python).
+    """Compile a bijection into a 3-stage Clos route: the native coloring
+    and plane pass when the library loads, else numpy around
+    euler_color.
 
     ``perm``: out[i] = v[perm[i]], a permutation of [0, len(perm)).  The
     stream is padded to ``tile_multiple`` tiles of 1024 with identity
-    tail positions.
+    tail positions (a multiple of 1024 tiles gives the recursive middle,
+    plan_mid_recursive).
     """
     perm = np.asarray(perm, dtype=np.int64)
     n = int(perm.shape[0]) if n is None else n
@@ -148,9 +165,17 @@ def plan_route(
     full[:N] = perm
     perm32 = full.astype(np.int32)
 
+    from cvr_tpu_torch import _native
+
+    if _native.available():
+        # dst(i) = i >> 10 is implicit: no edge arrays
+        colors = _native.euler_color_perm_native(perm32, T)
+        s1, mid, s3 = _native.route_planes_native(perm32, colors, T)
+        return RoutePlan(s1=s1, mid=mid, s3=s3, n=n)
+
     src_tile = perm32 >> 10  # source tile of the element destined to i
     d_of_edge = np.repeat(np.arange(T, dtype=np.int32), TILE)
-    colors = euler_color_py(src_tile, d_of_edge, T, TILE)
+    colors = euler_color(src_tile, d_of_edge, T, TILE)
 
     # stage 1: within source tile a, the color-q element sits at offset
     # perm[i] % TILE
@@ -175,3 +200,70 @@ def apply_route_numpy(plan: RoutePlan, v: np.ndarray) -> np.ndarray:
     g2 = np.take_along_axis(g1.T.copy(), plan.mid.astype(np.int64), axis=1)
     out = np.take_along_axis(g2.T.copy(), plan.s3.astype(np.int64), axis=1)
     return out.reshape(-1)[: plan.n]
+
+
+# ---------------------------------------------------------------------------
+# The recursive (two-level Benes) middle stage
+# ---------------------------------------------------------------------------
+#
+# The middle permutes within rows of length T.  Viewing a row as a
+# (Tk, 1024) grid of chunks (Tk = T/1024), it decomposes into
+#
+#   M1: permute within each source chunk  -> position = chunk color m
+#   M2: move across chunks at fixed m     -> a Tk-way select
+#   M3: permute within each dest chunk    -> the final in-row position
+#
+# where the chunk color m is a second-level Euler coloring, one
+# independent 1024-regular bipartite multigraph (Tk nodes a side) per row.
+
+
+def plan_mid_recursive(plan: RoutePlan):
+    """plan.mid decomposed into (m1, csel, m3) planes (see
+    mid_recursive_planes)."""
+    return mid_recursive_planes(plan.mid, plan.n_tiles)
+
+
+def mid_recursive_planes(mid_arr, T: int):
+    """Decompose a (1024, T) mid array into (m1, csel, m3) planes; T must
+    be a multiple of 1024 (None for T == 1024: the flat middle).
+
+    Returns logical planes, each (Tk*1024, 1024):
+      m1[ca*1024 + q, m]   = the within-chunk source offset (a & 1023)
+      csel[cd*1024 + q, m] = the source chunk ca
+      m3[cd*1024 + q, f]   = the chunk color m of the element ending at f
+    The native capacitated per-row colorings when the library loads, else
+    euler_color_py row by row.
+    """
+    mid = np.ascontiguousarray(mid_arr, dtype=np.int32)  # [1024, T]
+    if T % TILE:
+        raise ValueError("recursive middle requires T % 1024 == 0")
+    Tk = T // TILE
+    if Tk == 1:
+        return None
+
+    from cvr_tpu_torch import _native
+
+    if _native.available():
+        colors = _native.color_rows_cap_native(mid, T, Tk)
+        m1, csel, m3 = _native.mid_planes_native(mid, T, colors)
+        return {"m1": m1, "csel": csel, "m3": m3, "Tk": Tk}
+
+    a = mid.astype(np.int64)  # [1024, T]: source tile per (q, d)
+    d = np.broadcast_to(np.arange(T, dtype=np.int64), (TILE, T))
+    ca = (a >> 10).astype(np.int32)
+    cd = (d >> 10).astype(np.int32)
+    colors = np.empty((TILE, T), dtype=np.int32)
+    for q in range(TILE):
+        colors[q] = euler_color_py(ca[q], cd[q], Tk, TILE)
+
+    q_grid = np.broadcast_to(
+        np.arange(TILE, dtype=np.int64)[:, None], (TILE, T)
+    )
+    m = colors.astype(np.int64)
+    m1 = np.empty((Tk * TILE, TILE), dtype=np.int16)
+    m1[ca.astype(np.int64) * TILE + q_grid, m] = (a & 1023).astype(np.int16)
+    csel = np.empty((Tk * TILE, TILE), dtype=np.int16)
+    csel[cd.astype(np.int64) * TILE + q_grid, m] = ca.astype(np.int16)
+    m3 = np.empty((Tk * TILE, TILE), dtype=np.int16)
+    m3[cd.astype(np.int64) * TILE + q_grid, (d & 1023)] = m.astype(np.int16)
+    return {"m1": m1, "csel": csel, "m3": m3, "Tk": Tk}

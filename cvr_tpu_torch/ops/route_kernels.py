@@ -1,12 +1,12 @@
-"""The routed SpMV's device passes: seven Hopper kernels and their
-wrappers (K1's kernel also runs the ring steps of K15).
+"""The routed SpMV's and the route library's device passes: ten Hopper
+kernels and their wrappers (K1's kernel also runs the ring steps of K15).
 
 Each pass has three parts side by side:
 
   * a wrapper (``expand``, ``route_middle``, ``reduce_slices``,
     ``route_small``, ``tileperm``, ``route_m3``, ``reduce_hot``,
-    ``expand_ring``) that
-    launches the CUDA kernel of
+    ``expand_ring``, ``route_flat``, ``groupperm``, ``reduce_stream``)
+    that launches the CUDA kernel of
     cvr_tpu_torch/csrc/route_kernels.cu for CUDA tensors and counts the
     launch in its ``launches`` attribute.  A wrapper given CPU tensors
     runs the plain version instead, and only then: on a CUDA tensor it
@@ -16,8 +16,8 @@ Each pass has three parts side by side:
     and the reference each kernel is held against on the card;
   * an entry in KERNELS naming the TPU kernels it replaces.
 
-Layouts: see cvr_tpu_torch/ops/route_planes.py.  The stream<->mstream
-and flat<->stream relayouts are plain tensor permutes.
+Layouts: see cvr_tpu_torch/ops/route_planes.py.  The stream<->mstream,
+stream<->middle and flat<->stream relayouts are plain tensor permutes.
 """
 
 from __future__ import annotations
@@ -59,6 +59,19 @@ def mstream_to_stream(m: torch.Tensor, Tk: int) -> torch.Tensor:
     where d = cd*1024 + f."""
     h = m.reshape(8, Tk, 8, 128, 128)  # [fH, cd, qh, ql, fL]
     return h.permute(2, 1, 0, 4, 3).reshape(8, Tk * 1024, 128)
+
+
+def stream_to_middle(g: torch.Tensor) -> torch.Tensor:
+    """(8, T, 128) [qh, a, ql] -> (K, 1024, 128) [k, q, l], T = K*128,
+    a = k*128 + l, q = qh*128 + ql."""
+    K = g.shape[1] // 128
+    return g.reshape(8, K, 128, 128).permute(1, 0, 3, 2).reshape(K, 1024, 128)
+
+
+def middle_to_stream(m: torch.Tensor) -> torch.Tensor:
+    """(K, 1024, 128) [k, q, l] -> (8, K*128, 128) [qh, a, ql]."""
+    K = m.shape[0]
+    return m.reshape(K, 8, 128, 128).permute(1, 0, 3, 2).reshape(8, K * 128, 128)
 
 
 def expand_x_table(x: torch.Tensor, segw: int, n_segs: int) -> torch.Tensor:
@@ -500,6 +513,149 @@ def reduce_hot(xh, hidx, hvals, row0, row1, out, nys: int):
 reduce_hot.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K16 route_flat: the flat route middle (T == 1024) in one pass
+# ---------------------------------------------------------------------------
+
+
+def route_flat_plain(g1, mid):
+    """(8, 1024, 128) stream: mstream_to_stream(tileperm(
+    stream_to_mstream(g1, 1), mid), 1), which is
+    out[qh, f, ql] = g1[qh, v, ql] for v = mid[f>>7, qh*128+ql, f&127]
+    (0 where v is not in [0, 1024))."""
+    return route_m3_plain(stream_to_mstream(g1, 1), mid)
+
+
+def route_flat(g1, mid):
+    """K16: the flat middle of a 1024-tile route on the stream g1
+    (8, 1024, 128) f32 with its int16 plane mid (8, 1024, 128); returns a
+    stream.  See route_flat_plain."""
+    if not _on_card("route_flat", g1, mid):
+        return route_flat_plain(g1, mid)
+    _check_dtype("route_flat", g1, torch.float32)
+    _check_dtype("route_flat", mid, torch.int16)
+    if g1.shape != (8, 1024, 128) or mid.shape != g1.shape:
+        raise ValueError("route_flat: a flat middle is (8, 1024, 128)")
+    out = torch.empty_like(g1)
+    _launch("cvr_route_flat", g1.device, _p(g1), _p(mid), _p(out))
+    route_flat.launches += 1
+    return out
+
+
+route_flat.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K17 groupperm: the brute route middle (any T = K*128) on the middle layout
+# ---------------------------------------------------------------------------
+
+
+def groupperm_plain(data, idx):
+    """out (K, 1024, 128): out[k,q,l] = data[v>>7, q, v&127] for
+    v = idx[k,q,l], 0 where v is not in [0, K*128)."""
+    K = data.shape[0]
+    v = idx.long()
+    valid = (v >= 0) & (v < K * 128)
+    v = v.clamp(0, K * 128 - 1)
+    q = torch.arange(1024, device=data.device).view(1, 1024, 1)
+    return torch.where(valid, data[v >> 7, q, v & 127], 0.0)
+
+
+def groupperm(data, idx):
+    """K17: the brute middle's within-row permutation over K*128 tiles on
+    data (K, 1024, 128) f32 with the int16 plane idx (K, 1024, 128),
+    K <= 256; see groupperm_plain."""
+    if not _on_card("groupperm", data, idx):
+        return groupperm_plain(data, idx)
+    _check_dtype("groupperm", data, torch.float32)
+    _check_dtype("groupperm", idx, torch.int16)
+    K = data.shape[0]
+    if data.shape != (K, 1024, 128) or idx.shape != data.shape or K > 256:
+        raise ValueError("groupperm: data and idx must be (K, 1024, 128), "
+                         "K <= 256")
+    out = torch.empty_like(data)
+    if K:
+        _launch("cvr_groupperm", data.device, _p(data), _p(idx), _p(out), K)
+        groupperm.launches += 1
+    return out
+
+
+groupperm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K18 reduce_stream: the unfused reduce (stage 3 + x vals + slice sums)
+# ---------------------------------------------------------------------------
+
+
+def emit_starts(emit):
+    """(S,) int32: for each plane row, the first row of the slice it
+    would close: the row after the previous emission (emit >= 0), or 0."""
+    rows = torch.arange(emit.shape[0], device=emit.device)
+    last = torch.where(emit >= 0, rows, -1).cummax(0).values
+    return torch.cat([last.new_zeros(1), last[:-1] + 1])[: rows.shape[0]].int()
+
+
+def reduce_stream_table(emit, nslices: int):
+    """(row0, row1, out) int32 of the emission sweep over ``emit`` (plane
+    rows, -1 or the slice id the row ends): each emission row e closes the
+    slice begun after the previous emission (or at row 0); an emission
+    id not below ``nslices`` is dropped, as are the rows after the last
+    emission."""
+    e = torch.nonzero((emit >= 0) & (emit < nslices)).flatten()
+    return emit_starts(emit)[e], (e + 1).int(), emit[e].int()
+
+
+def reduce_stream_plain(emit, gemit, vals, gx, p3, nslices: int):
+    """ys (8, nslices, 128): ys[:, s, :] sums, over the plane rows R of
+    slice s (reduce_stream_table), P[i,R,l] = gx[v>>7, R, v&127] *
+    vals[i,R,l] for v = p3[i,R,l] (0 where v is not in [0, 1024)); slices
+    no emission names stay zero.  gemit is not read."""
+    row0, row1, out = reduce_stream_table(emit, nslices)
+    item, rows = slice_rows(row0, row1)
+    v = p3[:, rows, :].long()
+    valid = (v >= 0) & (v < 1024)
+    v = v.clamp(0, 1023)
+    g = torch.where(valid, gx[v >> 7, rows.view(1, -1, 1), v & 127], 0.0)
+    return slice_sums(g * vals[:, rows, :], item, out, nslices)
+
+
+def reduce_stream(emit, gemit, vals, gx, p3, nslices: int):
+    """K18: the unfused reduce of one reduce group, the counterpart of
+    cvr_tpu/ops/pallas_route.py:604 reduce_slices.  emit (S,) int32 group
+    -local slice ids on the rows that end a slice, else -1; gemit (S//8,)
+    int32 (group_emit_encode; kept for the reference's signature, not
+    read); vals (8, S, 128) f32, the stream-layout middle output gx
+    (8, S, 128) f32 and the stage-3 plane p3 (8, S, 128) int16 over the
+    group's rows.  Returns ys (8, nslices, 128); the wrapper derives each
+    row's slice start from emit on its device (emit_starts, no host
+    sync), and the kernel sums the slice each emission row closes.  The
+    emission ids must be distinct, as the pack makes them.  See
+    reduce_stream_plain."""
+    S = emit.shape[0]
+    if (vals.shape != (8, S, 128) or gx.shape != vals.shape
+            or p3.shape != vals.shape or gemit.shape != (S // 8,)
+            or S % rp.CH):
+        raise ValueError("reduce_stream: planes must be (8, S, 128) over "
+                         "the S rows of emit, S a multiple of CH")
+    if not _on_card("reduce_stream", emit, gemit, vals, gx, p3):
+        return reduce_stream_plain(emit, gemit, vals, gx, p3, nslices)
+    for t, dt in ((emit, torch.int32), (gemit, torch.int32),
+                  (vals, torch.float32), (gx, torch.float32),
+                  (p3, torch.int16)):
+        _check_dtype("reduce_stream", t, dt)
+    ys = torch.zeros((8, nslices, 128), dtype=torch.float32, device=gx.device)
+    if S:
+        start = emit_starts(emit)
+        _launch("cvr_reduce_stream", gx.device, _p(vals), _p(gx), _p(p3),
+                _p(emit), _p(start), _p(ys), S, nslices)
+        reduce_stream.launches += 1
+    return ys
+
+
+reduce_stream.launches = 0
+
+
 # name -> (wrapper, plain version, TPU kernels it replaces)
 KERNELS = {
     "expand": (
@@ -533,6 +689,18 @@ KERNELS = {
     "expand_ring": (
         expand_ring, expand_ring_plain,
         "cvr_tpu/ops/pallas_route.py:343 via _expand_ring_call :477",
+    ),
+    "route_flat": (
+        route_flat, route_flat_plain,
+        "cvr_tpu/ops/pallas_route.py:1217",
+    ),
+    "groupperm": (
+        groupperm, groupperm_plain,
+        "cvr_tpu/ops/pallas_route.py:267",
+    ),
+    "reduce_stream": (
+        reduce_stream, reduce_stream_plain,
+        "cvr_tpu/ops/pallas_route.py:537",
     ),
 }
 

@@ -6,7 +6,9 @@ Every stream on the device uses the sublane-split layout
 
 and index planes are int16 in that layout.  The route middle stage runs
 on the mstream layout (8, Tk*1024, 128), element (tile a = ca*1024 + p,
-color q) at [p>>7, ca*1024 + q, p&127].
+color q) at [p>>7, ca*1024 + q, p&127]; the brute middle (T not a
+multiple of 1024) on the middle layout (K, 1024, 128), T = K*128,
+element (tile a = k*128 + l, color q) at [k, q, l].
 
 The constants are module attributes that the pack and the op read at
 call time (tests shrink YB to reach the multi-group paths at small
@@ -72,23 +74,42 @@ def middle_planes_from(mid_arr: np.ndarray, T: int) -> dict:
 
     T == 1024: kind "flat", the within-slab permutation itself.
     T == Tk*1024, Tk >= 2: kind "rec", the recursive middle (M1 within
-    chunks, chunk select, M3 within chunks) from the native capacitated
-    per-row colorings.
+    chunks, chunk select, M3 within chunks): the native capacitated
+    per-row colorings with the planes emitted in the stream layout, or
+    without the library ops/route.py's mid_recursive_planes, relaid.
+    Any other T <= 32767: kind "brute", one (K, 1024, 128) int16 plane of
+    tile ids over the middle layout (T padded to Tp = K*128 tiles by
+    identity columns); ``Tk`` is K there.
     """
     from cvr_tpu_torch import _native
+    from cvr_tpu_torch.ops.route import mid_recursive_planes
 
-    if T % 1024:
-        raise NotImplementedError(
-            "middle stage over T not a multiple of 1024 tiles (the brute "
-            "groupperm middle) is not ported yet: ROADMAP queue 2"
+    if T % 1024 == 0:
+        Tk = T // 1024
+        if Tk == 1:
+            return {"kind": "flat", "mid": _to_ss16(mid_arr), "Tk": 1}
+        if _native.available():
+            mid_c = np.ascontiguousarray(mid_arr, dtype=np.int32)
+            colors = _native.color_rows_cap_native(mid_c, T, Tk)
+            m1, csel, m3 = _native.mid_planes_ss_native(mid_c, T, colors)
+            return {"kind": "rec", "m1": m1, "csel": csel, "m3": m3,
+                    "Tk": Tk}
+        rec = mid_recursive_planes(mid_arr, T)
+        return {"kind": "rec", "m1": _to_ss16(rec["m1"]),
+                "csel": _to_ss16(rec["csel"]), "m3": _to_ss16(rec["m3"]),
+                "Tk": Tk}
+    if T > 32767:
+        raise ValueError(
+            "brute middle stage holds tile ids in int16 (T <= 32767); "
+            "pad the stream to a 1024-tile multiple for the recursive "
+            "middle"
         )
-    Tk = T // 1024
-    if Tk == 1:
-        return {"kind": "flat", "mid": _to_ss16(mid_arr), "Tk": 1}
-    mid_c = np.ascontiguousarray(mid_arr, dtype=np.int32)
-    colors = _native.color_rows_cap_native(mid_c, T, Tk)
-    m1, csel, m3 = _native.mid_planes_ss_native(mid_c, T, colors)
-    return {"kind": "rec", "m1": m1, "csel": csel, "m3": m3, "Tk": Tk}
+    Tp = _round_up(T, 128)
+    K = Tp // 128
+    mid = np.tile(np.arange(Tp, dtype=np.int16), (1024, 1))
+    mid[:, :T] = mid_arr.astype(np.int16)
+    mid_ss = np.ascontiguousarray(mid.reshape(1024, K, 128).transpose(1, 0, 2))
+    return {"kind": "brute", "mid": mid_ss, "Tk": K}
 
 
 def route_arrays_from_perm(

@@ -1,4 +1,5 @@
-"""y = A @ x on the SELL-R artifact: the routed-gather SpMV on the card.
+"""y = A @ x on the SELL-R artifact: the routed-gather SpMV on the card,
+and the route library's device API.
 
 Pipeline (cvr_tpu_torch/formats/sell_routed.py packs the planes):
 
@@ -9,13 +10,25 @@ Pipeline (cvr_tpu_torch/formats/sell_routed.py packs the planes):
     ysp = zone-A fold, pad to the y-route's tiles
     ysp += reduce_hot(x[hot_ids], ...)    K7  hub-column hybrid (hot planes)
     y   = route_small(ysp)                K4  the y-route, Tp == 1024
-        | tileperm(ysp, s1) -> route_middle -> route_m3 -> tileperm(s3)
-                                          K5, K2, K6, K5  Tp > 1024
+        | tileperm(ysp, s1) -> middle_pass -> tileperm(s3)
+                                          K5, (K2, K6), K5  Tp > 1024
     y   = y * ymask ; y[extra_row] += ysp[extra_src]
 
+The unfused reduce the JAX package's routed SpMV specifies runs the whole
+middle first and reduces from the stream (reduce_unfused):
+
+    gx  = middle_pass(g1)                 K2 + K6 (rec) | K16 (flat)
+    ys  = reduce_stream(emit, gemit, vals, gx, p3)   K18, per reduce group
+
+The route library: ``apply_route(ra, v)`` computes v[perm] for any
+compiled permutation (route_planes.route_arrays_from_perm or
+route_arrays(plan_route(perm))): K5, ``middle_pass``, K5, where the
+middle is K2 + K6 (kind "rec", T a multiple of 1024 tiles above 1024),
+K16 (kind "flat", T == 1024; apply_route takes K4 there instead) or
+stream_to_middle, K17, middle_to_stream (kind "brute", any other T).
+
 The kernels are in cvr_tpu_torch/ops/route_kernels.py; everything else
-here is plain torch.  A route middle the port has no kernel for yet (the
-"brute" middle) raises NotImplementedError.
+here is plain torch.
 """
 
 from __future__ import annotations
@@ -33,8 +46,9 @@ from cvr_tpu_torch.ops import route_planes as rp
 
 @dataclass(frozen=True)
 class RouteMidDevice:
-    """Middle-stage planes: ``mid`` for kind "flat" (Tk == 1), m1/csel/m3
-    for kind "rec" (Tk >= 2)."""
+    """Middle-stage planes: ``mid`` for kind "flat" (Tk == 1, a stream
+    plane) and kind "brute" (Tk == K, a (K, 1024, 128) middle-layout
+    plane), m1/csel/m3 for kind "rec" (Tk >= 2)."""
 
     kind: str
     Tk: int
@@ -157,15 +171,13 @@ def _put(device):
     return put
 
 
-def _mid_to_device(mp: dict, put) -> RouteMidDevice:
-    if mp["kind"] == "flat":
-        return RouteMidDevice(kind="flat", Tk=mp["Tk"], mid=put(mp["mid"]))
-    if mp["kind"] == "rec":
-        return RouteMidDevice(kind="rec", Tk=mp["Tk"], m1=put(mp["m1"]),
-                              csel=put(mp["csel"]), m3=put(mp["m3"]))
-    raise NotImplementedError(
-        f"route middle kind {mp['kind']!r} is not ported yet: "
-        "ROADMAP queue 2"
+def mid_to_device(mp: dict, device) -> RouteMidDevice:
+    """Upload a route's middle planes (route_planes.middle_planes_from) to
+    ``device``."""
+    put = _put(device)
+    return RouteMidDevice(
+        kind=mp["kind"], Tk=mp["Tk"],
+        **{k: put(mp[k]) for k in ("mid", "m1", "csel", "m3") if k in mp},
     )
 
 
@@ -173,7 +185,7 @@ def route_to_device(ra: dict, device) -> RouteDevice:
     """Upload a route's arrays (route_planes.route_arrays_from_perm) to
     ``device``."""
     put = _put(device)
-    mid = _mid_to_device(ra["mid_planes"], put)
+    mid = mid_to_device(ra["mid_planes"], device)
     return RouteDevice(s1=put(ra["s1"]), mid=mid, s3=put(ra["s3"]),
                        T=ra["T"], Tp=ra["Tp"], n=ra["n"])
 
@@ -182,7 +194,7 @@ def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
     """Upload the routed artifact's planes to ``device`` (the card unless
     the caller asks for another)."""
     put = _put(device)
-    mid = _mid_to_device(sr.mid, put)
+    mid = mid_to_device(sr.mid, device)
     nrows_out = sr.y_ra["n"]
     # geometry-padding extras (forced dist shards) add into row nrows_out,
     # out of range: the reference drops them, the port filters them here
@@ -278,24 +290,68 @@ def hot_stream(sd: SellRoutedDevice, x: torch.Tensor) -> torch.Tensor:
                          sd.hot_out, sd.hot_nslices)
 
 
+def reduce_unfused(sd: SellRoutedDevice, gx: torch.Tensor, emit, gemit,
+                   ycall_rows) -> torch.Tensor:
+    """Per-slice lane sums ys (8, nslices, 128) by the unfused reduce: one
+    reduce_stream (K18) per reduce group over the group's plane rows of
+    the stream-layout middle output gx (8, >= S_pad, 128).  emit (S_pad,)
+    and gemit (S_pad // 8,) int32 on sd's device are the pack's emissions
+    and their group codes (route_planes.group_emit_encode), ycall_rows
+    its reduce groups' (first row, rows)."""
+    parts = []
+    for j, (r0, nr) in enumerate(np.asarray(ycall_rows).tolist()):
+        rows = slice(r0, r0 + nr)
+        parts.append(rk.reduce_stream(
+            emit[rows], gemit[r0 // 8 : (r0 + nr) // 8],
+            sd.vals_ss[:, rows].contiguous(), gx[:, rows].contiguous(),
+            sd.p3[:, rows].contiguous(), min(rp.YB, sd.nslices - j * rp.YB),
+        ))
+    return torch.cat(parts, 1)
+
+
+def middle_pass(g1: torch.Tensor, planes: RouteMidDevice) -> torch.Tensor:
+    """The route middle on the stream g1 (8, T, 128), returning a stream:
+    kind "flat" (T == 1024) K16; kind "rec" (T == Tk*1024) K2 then K6;
+    kind "brute" (T == K*128) K17 between the stream<->middle relayouts."""
+    if planes.kind == "flat":
+        return rk.route_flat(g1, planes.mid)
+    if planes.kind == "rec":
+        return rk.route_m3(rk.route_middle(g1, planes.m1, planes.csel),
+                           planes.m3)
+    mid = rk.groupperm(rk.stream_to_middle(g1).contiguous(), planes.mid)
+    return rk.middle_to_stream(mid).contiguous()
+
+
 def apply_route_stream(ra: RouteDevice, g: torch.Tensor) -> torch.Tensor:
     """Route the stream g (8, Tp, 128) to y (n,) in natural order: one
-    K4 pass for a flat 1024-tile route, else stage 1 (K5), the recursive
-    middle (K2, then K6) and stage 3 (K5)."""
-    if ra.mid.kind == "flat":
+    K4 pass for a flat 1024-tile route, else stage 1 (K5), middle_pass
+    and stage 3 (K5)."""
+    if ra.Tp == 1024 and ra.mid.kind == "flat":
         return rk.route_small(g, ra.s1, ra.mid.mid, ra.s3, ra.n)
-    g1 = rk.tileperm(g, ra.s1)
-    g2 = rk.route_m3(rk.route_middle(g1, ra.mid.m1, ra.mid.csel), ra.mid.m3)
+    g2 = middle_pass(rk.tileperm(g, ra.s1), ra.mid)
     return rk.stream_to_flat(rk.tileperm(g2, ra.s3))[: ra.n]
 
 
-def route_post_expand(sd: SellRoutedDevice, g1: torch.Tensor,
-                      x: torch.Tensor) -> torch.Tensor:
-    """The tail of the pipeline after the expand: middle, reduce, the hot
-    planes' sums (the only part that reads x), y-route, row mask and
-    split-row extras."""
-    m, m3 = middle(sd, g1)
-    ysp = y_stream(sd, reduce(sd, m, m3))
+def apply_route(ra, v: torch.Tensor) -> torch.Tensor:
+    """out = v[perm] (float32) for the compiled permutation ``ra``: a
+    host route_arrays dict (uploaded to v's device) or a RouteDevice; v
+    holds at most Tp*1024 elements and is padded to them."""
+    if isinstance(ra, dict):
+        ra = route_to_device(ra, v.device)
+    n_pad = ra.Tp * 1024 - v.shape[0]
+    if n_pad < 0:
+        raise ValueError(f"apply_route: v has {v.shape[0]} elements, the "
+                         f"route {ra.Tp * 1024}")
+    g = rk.flat_to_stream(F.pad(v.to(torch.float32), (0, n_pad)), ra.Tp)
+    return apply_route_stream(ra, g.contiguous())
+
+
+def y_from_slices(sd: SellRoutedDevice, ys: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """y from the per-slice sums ys: the y stream, the hot planes' sums
+    (the only part that reads x), y-route, row mask and split-row
+    extras."""
+    ysp = y_stream(sd, ys)
     if sd.hot_nslices:
         ysp[:, : sd.hot_nslices] += hot_stream(sd, x)
     y = apply_route_stream(sd.yroute, ysp)
@@ -306,3 +362,11 @@ def route_post_expand(sd: SellRoutedDevice, g1: torch.Tensor,
     if sd.extra_src.shape[0]:
         y.index_add_(0, sd.extra_row, ysp.reshape(-1)[sd.extra_src])
     return y
+
+
+def route_post_expand(sd: SellRoutedDevice, g1: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """The tail of the pipeline after the expand: middle, reduce, then
+    y_from_slices."""
+    m, m3 = middle(sd, g1)
+    return y_from_slices(sd, reduce(sd, m, m3), x)

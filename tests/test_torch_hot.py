@@ -6,8 +6,12 @@ hot planes (NH 128, 256, 512 under the reference's forcing switches) and
 the routed packs around them.  Device side: K7 ``reduce_hot`` (its plain
 version, the tensors lying on the CPU) against the Pallas hot reduce
 (interpret mode) over emission-swept pieces and regular regions, within
-1e-6 of the row scale.
+1e-6 of the row scale.  ``cli info``'s hot-column verdict line against
+the JAX CLI's.
 """
+
+import contextlib
+import io
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,16 +19,19 @@ import pytest
 import torch
 
 import cvr_tpu.bench.synthetic as jsyn_mod
+import cvr_tpu.cli as jcli
 import cvr_tpu.ops.spmv_routed as jsr_mod
 from cvr_tpu.formats.hot import capture_split as j_capture
 from cvr_tpu.formats.hot import plan_hot as j_plan_hot
 from cvr_tpu.formats.sell_routed import sell_pack_routed as j_pack_routed
 
 import cvr_tpu_torch.bench.synthetic as tsyn_mod
+from cvr_tpu_torch import cli as tcli
 from cvr_tpu_torch.formats.hot import capture_split as t_capture
 from cvr_tpu_torch.formats.hot import plan_hot as t_plan_hot
 from cvr_tpu_torch.formats.sell_routed import _FIELDS, from_reference
 from cvr_tpu_torch.formats.sell_routed import sell_pack_routed as t_pack_routed
+from cvr_tpu_torch.io.mmio import write_matrix_market
 from cvr_tpu_torch.ops import kernels
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops import spmv_routed as tsp
@@ -197,3 +204,24 @@ def test_reduce_hot_matches_pallas(monkeypatch, NH, case):
     assert got.shape == want.shape == (8, hp.nslices, 128)
     err = np.abs(got.astype(np.float64) - want)
     assert (err <= 1e-6 + 1e-6 * scale).all(), float(err.max())
+
+
+@pytest.mark.parametrize("case,verdict", [("rmat", "off"), ("fsm", "ON")])
+def test_cli_info_hot_line_matches_jax(tmp_path, case, verdict):
+    """``info`` prints the JAX CLI's hot-column line, where the gate
+    declines (R-MAT) and where it fires (fsm-like at 2**17 rows)."""
+    make = (lambda: fsm(n=1 << 17)) if case == "fsm" else (
+        lambda: rmat(12, 8, 4))
+    _, tcoo = make()
+    path = tmp_path / f"{case}.mtx"
+    write_matrix_market(path, tcoo)
+    lines = []
+    for cli in (jcli, tcli):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            args = cli.build_parser().parse_args(["info", str(path)])
+            assert args.fn(args) == 0
+        lines.append([ln for ln in out.getvalue().splitlines()
+                      if ln.startswith("hot-column capture:")])
+    assert len(lines[0]) == 1 and lines[1] == lines[0]
+    assert lines[0][0].startswith(f"hot-column capture: {verdict}")

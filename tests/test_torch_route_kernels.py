@@ -199,8 +199,19 @@ def test_apply_route_stream_matches_pallas():
     np.testing.assert_array_equal(got, rk.stream_to_flat(_t(g)).numpy()[perm])
 
 
-def test_brute_route_middle_not_ported():
-    ra = _random_route_2048()
-    brute = {**ra, "mid_planes": {"kind": "brute", "mid": None, "Tk": 2}}
-    with pytest.raises(NotImplementedError, match="brute"):
-        tsp.route_to_device(brute, "cpu")
+def test_brute_route_uploads():
+    """A route over T tiles not a multiple of 1024 (293 here) has the
+    brute middle: its (K, 1024, 128) int16 plane goes to the device as it
+    is, with Tk == K == Tp / 128."""
+    perm = np.random.default_rng(11).permutation(300_000)
+    ra = tpr.route_arrays_from_perm(perm, tile_multiple=1)
+    assert (ra["T"], ra["Tp"]) == (293, 384)
+    rd = tsp.route_to_device(ra, "cpu")
+    assert (rd.mid.kind, rd.mid.Tk) == ("brute", 3)
+    assert rd.mid.m1 is None and rd.mid.mid.dtype == torch.int16
+    assert tuple(rd.mid.mid.shape) == (3, 1024, 128)
+    np.testing.assert_array_equal(rd.mid.mid.numpy(), ra["mid_planes"]["mid"])
+    # identity columns pad tiles [T, Tp) of every middle row
+    mid = rd.mid.mid.numpy().transpose(1, 0, 2).reshape(1024, 384)
+    np.testing.assert_array_equal(mid[:, 293:],
+                                  np.broadcast_to(np.arange(293, 384), (1024, 91)))

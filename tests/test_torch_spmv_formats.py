@@ -145,6 +145,23 @@ def test_harness_format_impls_cpu(impl, make, capsys):
         assert tag in out
 
 
+def test_harness_bell_padded_nnz_matches_jax(monkeypatch):
+    """The harness's padded nnz of a BELL artifact: the plane elements
+    alone under impl="auto", with the routed spill's stream under
+    impl="bell", each the JAX harness's number on the same matrix."""
+    import cvr_tpu.bench.harness as jharness
+
+    # the JAX side's timing loop is not what is compared
+    monkeypatch.setattr(jharness, "time_fn_iterated", lambda *a, **k: 1.0)
+    jcoo, tcoo = road()
+    for impl, want in (("auto", 786_432), ("bell", 1_835_008)):
+        r = run_spmv_benchmark(tcoo, name="m", impl=impl, iters=2,
+                               device="cpu")
+        jr = jharness.run_spmv_benchmark(jcoo, name="m", impl=impl, iters=1)
+        assert r.verified and jr.verified
+        assert r.padded_nnz == jr.padded_nnz == want, impl
+
+
 def test_cli_defaults_to_auto_as_the_jax_cli(tmp_path, capsys):
     assert cli.build_parser().parse_args(["spmv", "m.mtx"]).format == "auto"
     _, tcoo = road(n=1 << 14)
