@@ -81,8 +81,8 @@ Phases, each printed on its own lines:
      unfused SpMV (expand, middle_pass in full, K18 once per reduce group,
      the y-route): its ys within 1e-6 of the row scale of K3's, its y at
      the float64 golden, its time beside spmv_routed's; each phase with
-     its launch counts, and K16, K17 and K18 against their plain versions
-     as in [3];
+     its launch counts, and every launch of each sub-path against its
+     plain version as in [3] (the set checked equals the set launched);
  10. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
@@ -332,9 +332,22 @@ def _trace(fn, iters: int):
     return per, count
 
 
+# kernels of ours that launch an instantiation of another's template kernel:
+# kernel -> its device events' name (the profiler demangles kernel names)
+EVENTS = {"tileperm": "tileperm_kernel<false>",
+          "groupperm": "tileperm_kernel<true>",
+          "route_m3": "route_m3_kernel<false>",
+          "route_flat": "route_m3_kernel<true>"}
+
+
+def event_of(name: str) -> str:
+    """The name (a part of it) of kernel ``name``'s device events."""
+    return EVENTS.get(name, f"{name}_kernel")
+
+
 def by_kernel(per) -> dict[str, float]:
     """Device ms by kernel of ours, from device_ms's ms by event name."""
-    return {k: sum(v for n, v in per.items() if f"{k}_kernel" in n)
+    return {k: sum(v for n, v in per.items() if event_of(k) in n)
             for k in kernels.KERNELS}
 
 
@@ -570,26 +583,46 @@ def kernel_cases(sd, xd):
                                         sd.red_row0, sd.red_row1,
                                         sd.red_out, sd.red_fast,
                                         sd.nslices)))
-    ysp = sp.y_stream(sd, sp.reduce(sd, m, m3))
+    return cases + y_cases(sd, sp.reduce(sd, m, m3), xd)
+
+
+def y_cases(sd, ys, xd):
+    """The kernel launches of sp.y_from_slices(sd, ys, xd), as
+    kernel_cases gives them."""
+    ysp = sp.y_stream(sd, ys)
+    cases = []
     if sd.hot_nslices:
         args = (xd[sd.hot_ids], sd.hidx, sd.hvals, sd.hot_row0,
                 sd.hot_row1, sd.hot_out, sd.hot_nslices)
         cases.append(("reduce_hot", "", args))
         ysp[:, : sd.hot_nslices] += rk.reduce_hot(*args)
-    ra = sd.yroute
-    if ra.mid.kind == "flat":
-        cases.append(("route_small", "", (ysp, ra.s1, ra.mid.mid, ra.s3,
-                                          ra.n)))
-    else:
-        cases.append(("tileperm", "stage 1", (ysp, ra.s1)))
-        g1y = rk.tileperm(ysp, ra.s1)
-        cases.append(("route_middle", "y side", (g1y, ra.mid.m1,
-                                                 ra.mid.csel)))
-        mid = rk.route_middle(g1y, ra.mid.m1, ra.mid.csel)
-        cases.append(("route_m3", "", (mid, ra.mid.m3)))
-        cases.append(("tileperm", "stage 3", (rk.route_m3(mid, ra.mid.m3),
-                                              ra.s3)))
-    return cases
+    return cases + route_cases(sd.yroute, ysp, "y side")
+
+
+def route_cases(ra, g, side, small=True):
+    """The kernel launches of sp.apply_route_stream(ra, g), as
+    kernel_cases gives them; ``small=False``: a flat route through K5,
+    middle_pass and K5 in place of K4's one pass."""
+    if small and ra.mid.kind == "flat":
+        return [("route_small", side, (g, ra.s1, ra.mid.mid, ra.s3, ra.n))]
+    g1 = rk.tileperm(g, ra.s1)
+    return ([("tileperm", f"{side} stage 1".strip(), (g, ra.s1))]
+            + middle_cases(g1, ra.mid, side)
+            + [("tileperm", f"{side} stage 3".strip(),
+                (sp.middle_pass(g1, ra.mid), ra.s3))])
+
+
+def middle_cases(g1, planes, side):
+    """The kernel launches of sp.middle_pass(g1, planes), as kernel_cases
+    gives them."""
+    if planes.kind == "flat":
+        return [("route_flat", side, (g1, planes.mid))]
+    if planes.kind == "rec":
+        m = rk.route_middle(g1, planes.m1, planes.csel)
+        return [("route_middle", side, (g1, planes.m1, planes.csel)),
+                ("route_m3", side, (m, planes.m3))]
+    return [("groupperm", side, (rk.stream_to_middle(g1).contiguous(),
+                                 planes.mid))]
 
 
 def row_scale_args(name, args):
@@ -716,17 +749,28 @@ def check_kernels(tag, path, sd, xd, launches, spmv_dms, device,
     ``ring``: the path's expand ran as K15's ring steps, which
     check_ring_kernel holds against their plain version; the cases here
     are the passes after it, on the g1 that K1 gives the same shard."""
-    library = library or {}
     cases = kernel_cases(sd, xd)
-    checked = {name for name, _, _ in cases}
+    also = set()
     if ring:
         cases = [c for c in cases if c[0] != "expand"]
-        checked = checked - {"expand"} | {"expand_ring"}
+        also = {"expand_ring"}
+    return check_path(tag, path, cases, launches, spmv_dms, device,
+                      library, also)
+
+
+def check_path(tag, path, cases, launches, path_dms, device, library=None,
+               also=()):
+    """check_case on each of ``cases`` (kernel, which launch, its
+    arguments at the path's own tensors), once they are shown to cover
+    every kernel the path launched (``launches``) and no other: ``also``
+    names the launched kernels the caller checks itself."""
+    library = library or {}
+    checked = {name for name, _, _ in cases} | set(also)
     launched = {k for k, n in launches.items() if n}
     if checked != launched:
         raise AssertionError(f"{tag} cases {sorted(checked)} are not the "
                              f"kernels the path launched: {sorted(launched)}")
-    return [check_case(tag, path, name, which, args, launches, spmv_dms,
+    return [check_case(tag, path, name, which, args, launches, path_dms,
                        device, library.get(name))
             for name, which, args in cases]
 
@@ -753,7 +797,7 @@ def check_case(tag, path, name, which, args, launches, path_dms, device,
     plain_ms = time_iterations(lambda: plain(*args), KERNEL_ITERS,
                                device) * 1e3
     dms = sum(device_ms(lambda: wrapper(*args), KERNEL_ITERS,
-                        f"{name}_kernel").values())
+                        event_of(name)).values())
     pdms = sum(device_ms(lambda: plain(*args), KERNEL_ITERS, None).values())
     bound_ms, bound_by = bound(name, args, got)
     lib_ms = lib_ms or library_ms(name, args, device)
@@ -1368,7 +1412,7 @@ def path_run(tag, fn, want):
 def flat_middle(device, sd, xd):
     """Phase [9] (a): [2]'s y stream through K5 (stage 1), middle_pass on
     the y-route's flat planes (K16) and K5 (stage 3), against K4's one
-    pass; then K16 against its plain version."""
+    pass; then each of these launches against its plain version."""
     ra = sd.yroute
     if ra.mid.kind != "flat":
         raise AssertionError("[9a] the y-route of [2] is not flat")
@@ -1387,15 +1431,14 @@ def flat_middle(device, sd, xd):
     k4_ms = time_iterations(
         lambda: rk.route_small(ysp, ra.s1, ra.mid.mid, ra.s3, ra.n), ITERS,
         device) * 1e3
-    per = device_ms(path, KERNEL_ITERS, "route_flat_kernel")
+    per = device_ms(path, KERNEL_ITERS, event_of("route_flat"))
     ours = by_kernel(per)
     print(f"[9a] flat y-route of [2] (n {ra.n}) by K5 + K16 + K5: bit-exact "
           f"with K4; {ms:.4f} ms/iter (CUDA events) vs K4 {k4_ms:.4f} ms; "
           f"device time {device_split(per, ours)}")
-    g = rk.tileperm(ysp, ra.s1)
-    return [check_case("[9a]", "web_google_like y-route K5+K16+K5",
-                       "route_flat", "", (g, ra.mid.mid), launches, ours,
-                       device)]
+    return check_path("[9a]", "web_google_like y-route K5+K16+K5",
+                      route_cases(ra, ysp, "y side", small=False), launches,
+                      ours, device)
 
 
 # Phase [9] (b): (tile_multiple, middle kind, launches of one apply_route)
@@ -1409,8 +1452,8 @@ def permutation_routes(device, csr):
     """Phase [9] (b): apply_route of the permutation that sorts the
     matrix's nonzeros by column (the CSR -> CSC value order), compiled
     with tile_multiple 1 (the brute middle, K17) and 1024 (the recursive
-    middle, K2 + K6), against v[perm]; then K17 against its plain
-    version."""
+    middle, K2 + K6), against v[perm]; then each launch of each route
+    against its plain version."""
     perm = np.argsort(csr.cols, kind="stable")
     N = perm.shape[0]
     v = np.random.default_rng(1).standard_normal(N).astype(np.float32)
@@ -1434,7 +1477,7 @@ def permutation_routes(device, csr):
             raise AssertionError(f"{tag} apply_route differs from v[perm]")
         fn = functools.partial(sp.apply_route, rd, vd)
         ms = time_iterations(fn, ITERS, device) * 1e3
-        per = device_ms(fn, KERNEL_ITERS, "tileperm_kernel", per_call=2)
+        per = device_ms(fn, KERNEL_ITERS, event_of("tileperm"), per_call=2)
         ours = by_kernel(per)
         print(f"{tag}: {N} elements, tile_multiple {tm}: T {ra['T']}, Tp "
               f"{ra['Tp']}, middle {kind!r} Tk {mp['Tk']}, route compile "
@@ -1442,13 +1485,11 @@ def permutation_routes(device, csr):
               f"{ms:.4f} ms/iter (CUDA events), device time "
               f"{device_split(per, ours)}; v[perm] (torch indexing) "
               f"{index_ms:.4f} ms")
-        if kind == "brute":
-            g = rk.flat_to_stream(torch.nn.functional.pad(
-                vd, (0, rd.Tp * 1024 - N)), rd.Tp).contiguous()
-            data = rk.stream_to_middle(rk.tileperm(g, rd.s1)).contiguous()
-            rows.append(check_case(
-                "[9b]", f"web_google_like CSR->CSC apply_route, K {mp['Tk']}",
-                "groupperm", "", (data, rd.mid.mid), launches, ours, device))
+        g = rk.flat_to_stream(torch.nn.functional.pad(
+            vd, (0, rd.Tp * 1024 - N)), rd.Tp).contiguous()
+        rows += check_path(
+            tag, f"web_google_like CSR->CSC apply_route, {kind} Tk {mp['Tk']}",
+            route_cases(rd, g, ""), launches, ours, device)
     return rows
 
 
@@ -1457,7 +1498,8 @@ def unfused_reduce(device, sr, sd, csr, x, xd):
     middle_pass in full, then K18 once per reduce group (reduce_unfused)
     and the y-route; its ys against K3's within 1e-6 of the row scale, its
     y against the float64 golden, its time beside spmv_routed's; then
-    each K18 launch against its plain version."""
+    each launch of the path (the expand, the x side's middle_pass, each
+    K18, the y-route) against its plain version."""
     emit = torch.from_numpy(sr.emit).to(device)
     gemit = torch.from_numpy(rp.group_emit_encode(sr.emit)).to(device)
     groups = np.asarray(sr.ycall_rows).tolist()  # (first row, rows) each
@@ -1504,18 +1546,20 @@ def unfused_reduce(device, sr, sd, csr, x, xd):
           f"unfused, fused: fused {times['fused']}, unfused "
           f"{times['unfused']}; unfused device time {device_split(per, ours)}")
     gx = sp.middle_pass(g1, sd.mid)
-    out = []
+    cases = [("expand", "", (sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw,
+                             sd.n_segs))]
+    cases += middle_cases(g1, sd.mid, "x side")
     for j, (r0, nr) in enumerate(groups):
         if not nr:  # a group of zero-width slices launches nothing
             continue
         rows = slice(r0, r0 + nr)
-        args = (emit[rows], gemit[r0 // 8 : (r0 + nr) // 8],
-                sd.vals_ss[:, rows].contiguous(), gx[:, rows].contiguous(),
-                sd.p3[:, rows].contiguous(), min(rp.YB, sd.nslices - j * rp.YB))
-        out.append(check_case("[9c]", "web_google_like unfused reduce",
-                              "reduce_stream", f"group {j}", args, launches,
-                              ours, device))
-    return out
+        cases.append(("reduce_stream", f"group {j}", (
+            emit[rows], gemit[r0 // 8 : (r0 + nr) // 8], sd.vals_ss[:, rows],
+            gx[:, rows], sd.p3[:, rows],
+            min(rp.YB, sd.nslices - j * rp.YB))))
+    cases += y_cases(sd, ys, xd)
+    return check_path("[9c]", "web_google_like unfused reduce", cases,
+                      launches, ours, device)
 
 
 def route_api(device, sr, sd, coo):

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) kernels of the routed-gather SpMV and of the route
 // library's device API.
 //
-// Ten passes replace the fifteen Pallas TPU kernels that the JAX package
-// runs on these paths (cvr_tpu/ops/pallas_route.py):
+// Eleven passes, in eight kernels, replace the fifteen Pallas TPU kernels
+// that the JAX package runs on these paths (cvr_tpu/ops/pallas_route.py):
 //
 //   K1 expand         <- _expand_kernel                (:343)
 //   K15 expand_ring   <- _expand_kernel over a tile-block range, one ring
@@ -18,8 +18,10 @@
 //   K7 reduce_hot     <- _reduce_hot_kernel + _reduce_hot_regular_kernel
 //                        with _hot_gather_groups, _emission_sweep
 //                                                      (:942, :1022, :899, :86)
-//   K16 route_flat    <- _flat_fused_kernel            (:1217)
-//   K17 groupperm     <- _groupperm_kernel             (:267)
+//   K16 route_flat    <- _flat_fused_kernel            (:1217): K6's kernel
+//                        on the stream, route_m3_kernel<true>
+//   K17 groupperm     <- _groupperm_kernel             (:267): K5's kernel
+//                        on the middle layout, tileperm_kernel<true>
 //   K18 reduce_stream <- _reduce_kernel with _emission_sweep (:537, :86)
 //
 // K5, K2, K6, K5 in that order are the y-route above 1024 tiles (outputs
@@ -196,34 +198,52 @@ __global__ void route_small_kernel(const float* __restrict__ ysp,
   y[e] = ysp[((s1v >> 7) * 1024 + a) * 128 + (s1v & 127)];
 }
 
-// K5: a within-tile permutation in stream layout (route stages 1 and 3
-// of a y-route above 1024 tiles):
+// K5 and K17: a within-tile permutation over P planes of T rows,
 //   out[i,a,l] = data[v>>7, a, v&127],  v = idx[i,a,l]
-// and 0 where v is not in [0, 1024) (the TPU's 8-way select matches no
-// sublane there).  The TPU pads T to its block; here any T runs.
+// and 0 where v is not in [0, P*128) (the TPU's select matches no sublane
+// there).  K5 (kMiddle false): route stages 1 and 3 of a y-route above
+// 1024 tiles, in stream layout (P 8, any T; the TPU pads T to its block).
+// K17 (kMiddle true): the brute route middle over T' = K*128 tiles, in the
+// middle layout (P K <= 256, since idx is int16; T 1024, a compile-time
+// row count).  The TPU selects among K static slabs after K lane-gathers
+// per output row (K*K gather-and-select pairs, because dynamic slab reads
+// were ~9x slower there); here one thread per output element reads its one
+// source directly, so the cost is one scattered 4 B read per element
+// whatever K is.  idx is read and out written coalesced.
+template <bool kMiddle>
 __global__ void tileperm_kernel(const float* __restrict__ data,
                                 const int16_t* __restrict__ idx,
-                                float* __restrict__ out, long long T) {
+                                float* __restrict__ out, long long T,
+                                long long P) {
+  const long long rows = kMiddle ? 1024 : T;
   long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= 8LL * T * 128) return;
-  long long a = (e >> 7) % T;
+  if (e >= P * rows * 128) return;
+  long long a = (e >> 7) % rows;
   int v = idx[e];
-  out[e] = (v >= 0 && v < 1024)
-               ? data[((v >> 7) * T + a) * 128 + (v & 127)]
+  out[e] = (v >= 0 && v < P * 128)
+               ? data[((v >> 7) * rows + a) * 128 + (v & 127)]
                : 0.f;
 }
 
-// K6: the recursive route middle's M3 stage plus the mstream->stream
-// relayout, as the composition mstream_to_stream(gather_slabs(m, m3)):
+// K6 and K16: the route middle's last within-slab gather plus the
+// mstream->stream relayout.  K6 (kFlat false), the recursive middle's M3
+// stage, is the composition mstream_to_stream(gather_slabs(m, m3)):
 //   g[fH, r, fL]               = m[v>>7, r, v&127],  v = m3[fH, r, fL]
 //   out[qh, cd*1024+f, ql]     = g[fH, cd*1024+q, fL]
-// with q = qh*128+ql, f = fH*128+fL.  For fixed (cd, qh, fH) that is a
-// 128x128 transpose of g over (ql, fL); a block moves one 32x32 tile of it
-// through shared memory, so m3 is read and out written coalesced (the TPU
-// does the same transpose in VMEM, per chunk quarter).
+// with q = qh*128+ql, f = fH*128+fL.  K16 (kFlat true), the flat middle
+// (T == 1024), takes the stream g1 in place of the mstream m:
+// mstream_to_stream(tileperm(stream_to_mstream(g1, 1), mid)), whose load
+// m[v>>7, q, v&127] is g1[qh, v, ql] through the stream->mstream index map,
+// so no mstream is materialised and no relayout copy is made.  For fixed
+// (cd, qh, fH) that is a 128x128 transpose of g over (ql, fL); a block
+// moves one 32x32 tile of it through shared memory, so m3 is read and out
+// written coalesced (the TPU does the same transpose in VMEM, per chunk
+// quarter, and for the flat middle transposes a stream quarter, gathers
+// within slabs and transposes back).
 constexpr int kTile = 32;
 constexpr int kRows = 8;
 
+template <bool kFlat>
 __global__ void route_m3_kernel(const float* __restrict__ m,
                                 const int16_t* __restrict__ m3,
                                 float* __restrict__ out, long long T) {
@@ -240,8 +260,9 @@ __global__ void route_m3_kernel(const float* __restrict__ m,
     long long r = rbase + tq + j;
     int fL = tf + threadIdx.x;
     int v = m3[(fH * T + r) * 128 + fL];
-    tile[j][threadIdx.x] =
-        (v >= 0 && v < 1024) ? m[((v >> 7) * T + r) * 128 + (v & 127)] : 0.f;
+    long long src = kFlat ? (qh * 1024LL + v) * 128 + tq + j
+                          : ((v >> 7) * T + r) * 128 + (v & 127);
+    tile[j][threadIdx.x] = (v >= 0 && v < 1024) ? m[src] : 0.f;
   }
   __syncthreads();
   long long dbase = cd * 1024 + fH * 128;  // stream tile of fL = 0
@@ -280,67 +301,13 @@ __global__ void reduce_hot_kernel(
   ys[(i * nys + out[it]) * 128 + l] = acc;
 }
 
-// K16: the flat route middle (T == 1024) on a stream, in one pass: the
-// composition mstream_to_stream(tileperm(stream_to_mstream(g1, 1), mid)),
-// which reduces to
-//   out[qh, f, ql] = g1[qh, v, ql],  v = mid[fH, qh*128+ql, fL]
-// with f = fH*128+fL (0 where v is not in [0, 1024)).  The TPU transposes
-// a stream quarter in VMEM, gathers within slabs and transposes back; here
-// K6's 32x32 shared-memory transpose runs over (ql, fL) for each (qh, fH),
-// with g1 read in place through the stream->mstream index map: mid is read
-// and out written coalesced, no mstream is materialised and no relayout
-// copy is made.
-__global__ void route_flat_kernel(const float* __restrict__ g1,
-                                  const int16_t* __restrict__ mid,
-                                  float* __restrict__ out) {
-  __shared__ float tile[kTile][kTile + 1];
-  // blockIdx.x: 16 tiles of the 128x128 (ql, fL) slab; blockIdx.y: (qh, fH)
-  int tq = (blockIdx.x >> 2) * kTile;
-  int tf = (blockIdx.x & 3) * kTile;
-  int fH = static_cast<int>(blockIdx.y & 7);
-  int qh = static_cast<int>(blockIdx.y >> 3);
-  for (int j = threadIdx.y; j < kTile; j += kRows) {
-    int q = qh * 128 + tq + j;
-    int fL = tf + threadIdx.x;
-    int v = mid[(fH * 1024 + q) * 128 + fL];
-    tile[j][threadIdx.x] = (v >= 0 && v < 1024)
-                               ? g1[(qh * 1024 + v) * 128 + tq + j]
-                               : 0.f;
-  }
-  __syncthreads();
-  for (int j = threadIdx.y; j < kTile; j += kRows) {
-    int fL = tf + j;
-    int ql = tq + threadIdx.x;
-    out[(qh * 1024 + fH * 128 + fL) * 128 + ql] = tile[threadIdx.x][j];
-  }
-}
-
-// K17: the brute route middle's within-row permutation over T = K*128
-// tiles, on the middle layout (K, 1024, 128):
-//   out[k, q, l] = data[v>>7, q, v&127],  v = idx[k, q, l]
-// and 0 where v is not in [0, K*128).  The TPU selects among K static
-// slabs after K lane-gathers per output row (K*K gather-and-select pairs,
-// because dynamic slab reads were ~9x slower there); here one thread per
-// output element reads its one source directly, so the cost is one
-// scattered 4 B read per element whatever K is (K <= 256: idx is int16).
-// idx is read and out written coalesced.
-__global__ void groupperm_kernel(const float* __restrict__ data,
-                                 const int16_t* __restrict__ idx,
-                                 float* __restrict__ out, long long K) {
-  long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= K * 1024 * 128) return;
-  long long q = (e >> 7) & 1023;
-  int v = idx[e];
-  out[e] = (v >= 0 && v < K * 128)
-               ? data[((v >> 7) * 1024LL + q) * 128 + (v & 127)]
-               : 0.f;
-}
-
 // K18: the unfused reduce (the JAX package's reduce_slices) over one reduce
 // group's plane rows, from the stream-layout middle output gx: for plane
 // row R of the slice that emission row r closes (rows [start[r], r]),
 //   P[i,R,l] = gx[v>>7, R, v&127] * vals[i,R,l],  v = p3[i,R,l]
-// (0 where v is not in [0, 1024)), summed into ys[i, emit[r], l].  The TPU
+// (0 where v is not in [0, 1024)), summed into ys[i, emit[r], l].  The
+// planes are the group's rows of larger planes, read in place: sv, sg and
+// sp are the row counts between two planes of vals, gx and p3.  The TPU
 // walks the rows in one sequential grid with the emission sweep; here the
 // wrapper derives every row's slice start on the device (a running max of
 // the emission rows, no host sync), one block per (plane row, sublane)
@@ -350,8 +317,8 @@ __global__ void groupperm_kernel(const float* __restrict__ data,
 __global__ void reduce_stream_kernel(
     const float* __restrict__ vals, const float* __restrict__ gx,
     const int16_t* __restrict__ p3, const int32_t* __restrict__ emit,
-    const int32_t* __restrict__ start, float* __restrict__ ys, long long S,
-    long long nys) {
+    const int32_t* __restrict__ start, float* __restrict__ ys, long long sv,
+    long long sg, long long sp, long long nys) {
   long long r = blockIdx.x;
   int slice = emit[r];
   if (slice < 0 || slice >= nys) return;
@@ -359,10 +326,10 @@ __global__ void reduce_stream_kernel(
   int l = threadIdx.x;
   float acc = 0.f;
   for (long long R = start[r]; R <= r; ++R) {
-    long long pe = (i * S + R) * 128 + l;
-    int v = p3[pe];
+    int v = p3[(i * sp + R) * 128 + l];
     if (v >= 0 && v < 1024)
-      acc += gx[((v >> 7) * S + R) * 128 + (v & 127)] * vals[pe];
+      acc += gx[((v >> 7) * sg + R) * 128 + (v & 127)] *
+             vals[(i * sv + R) * 128 + l];
   }
   ys[(i * nys + slice) * 128 + l] = acc;
 }
@@ -419,20 +386,22 @@ int cvr_route_small(const void* ysp, const void* s1, const void* mid,
 }
 
 int cvr_tileperm(const void* data, const void* idx, void* out, long long T,
-                 void* stream) {
-  tileperm_kernel<<<blocks_for(8LL * T * 128), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+                 long long planes, int middle, void* stream) {
+  auto kernel = middle ? tileperm_kernel<true> : tileperm_kernel<false>;
+  kernel<<<blocks_for(planes * T * 128), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(data), static_cast<const int16_t*>(idx),
-      static_cast<float*>(out), T);
+      static_cast<float*>(out), T, planes);
   return static_cast<int>(cudaGetLastError());
 }
 
 int cvr_route_m3(const void* m, const void* m3, void* out, long long T,
-                 void* stream) {
+                 int flat, void* stream) {
   // (128/32)^2 tiles per slab; Tk chunks x 8 qh x 8 fH slabs
   dim3 grid(16, static_cast<unsigned int>((T / 1024) * 64));
   dim3 block(kTile, kRows);
-  route_m3_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = flat ? route_m3_kernel<true> : route_m3_kernel<false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(m), static_cast<const int16_t*>(m3),
       static_cast<float*>(out), T);
   return static_cast<int>(cudaGetLastError());
@@ -451,34 +420,16 @@ int cvr_reduce_hot(const void* xh, const void* hidx, const void* hvals,
   return static_cast<int>(cudaGetLastError());
 }
 
-int cvr_route_flat(const void* g1, const void* mid, void* out,
-                   void* stream) {
-  // (128/32)^2 tiles per slab; 8 qh x 8 fH slabs
-  dim3 grid(16, 64);
-  dim3 block(kTile, kRows);
-  route_flat_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g1), static_cast<const int16_t*>(mid),
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int cvr_groupperm(const void* data, const void* idx, void* out, long long K,
-                  void* stream) {
-  groupperm_kernel<<<blocks_for(K * 1024 * 128), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), static_cast<const int16_t*>(idx),
-      static_cast<float*>(out), K);
-  return static_cast<int>(cudaGetLastError());
-}
-
 int cvr_reduce_stream(const void* vals, const void* gx, const void* p3,
                       const void* emit, const void* start, void* ys,
-                      long long S, long long nys, void* stream) {
+                      long long S, long long sv, long long sg, long long sp,
+                      long long nys, void* stream) {
   dim3 grid(static_cast<unsigned int>(S), 8);
   reduce_stream_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vals), static_cast<const float*>(gx),
       static_cast<const int16_t*>(p3), static_cast<const int32_t*>(emit),
-      static_cast<const int32_t*>(start), static_cast<float*>(ys), S, nys);
+      static_cast<const int32_t*>(start), static_cast<float*>(ys), sv, sg,
+      sp, nys);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -117,12 +117,11 @@ def load():
         p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, p,
     ]
     lib.cvr_route_small.argtypes = [p, p, p, p, p, i64, p]
-    lib.cvr_tileperm.argtypes = [p, p, p, i64, p]
-    lib.cvr_route_m3.argtypes = [p, p, p, i64, p]
+    lib.cvr_tileperm.argtypes = [p, p, p, i64, i64, i32, p]
+    lib.cvr_route_m3.argtypes = [p, p, p, i64, i32, p]
     lib.cvr_reduce_hot.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, p]
-    lib.cvr_route_flat.argtypes = [p, p, p, p]
-    lib.cvr_groupperm.argtypes = [p, p, p, i64, p]
-    lib.cvr_reduce_stream.argtypes = [p, p, p, p, p, p, i64, i64, p]
+    lib.cvr_reduce_stream.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64,
+                                      i64, p]
     lib.cvr_dia_spmv.argtypes = [p, p, p, p, i32, i64, i64, p]
     lib.cvr_bell_gather_mac.argtypes = [p, p, p, p, i32, i64, i32, i32, i64, p]
     lib.cvr_window_reduce.argtypes = [
@@ -135,10 +134,9 @@ def load():
     for fn in (
         lib.cvr_expand, lib.cvr_route_middle, lib.cvr_reduce_slices,
         lib.cvr_route_small, lib.cvr_tileperm, lib.cvr_route_m3,
-        lib.cvr_reduce_hot, lib.cvr_route_flat, lib.cvr_groupperm,
-        lib.cvr_reduce_stream, lib.cvr_dia_spmv, lib.cvr_bell_gather_mac,
-        lib.cvr_window_reduce, lib.cvr_dia_spmm, lib.cvr_bsr_spmm,
-        lib.cvr_lane_reduce, lib.cvr_pmm_spmm,
+        lib.cvr_reduce_hot, lib.cvr_reduce_stream, lib.cvr_dia_spmv,
+        lib.cvr_bell_gather_mac, lib.cvr_window_reduce, lib.cvr_dia_spmm,
+        lib.cvr_bsr_spmm, lib.cvr_lane_reduce, lib.cvr_pmm_spmm,
     ):
         fn.restype = ctypes.c_int
     _LIB = lib

@@ -112,7 +112,10 @@ def euler_color(
     src: np.ndarray, dst: np.ndarray, n_tiles: int, k: int = TILE
 ) -> np.ndarray:
     """The native coloring when the library loads, euler_color_py
-    otherwise (the two may color differently; each is proper)."""
+    otherwise (the two may color differently; each is proper).  The
+    public counterpart of the reference's cvr_tpu/ops/route.py:145;
+    plan_route colors with the native per-permutation pass when the
+    library loads and with euler_color_py when it does not."""
     from cvr_tpu_torch import _native
 
     if _native.available():
@@ -148,7 +151,7 @@ def plan_route(
 ) -> RoutePlan:
     """Compile a bijection into a 3-stage Clos route: the native coloring
     and plane pass when the library loads, else numpy around
-    euler_color.
+    euler_color_py.
 
     ``perm``: out[i] = v[perm[i]], a permutation of [0, len(perm)).  The
     stream is padded to ``tile_multiple`` tiles of 1024 with identity
@@ -175,7 +178,7 @@ def plan_route(
 
     src_tile = perm32 >> 10  # source tile of the element destined to i
     d_of_edge = np.repeat(np.arange(T, dtype=np.int32), TILE)
-    colors = euler_color(src_tile, d_of_edge, T, TILE)
+    colors = euler_color_py(src_tile, d_of_edge, T, TILE)
 
     # stage 1: within source tile a, the color-q element sits at offset
     # perm[i] % TILE

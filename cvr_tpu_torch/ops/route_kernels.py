@@ -1,5 +1,6 @@
-"""The routed SpMV's and the route library's device passes: ten Hopper
-kernels and their wrappers (K1's kernel also runs the ring steps of K15).
+"""The routed SpMV's and the route library's device passes: eleven
+wrappers over eight Hopper kernels (K1's kernel also runs the ring steps
+of K15, K5's the brute middle K17 and K6's the flat middle K16).
 
 Each pass has three parts side by side:
 
@@ -91,10 +92,13 @@ def expand_x_table(x: torch.Tensor, segw: int, n_segs: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+def _on_card(name: str, *tensors: torch.Tensor, planes=()) -> bool:
     """True when the pass gets CUDA tensors (launch the kernel), False for
-    CPU tensors (run the plain version); raise on anything else."""
-    devs = {t.device for t in tensors}
+    CPU tensors (run the plain version); raise on anything else.
+    ``planes``: (P, rows, 128) tensors that may be row slices of larger
+    planes (their rows contiguous, read in place) where ``tensors`` must
+    be contiguous."""
+    devs = {t.device for t in (*tensors, *planes)}
     if all(d.type == "cpu" for d in devs):
         return False
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
@@ -102,6 +106,9 @@ def _on_card(name: str, *tensors: torch.Tensor) -> bool:
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+    for t in planes:
+        if t.stride()[1:] != (128, 1):
+            raise ValueError(f"{name}: plane rows must be contiguous")
     return True
 
 
@@ -405,12 +412,12 @@ route_small.launches = 0
 
 
 def tileperm_plain(data, idx):
-    """out (8, T, 128): out[i,a,l] = data[idx>>7, a, idx&127] for
-    idx = idx_[i,a,l], 0 where idx is not in [0, 1024)."""
-    T = data.shape[1]
+    """out (P, T, 128): out[i,a,l] = data[v>>7, a, v&127] for
+    v = idx[i,a,l], 0 where v is not in [0, P*128) (P 8 for a stream)."""
+    P, T = data.shape[:2]
     v = idx.long()
-    valid = (v >= 0) & (v < 1024)
-    v = v.clamp(0, 1023)
+    valid = (v >= 0) & (v < P * 128)
+    v = v.clamp(0, P * 128 - 1)
     a = torch.arange(T, device=data.device).view(1, T, 1)
     return torch.where(valid, data[v >> 7, a, v & 127], 0.0)
 
@@ -428,7 +435,8 @@ def tileperm(data, idx):
         raise ValueError("tileperm: data and idx must be (8, T, 128)")
     out = torch.empty_like(data)
     if T:
-        _launch("cvr_tileperm", data.device, _p(data), _p(idx), _p(out), T)
+        _launch("cvr_tileperm", data.device, _p(data), _p(idx), _p(out), T,
+                8, 0)
         tileperm.launches += 1
     return out
 
@@ -461,7 +469,7 @@ def route_m3(m, m3):
         raise ValueError("route_m3: planes must be (8, Tk*1024, 128)")
     out = torch.empty_like(m)
     if T:
-        _launch("cvr_route_m3", m.device, _p(m), _p(m3), _p(out), T)
+        _launch("cvr_route_m3", m.device, _p(m), _p(m3), _p(out), T, 0)
         route_m3.launches += 1
     return out
 
@@ -514,7 +522,8 @@ reduce_hot.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K16 route_flat: the flat route middle (T == 1024) in one pass
+# K16 route_flat: the flat route middle (T == 1024) in one pass, by K6's
+# kernel reading the stream in place of the mstream
 # ---------------------------------------------------------------------------
 
 
@@ -529,7 +538,7 @@ def route_flat_plain(g1, mid):
 def route_flat(g1, mid):
     """K16: the flat middle of a 1024-tile route on the stream g1
     (8, 1024, 128) f32 with its int16 plane mid (8, 1024, 128); returns a
-    stream.  See route_flat_plain."""
+    stream.  It launches route_m3_kernel<true>; see route_flat_plain."""
     if not _on_card("route_flat", g1, mid):
         return route_flat_plain(g1, mid)
     _check_dtype("route_flat", g1, torch.float32)
@@ -537,7 +546,7 @@ def route_flat(g1, mid):
     if g1.shape != (8, 1024, 128) or mid.shape != g1.shape:
         raise ValueError("route_flat: a flat middle is (8, 1024, 128)")
     out = torch.empty_like(g1)
-    _launch("cvr_route_flat", g1.device, _p(g1), _p(mid), _p(out))
+    _launch("cvr_route_m3", g1.device, _p(g1), _p(mid), _p(out), 1024, 1)
     route_flat.launches += 1
     return out
 
@@ -546,25 +555,19 @@ route_flat.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K17 groupperm: the brute route middle (any T = K*128) on the middle layout
+# K17 groupperm: the brute route middle (any T = K*128) on the middle
+# layout, by K5's kernel over K planes of 1024 rows
 # ---------------------------------------------------------------------------
 
-
-def groupperm_plain(data, idx):
-    """out (K, 1024, 128): out[k,q,l] = data[v>>7, q, v&127] for
-    v = idx[k,q,l], 0 where v is not in [0, K*128)."""
-    K = data.shape[0]
-    v = idx.long()
-    valid = (v >= 0) & (v < K * 128)
-    v = v.clamp(0, K * 128 - 1)
-    q = torch.arange(1024, device=data.device).view(1, 1024, 1)
-    return torch.where(valid, data[v >> 7, q, v & 127], 0.0)
+# out (K, 1024, 128): out[k,q,l] = data[v>>7, q, v&127] for v = idx[k,q,l],
+# 0 where v is not in [0, K*128)
+groupperm_plain = tileperm_plain
 
 
 def groupperm(data, idx):
     """K17: the brute middle's within-row permutation over K*128 tiles on
     data (K, 1024, 128) f32 with the int16 plane idx (K, 1024, 128),
-    K <= 256; see groupperm_plain."""
+    K <= 256.  It launches tileperm_kernel<true>; see tileperm_plain."""
     if not _on_card("groupperm", data, idx):
         return groupperm_plain(data, idx)
     _check_dtype("groupperm", data, torch.float32)
@@ -575,7 +578,8 @@ def groupperm(data, idx):
                          "K <= 256")
     out = torch.empty_like(data)
     if K:
-        _launch("cvr_groupperm", data.device, _p(data), _p(idx), _p(out), K)
+        _launch("cvr_tileperm", data.device, _p(data), _p(idx), _p(out),
+                1024, K, 1)
         groupperm.launches += 1
     return out
 
@@ -627,7 +631,8 @@ def reduce_stream(emit, gemit, vals, gx, p3, nslices: int):
     int32 (group_emit_encode; kept for the reference's signature, not
     read); vals (8, S, 128) f32, the stream-layout middle output gx
     (8, S, 128) f32 and the stage-3 plane p3 (8, S, 128) int16 over the
-    group's rows.  Returns ys (8, nslices, 128); the wrapper derives each
+    group's rows, which may be row slices of the whole planes (read in
+    place).  Returns ys (8, nslices, 128); the wrapper derives each
     row's slice start from emit on its device (emit_starts, no host
     sync), and the kernel sums the slice each emission row closes.  The
     emission ids must be distinct, as the pack makes them.  See
@@ -638,7 +643,7 @@ def reduce_stream(emit, gemit, vals, gx, p3, nslices: int):
             or S % rp.CH):
         raise ValueError("reduce_stream: planes must be (8, S, 128) over "
                          "the S rows of emit, S a multiple of CH")
-    if not _on_card("reduce_stream", emit, gemit, vals, gx, p3):
+    if not _on_card("reduce_stream", emit, gemit, planes=(vals, gx, p3)):
         return reduce_stream_plain(emit, gemit, vals, gx, p3, nslices)
     for t, dt in ((emit, torch.int32), (gemit, torch.int32),
                   (vals, torch.float32), (gx, torch.float32),
@@ -648,7 +653,8 @@ def reduce_stream(emit, gemit, vals, gx, p3, nslices: int):
     if S:
         start = emit_starts(emit)
         _launch("cvr_reduce_stream", gx.device, _p(vals), _p(gx), _p(p3),
-                _p(emit), _p(start), _p(ys), S, nslices)
+                _p(emit), _p(start), _p(ys), S, vals.stride(0) // 128,
+                gx.stride(0) // 128, p3.stride(0) // 128, nslices)
         reduce_stream.launches += 1
     return ys
 

@@ -297,14 +297,14 @@ def reduce_unfused(sd: SellRoutedDevice, gx: torch.Tensor, emit, gemit,
     the stream-layout middle output gx (8, >= S_pad, 128).  emit (S_pad,)
     and gemit (S_pad // 8,) int32 on sd's device are the pack's emissions
     and their group codes (route_planes.group_emit_encode), ycall_rows
-    its reduce groups' (first row, rows)."""
+    its reduce groups' (first row, rows); K18 reads each group's rows of
+    the planes in place."""
     parts = []
     for j, (r0, nr) in enumerate(np.asarray(ycall_rows).tolist()):
         rows = slice(r0, r0 + nr)
         parts.append(rk.reduce_stream(
-            emit[rows], gemit[r0 // 8 : (r0 + nr) // 8],
-            sd.vals_ss[:, rows].contiguous(), gx[:, rows].contiguous(),
-            sd.p3[:, rows].contiguous(), min(rp.YB, sd.nslices - j * rp.YB),
+            emit[rows], gemit[r0 // 8 : (r0 + nr) // 8], sd.vals_ss[:, rows],
+            gx[:, rows], sd.p3[:, rows], min(rp.YB, sd.nslices - j * rp.YB),
         ))
     return torch.cat(parts, 1)
 
@@ -326,7 +326,7 @@ def apply_route_stream(ra: RouteDevice, g: torch.Tensor) -> torch.Tensor:
     """Route the stream g (8, Tp, 128) to y (n,) in natural order: one
     K4 pass for a flat 1024-tile route, else stage 1 (K5), middle_pass
     and stage 3 (K5)."""
-    if ra.Tp == 1024 and ra.mid.kind == "flat":
+    if ra.mid.kind == "flat":
         return rk.route_small(g, ra.s1, ra.mid.mid, ra.s3, ra.n)
     g2 = middle_pass(rk.tileperm(g, ra.s1), ra.mid)
     return rk.stream_to_flat(rk.tileperm(g2, ra.s3))[: ra.n]
