@@ -18,10 +18,14 @@ Phases, each printed on its own lines:
   3. each of its kernels (K1-K4) against its plain PyTorch version at the
      main path's own tensors: expand, route_middle and route_small bit for
      bit, reduce_slices within 1e-6 of the row scale (it sums in another
-     order); kernel time beside plain time, by CUDA events and as device
-     time from a torch.profiler trace (alone, and inside the SpMV's trace
-     of [2]), with the bound and, where one PyTorch call computes the
-     same function, that call's time;
+     order); route_small's uploaded index against compose_small_route of
+     its planes, and K4 bit for bit against the three-plane chain
+     (route_small_chain) wherever a flat y-route runs (here, the spill of
+     [6], the looped SpMMs of [7], the shards of [8] and [9c]); kernel
+     time beside plain time, by CUDA events and as device time from a
+     torch.profiler trace (alone, and inside the SpMV's trace of [2]),
+     with the bound and, where one PyTorch call computes the same
+     function, that call's time by CUDA events and as device time;
   4. smaller packs, each built to reach one branch (flat and recursive
      middles, several reduce groups, a w=16 regular region, two x
      segments, split-row extras, a row mask, wiki-Talk-like at full size
@@ -55,9 +59,9 @@ Phases, each printed on its own lines:
      Y against the float64 golden, the SpMM timed by CUDA events and as
      device time, cuSPARSE's CSR SpMM (torch.sparse_csr_tensor @ X) and
      for BSR also torch's BSR matmul on the same bricks as yardsticks;
-     each new kernel's launch against its plain version over all K
-     columns; then ``cli spmv --rhs K`` on a smaller MatrixMarket file of
-     each generator, verified;
+     each SpMM kernel's launch against its plain version over all K
+     columns, and a looped SpMM's launches at column 0; then ``cli spmv
+     --rhs K`` on a smaller MatrixMarket file of each generator, verified;
   8. the row-sharded routed SpMV (dist_routed_pack, dist_spmv_routed) on a
      mesh of 4 shards that all share this one card, so the all-gather and
      the ring's moves are copies inside it and the times are not scaling
@@ -67,9 +71,11 @@ Phases, each printed on its own lines:
      ring tables at segment 1) on the ring and all-gathered; each with its
      pack's phases and geometry, launch counts, the float64 golden, its
      time by CUDA events and as device time beside the one-card
-     spmv_routed of the same matrix; then K15 on every ring step of every
-     shard against its plain version, bit for bit, with its time alone and
-     its bound, and shard 0's K1-K6 in the all-gather mode as in [3];
+     spmv_routed of the same matrix; every shard's uploaded K4 index
+     against compose_small_route of its planes; then K15 on every ring
+     step of every shard against its plain version, bit for bit, with its
+     time alone, its bound and its torch.take, and shard 0's K1-K6 in the
+     all-gather mode as in [3];
   9. the route library's device API on [2]'s matrix, pack and tensors:
      (a) [2]'s y stream through K5, middle_pass on the y-route's flat
      planes (K16) and K5, bit for bit against K4's one pass; (b)
@@ -143,10 +149,10 @@ ITERS = 100
 KERNEL_ITERS = 20
 EXACT = ("expand", "route_middle", "route_small", "tileperm", "route_m3",
          "route_flat", "groupperm")
-# the pure gathers library_ms times as one torch.take: kernel -> the
+# the pure gathers library_call computes by one torch.take: kernel -> the
 # position of its data input among its arguments
 GATHERS = {"expand": 4, "route_middle": 0, "route_small": 0, "route_m3": 0,
-           "route_flat": 0, "groupperm": 0}
+           "route_flat": 0, "groupperm": 0, "expand_ring": 4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, 80 GB HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 FORCE_HOT = {"CVR_HOT": "1"}
@@ -550,9 +556,11 @@ def main_path(coo, device):
     )
 
 
-def kernel_cases(sd, xd):
+def kernel_cases(tag, sd, xd):
     """Every kernel launch of one SpMV of ``sd``, in path order, as
-    (kernel, which launch, its arguments at the path's own tensors)."""
+    (kernel, which launch, its arguments at the path's own tensors); a
+    flat y-route's K4 is also held against its three stage planes
+    (check_small_route)."""
     if isinstance(sd, DiaDevice):
         if xd.dim() == 2:
             return [("dia_spmm", "", (sd.bands, sd.offsets, xd))]
@@ -569,7 +577,8 @@ def kernel_cases(sd, xd):
         cases = [("bell_gather_mac", "", gather_args(sd, xd))]
         if sd.spill is not None:
             cases += [(name, f"spill {which}".strip(), args)
-                      for name, which, args in kernel_cases(sd.spill, xd)]
+                      for name, which, args in kernel_cases(
+                          f"{tag} spill", sd.spill, xd)]
         return cases
     cases = []
     args = (sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw, sd.n_segs)
@@ -583,12 +592,12 @@ def kernel_cases(sd, xd):
                                         sd.red_row0, sd.red_row1,
                                         sd.red_out, sd.red_fast,
                                         sd.nslices)))
-    return cases + y_cases(sd, sp.reduce(sd, m, m3), xd)
+    return cases + y_cases(tag, sd, sp.reduce(sd, m, m3), xd)
 
 
-def y_cases(sd, ys, xd):
+def y_cases(tag, sd, ys, xd):
     """The kernel launches of sp.y_from_slices(sd, ys, xd), as
-    kernel_cases gives them."""
+    kernel_cases gives them, K4's checked by check_small_route."""
     ysp = sp.y_stream(sd, ys)
     cases = []
     if sd.hot_nslices:
@@ -596,7 +605,36 @@ def y_cases(sd, ys, xd):
                 sd.hot_row1, sd.hot_out, sd.hot_nslices)
         cases.append(("reduce_hot", "", args))
         ysp[:, : sd.hot_nslices] += rk.reduce_hot(*args)
+    if sd.yroute.mid.kind == "flat":
+        check_small_route(tag, sd.yroute, ysp)
     return cases + route_cases(sd.yroute, ysp, "y side")
+
+
+def check_src(tag, ra) -> None:
+    """A flat route's uploaded K4 index against compose_small_route of the
+    same planes, read back from the card."""
+    planes = [t.cpu().numpy() for t in (ra.s1, ra.mid.mid, ra.s3)]
+    want = rp.compose_small_route(*planes, ra.n)
+    if ra.src.dtype != torch.int32 or not np.array_equal(
+            ra.src.cpu().numpy(), want):
+        raise AssertionError(f"{tag} the uploaded K4 index is not "
+                             "compose_small_route of its planes")
+
+
+def check_small_route(tag, ra, g) -> None:
+    """K4 by its composed index against the three-plane chain
+    (route_small_chain over s1, mid and s3) on the stream g, bit for
+    bit, after check_src."""
+    check_src(tag, ra)
+    got = rk.route_small(g, ra.src, ra.n)
+    want = rk.route_small_chain(g, ra.s1, ra.mid.mid, ra.s3, ra.n)
+    same = torch.equal(got, want)
+    print(f"{tag} route_small (y side, n {ra.n}): uploaded index equals "
+          f"compose_small_route of its planes; K4 "
+          f"{'bit-exact with' if same else 'DIFFERS from'} the three-plane "
+          "chain")
+    if not same:
+        raise AssertionError(f"{tag} K4 differs from the three-plane chain")
 
 
 def route_cases(ra, g, side, small=True):
@@ -604,7 +642,7 @@ def route_cases(ra, g, side, small=True):
     kernel_cases gives them; ``small=False``: a flat route through K5,
     middle_pass and K5 in place of K4's one pass."""
     if small and ra.mid.kind == "flat":
-        return [("route_small", side, (g, ra.s1, ra.mid.mid, ra.s3, ra.n))]
+        return [("route_small", side, (g, ra.src, ra.n))]
     g1 = rk.tileperm(g, ra.s1)
     return ([("tileperm", f"{side} stage 1".strip(), (g, ra.s1))]
             + middle_cases(g1, ra.mid, side)
@@ -666,10 +704,13 @@ def bound(name, args, out) -> tuple[float, str]:
     hold an entry).  The reduces read only the plane rows their slice
     tables name (this run's data); the unfused reduce reads emit, and per
     element of those rows its value, p3 entry and one gx element (its
-    gemit is not read)."""
+    gemit is not read); K4 its index and the ysp elements it names."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     ops = 0
+    if name == "route_small":  # the ysp elements the index reaches
+        ysp, src, _n = args
+        nbytes = (int(torch.unique(src).numel()) + src.numel()) * 4
     if name == "reduce_stream":
         emit, _gemit, vals, gx, p3, nys = args
         row0, row1, _ = rk.reduce_stream_table(emit, nys)
@@ -703,16 +744,18 @@ def bound(name, args, out) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def library_ms(name, args, device):
+def library_call(name, args, want=None):
     """One PyTorch call computing the kernel's function on the same
-    inputs, timed by CUDA events; None where no single call does.
-    tileperm: torch.gather over the flat (T, 1024) tile view.  The other
-    pure gathers (GATHERS): torch.take of the flattened data input, with
-    one 0 appended for the outputs the kernel sets to 0, by the composed
-    flat index, which the plain version gives when the data input holds
-    its own flat positions (1-based, in float64: exact).  The index, the
-    flat views and the appended 0 are made beforehand, outside the
-    timing, and the call must give the kernel's output."""
+    inputs, checked to give the kernel's output; None where no single
+    call does.  tileperm: torch.gather over the flat (T, 1024) tile
+    view.  The other pure gathers (GATHERS): torch.take of the flattened
+    data input, with one 0 appended for the outputs the kernel sets to 0,
+    by the composed flat index, which the plain version gives when the
+    data input holds its own flat positions (1-based, in float64: exact).
+    The index, the flat views and the appended 0 are made here, outside
+    what is timed, and the call must give the kernel's output (``want``,
+    where the wrapper needs more than ``args``: K15 writes into the
+    shard's g1)."""
     if name == "tileperm":
         data, idx = args
         T = data.shape[1]
@@ -730,13 +773,22 @@ def library_ms(name, args, device):
         ix = plain(*probe).long() - 1
         ix[ix < 0] = data.numel()  # the appended 0
         src = torch.cat([data.reshape(-1), data.new_zeros(1)])
-        want = wrapper(*args)
+        want = wrapper(*args) if want is None else want
         call = functools.partial(torch.take, src, ix)
     else:
         return None
     if not torch.equal(call(), want):
         raise AssertionError(f"the library call is not {name}'s function")
-    return time_iterations(call, KERNEL_ITERS, device) * 1e3
+    return call
+
+
+def library_ms(call, device) -> tuple[float | None, float | None]:
+    """The library call's ms by CUDA events and its device ms (a trace),
+    (None, None) where there is no call."""
+    if call is None:
+        return None, None
+    return (time_iterations(call, KERNEL_ITERS, device) * 1e3,
+            sum(device_ms(call, KERNEL_ITERS, None).values()))
 
 
 def check_kernels(tag, path, sd, xd, launches, spmv_dms, device,
@@ -749,7 +801,7 @@ def check_kernels(tag, path, sd, xd, launches, spmv_dms, device,
     ``ring``: the path's expand ran as K15's ring steps, which
     check_ring_kernel holds against their plain version; the cases here
     are the passes after it, on the g1 that K1 gives the same shard."""
-    cases = kernel_cases(sd, xd)
+    cases = kernel_cases(tag, sd, xd)
     also = set()
     if ring:
         cases = [c for c in cases if c[0] != "expand"]
@@ -779,9 +831,9 @@ def check_case(tag, path, name, which, args, launches, path_dms, device,
                lib_ms=None):
     """One kernel launch against its plain version at the same inputs,
     with its times, bound and library call (``lib_ms`` where the caller
-    measured it, else library_ms); ``launches`` and ``path_dms`` (device
-    ms by kernel) come from the path's own run and trace.  Returns the
-    kernels-JSON row."""
+    measured it, else library_call's, by CUDA events and device time);
+    ``launches`` and ``path_dms`` (device ms by kernel) come from the
+    path's own run and trace.  Returns the kernels-JSON row."""
     wrapper, plain, replaces = kernels.KERNELS[name]
     label = f"{name} ({which})" if which else name
     got, want = wrapper(*args), plain(*args)
@@ -800,14 +852,17 @@ def check_case(tag, path, name, which, args, launches, path_dms, device,
                         event_of(name)).values())
     pdms = sum(device_ms(lambda: plain(*args), KERNEL_ITERS, None).values())
     bound_ms, bound_by = bound(name, args, got)
-    lib_ms = lib_ms or library_ms(name, args, device)
+    lib_dms = None
+    if lib_ms is None:
+        lib_ms, lib_dms = library_ms(library_call(name, args), device)
+    lib_dev = "" if lib_dms is None else f", device {lib_dms:.4f} ms"
     print(f"{tag} {label}: {verdict}, max abs err {err:.3e}, "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events); "
           f"device time kernel {dms:.4f} ms, plain {pdms:.4f} ms "
           f"(traces hold all {KERNEL_ITERS} calls); in the path's "
           f"trace {path_dms[name]:.4f} ms over {launches[name]} launches; "
           f"bound {bound_ms:.4f} ms ({bound_by}); library call "
-          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}{lib_dev}")
     if not same:
         raise AssertionError(f"{label} disagrees with its plain version")
     return {
@@ -815,7 +870,8 @@ def check_case(tag, path, name, which, args, launches, path_dms, device,
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms, "path": path, "launch": which,
+        "library_ms": lib_ms, "library_device_ms": lib_dms, "path": path,
+        "launch": which,
         "device_ms": dms, "plain_device_ms": pdms,
         "spmv_device_ms": path_dms[name],
     }
@@ -855,6 +911,8 @@ def check_geometries(device) -> set[str]:
             x = np.random.default_rng(7).standard_normal(
                 coo.shape[1]).astype(np.float32)
             sd = sp.to_device_routed(sr, device)
+            if sd.yroute.src is not None:
+                check_src(f"[4] {name}", sd.yroute)
             kernels.reset_launches()
             y = sp.spmv_routed(sd, torch.from_numpy(x).to(device))
             y = y.cpu().numpy()
@@ -1031,8 +1089,9 @@ def library_spmm(tag, csr, Xd, golden, scale, device, sd=None):
 def spmm_case(tag, name, coo, K, entry, want, device):
     """One case of SPMM_CASES: the entry point with its pick, one SpMM of
     random X with the launch counts, the golden over the first columns,
-    the SpMM's time and device time, the yardsticks, and every new
-    kernel's launch against its plain version.  Returns the kernel rows."""
+    the SpMM's time and device time, the yardsticks, and every kernel
+    launch against its plain version (a looped SpMM's at column 0, its
+    launches there those of one SpMV).  Returns the kernel rows."""
     csr = coo.to_csr()
     if entry == "cli":
         args = argparse.Namespace(matrix=name, format="auto", rhs=K,
@@ -1090,9 +1149,12 @@ def spmm_case(tag, name, coo, K, entry, want, device):
             None if name_k == "lane_reduce" else lib["csr"])
         rows = check_kernels(tag, f"{name} K {K}", sd, Xd, launches, ours,
                              device, {name_k: lib_ms})
-        for r in rows:
-            r["spmm_ms"], r["cusparse_spmm_ms"] = ms, lib["csr"]
-            r["torch_bsr_ms"] = lib["bsr"]
+    else:  # one SpMV per column: its launches at column 0's tensors
+        rows = check_kernels(f"{tag} column 0", f"{name} K {K}", sd,
+                             Xd[:, 0].contiguous(), launches, ours, device)
+    for r in rows:
+        r["spmm_ms"], r["cusparse_spmm_ms"] = ms, lib["csr"]
+        r["torch_bsr_ms"] = lib["bsr"]
     return rows
 
 
@@ -1213,12 +1275,15 @@ def ring_steps(dm, xd):
 def check_ring_kernel(tag, path, dm, xd, launches, spmv_dms, device):
     """K15 on every step of every shard against expand_ring_plain, bit for
     bit, with its time alone (CUDA events per launch; device time of all
-    the launches of one SpMV from one trace) and its bound: li 2 B and g1
+    the launches of one SpMV from one trace), its bound (li 2 B and g1
     4 B per element, the step's w8, gcls and seg_ring slices, and 4 B per
     gathered-x element the step's windows reach (ring_reached), over the
-    HBM rate.  Returns one kernels-JSON row over all the launches of one
-    SpMV (times and bounds summed)."""
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0)
+    HBM rate) and its library call (one torch.take of the step's xg by the
+    composed index, as library_call; device time of all the steps' calls
+    from one trace).  Returns one kernels-JSON row over all the launches
+    of one SpMV (times and bounds summed)."""
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, lib_ms=0.0)
+    lib_calls = []
     segw8 = dm.meta["segw"] * 8
     steps = ring_steps(dm, xd)
     if len(steps) != launches["expand_ring"]:
@@ -1239,18 +1304,21 @@ def check_ring_kernel(tag, path, dm, xd, launches, spmv_dms, device):
         nbytes = got.numel() * (2 + 4) + reached * 4 + sum(
             a.numel() * a.element_size() for a in args[:3])
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        lib_calls.append(library_call("expand_ring", args, want=got))
+        lib_ms = time_iterations(lib_calls[-1], KERNEL_ITERS, device) * 1e3
         print(f"{tag} expand_ring shard {i} step {s} (blocks "
               f"{args[2].shape[0]}, table base {args[6]}, span {nseg}; "
               f"reads {reached} x elements of the table's "
               f"{nseg * (segw8 + 8) * 128}): "
               f"{'bit-exact' if same else 'DIFFERS'}, max abs err "
               f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(CUDA events); bound {bound_ms:.4f} ms (bytes)")
+              f"(CUDA events); bound {bound_ms:.4f} ms (bytes); library "
+              f"call {lib_ms:.4f} ms (torch.take)")
         if not same:
             raise AssertionError(f"{tag} expand_ring shard {i} step {s} "
                                  "disagrees with its plain version")
         for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                     ("bound_ms", bound_ms)):
+                     ("bound_ms", bound_ms), ("lib_ms", lib_ms)):
             tot[k] += v
         tot["err"] = max(tot["err"], err)
 
@@ -1261,11 +1329,14 @@ def check_ring_kernel(tag, path, dm, xd, launches, spmv_dms, device):
     # K15 launches K1's kernel: its device events carry that name
     dms = sum(device_ms(all_steps, KERNEL_ITERS, "expand_kernel",
                         per_call=len(steps)).values())
+    lib_dms = sum(device_ms(lambda: [c() for c in lib_calls], KERNEL_ITERS,
+                            None).values())
     print(f"{tag} expand_ring over the {len(steps)} launches of one SpMV: "
           f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms (CUDA "
           f"events, summed), device time {dms:.4f} ms alone, "
           f"{spmv_dms['expand_ring']:.4f} ms in the path's trace; bound "
-          f"{tot['bound_ms']:.4f} ms; library call none")
+          f"{tot['bound_ms']:.4f} ms; library call {tot['lib_ms']:.4f} ms "
+          f"(torch.take, summed), device {lib_dms:.4f} ms")
     return {
         "name": "expand_ring", "route": "cuda",
         "source": kernels.SOURCES["expand_ring"],
@@ -1273,7 +1344,8 @@ def check_ring_kernel(tag, path, dm, xd, launches, spmv_dms, device):
         "launches": launches["expand_ring"], "max_abs_err": tot["err"],
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"], "bound_by": "bytes",
-        "library_ms": None, "path": path,
+        "library_ms": tot["lib_ms"], "library_device_ms": lib_dms,
+        "path": path,
         "launch": f"all {len(steps)} ring steps of one SpMV, summed",
         "device_ms": dms, "spmv_device_ms": spmv_dms["expand_ring"],
     }
@@ -1366,6 +1438,13 @@ def dist_paths(device, main_sd, main_coo):
             print(f"[8] {name} dist_routed_pack(overlap={overlap}) "
                   f"{time.perf_counter() - t0:.3f} s ({phases}): "
                   f"{dist_geometry(dm)}")
+            flat = [i for i, shard in enumerate(dm.shards)
+                    if shard.yroute.src is not None]
+            for i in flat:
+                check_src(f"[8] {name} shard {i}", dm.shards[i].yroute)
+            if flat:
+                print(f"[8] {name} shards {flat}: each uploaded K4 index "
+                      "equals compose_small_route of its planes")
             packs[overlap] = dm
         for mode, ring, check in modes:
             dm = packs[ring]  # a ring pack also runs the all-gather modes
@@ -1418,7 +1497,7 @@ def flat_middle(device, sd, xd):
         raise AssertionError("[9a] the y-route of [2] is not flat")
     g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw, sd.n_segs)
     ysp = sp.y_stream(sd, sp.reduce(sd, *sp.middle(sd, g1)))
-    y4 = rk.route_small(ysp, ra.s1, ra.mid.mid, ra.s3, ra.n)
+    y4 = rk.route_small(ysp, ra.src, ra.n)
 
     def path():
         g2 = sp.middle_pass(rk.tileperm(ysp, ra.s1), ra.mid)
@@ -1428,9 +1507,8 @@ def flat_middle(device, sd, xd):
     if not torch.equal(y, y4):
         raise AssertionError("[9a] K5 + K16 + K5 differ from K4")
     ms = time_iterations(path, ITERS, device) * 1e3
-    k4_ms = time_iterations(
-        lambda: rk.route_small(ysp, ra.s1, ra.mid.mid, ra.s3, ra.n), ITERS,
-        device) * 1e3
+    k4_ms = time_iterations(lambda: rk.route_small(ysp, ra.src, ra.n),
+                            ITERS, device) * 1e3
     per = device_ms(path, KERNEL_ITERS, event_of("route_flat"))
     ours = by_kernel(per)
     print(f"[9a] flat y-route of [2] (n {ra.n}) by K5 + K16 + K5: bit-exact "
@@ -1557,7 +1635,7 @@ def unfused_reduce(device, sr, sd, csr, x, xd):
             emit[rows], gemit[r0 // 8 : (r0 + nr) // 8], sd.vals_ss[:, rows],
             gx[:, rows], sd.p3[:, rows],
             min(rp.YB, sd.nslices - j * rp.YB))))
-    cases += y_cases(sd, ys, xd)
+    cases += y_cases("[9c]", sd, ys, xd)
     return check_path("[9c]", "web_google_like unfused reduce", cases,
                       launches, ours, device)
 

@@ -39,17 +39,19 @@
 // Index planes are int16 in [0, 1024); scalar tables are int32.
 //
 // What bounds them: every pass is an index-driven gather.  Per output
-// element a pass reads ~2 B of int16 index (K3 and K4 chase two or three
-// of them) and 4 B of f32 data, and writes 4 B, so all seven are bound by
-// device-memory bytes and by the latency of the dependent loads, not by
-// arithmetic.  The design answer, for this first version: one thread per
-// output element (K3: one thread per lane of a slice), so that the index
-// planes and the outputs are read and written fully coalesced (neighbour
-// threads, neighbour lanes) and only the data gathers are scattered; the
-// int16 planes are read as they are, never widened in memory; the TPU's
-// staging through VMEM (x segment tables, mstream blocks, relayouts) is
-// dropped, because the L2 (50 MB) holds x and the gathered chunks.  Shared
-// memory staging, wider loads and TMA are later work.
+// element a pass reads ~2 B of int16 index (K3 chases two of them) and
+// 4 B of f32 data, and writes 4 B, so all are bound by device-memory bytes
+// and by the latency of the dependent loads, not by arithmetic.  The
+// design answer of the first version, kept by K2, K3 and K5-K7: one thread
+// per output element (K3: one thread per lane of a slice), so that the
+// index planes and the outputs are read and written fully coalesced
+// (neighbour threads, neighbour lanes) and only the data gathers are
+// scattered; the int16 planes are read as they are, never widened in
+// memory; the TPU's staging through VMEM (x segment tables, mstream
+// blocks, relayouts) is dropped, because the L2 (50 MB) holds x and the
+// gathered chunks.  K1 and K4 are redesigned for the H100 (see each):
+// K1 stages each tile's x window in shared memory and moves 16 B per
+// thread, K4 gathers by one int32 index composed at upload.
 //
 // Each entry point is a plain C function that launches on the stream it is
 // given and returns cudaGetLastError(); the Python wrapper raises if that
@@ -70,12 +72,10 @@ inline unsigned int blocks_for(long long n) {
 // plane li already carries the stage-1 permutation), over the n tiles
 // [off_t, off_t + n) of the stream.  For local tile t (stream tile
 // off_t + t):
-//   g1[i, off_t+t, l] = hi < gcls[t>>3]
-//       ? x[128*((k_lo + seg[t/TB])*segw8 + w8[t] + hi) + lo] : 0
-// with idx = li[i, off_t+t, l], hi = idx>>7, lo = idx&127; w8, gcls and
-// seg are indexed by local tile.  The TPU reads x through a per-segment
-// VMEM table with an 8-row halo; here x is read in place, and the zero
-// padding of that table becomes a bounds check against xlen.
+//   g1[i, off_t+t, l] = idx < 128*gcls[t>>3]
+//       ? x[128*((k_lo + seg[t/TB])*segw8 + w8[t]) + idx] : 0
+// with idx = li[i, off_t+t, l] in [0, 1024), and x read as 0 at and past
+// xlen; w8, gcls and seg are indexed by local tile.
 //   K1 (one SpMV's expand): off_t 0, n T, k_lo 0, x the whole x, xlen
 //     ncols.
 //   K15 (one ring step of the row-sharded path's overlapped expand,
@@ -89,28 +89,76 @@ inline unsigned int blocks_for(long long n) {
 //     c*(segw8+8)+r is xg row (k_lo+c)*segw8+r, so here xg is read in
 //     place and the step writes straight into its columns of the shard's
 //     g1.
-__global__ void expand_kernel(const int16_t* __restrict__ li,
-                              const int32_t* __restrict__ w8,
-                              const int32_t* __restrict__ gcls,
-                              const int32_t* __restrict__ seg,
-                              const float* __restrict__ x,
-                              float* __restrict__ g1, long long T,
-                              long long off_t, long long n, long long k_lo,
-                              long long segw8, long long xlen, int tb) {
-  long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= 8LL * n * 128) return;
-  long long i = (e >> 7) / n;
-  long long t = (e >> 7) - i * n;
-  long long ge = (i * T + off_t + t) * 128 + (e & 127);
-  int idx = li[ge];
-  int hi = idx >> 7;
-  float v = 0.f;
-  if (hi < gcls[t >> 3]) {
-    long long col =
-        128LL * ((k_lo + seg[t / tb]) * segw8 + w8[t] + hi) + (idx & 127);
-    if (col < xlen) v = __ldg(x + col);
+// All 8 planes x 128 lanes of a tile read from one window of gcls <= 8
+// rows of x (512 B each) at row (k_lo + seg)*segw8 + w8[t]: the TPU stages
+// it in VMEM.  Here one block of 128 threads takes one tile: it reads the
+// tile's w8, gcls and seg once, copies the window into shared memory with
+// 4 B cp.async (x may be a view at any 4 B offset; a row at or past xlen,
+// and the lanes of the last row past it, are zero-filled by the copy) and
+// loads its li row while the copy is in flight; then each thread gathers
+// 8 lanes of one plane row (one 16 B li load) from shared memory and
+// stores 32 B of g1.  Up to 16 such blocks share an SM, so other tiles'
+// windows are in flight while one is gathered.  On an H100, at
+// web-Google-like's shapes (ab_routed, PERF.md): 0.0164 ms; 0.0190 with
+// the li load issued before the copy (it delays the copy), 0.0214 for a
+// block walking the 8 tiles of a gather group with the next tile's window
+// in flight.  Index arithmetic is 32-bit (the wrapper refuses 8*T*128 or
+// xlen above 2^31-1), and no element pays a division: the block index is
+// the tile.
+constexpr int kExpandThreads = 128;  // 8 planes x 16 threads of 8 lanes
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ float window_at(const float* win, int idx,
+                                           unsigned lim) {
+  return static_cast<unsigned>(idx) < lim ? win[idx] : 0.f;
+}
+
+__global__ void __launch_bounds__(kExpandThreads)
+    expand_kernel(const int16_t* __restrict__ li,
+                  const int32_t* __restrict__ w8,
+                  const int32_t* __restrict__ gcls,
+                  const int32_t* __restrict__ seg,
+                  const float* __restrict__ x, float* __restrict__ g1,
+                  unsigned T, unsigned off_t, unsigned k_lo, unsigned segw8,
+                  unsigned xlen, unsigned tb) {
+  __shared__ float win[8 * 128];
+  const unsigned tid = threadIdx.x;
+  const unsigned t = blockIdx.x;  // local tile
+  // this thread's lanes: plane tid>>4, lanes 8*(tid&15) .. +7
+  const unsigned e = ((tid >> 4) * T + off_t + t) * 128 + (tid & 15) * 8;
+  // window rows; idx < 1024 reaches 8 rows at most
+  const unsigned gc = static_cast<unsigned>(max(0, min(gcls[t >> 3], 8)));
+  const unsigned row0 = (k_lo + seg[t / tb]) * segw8 + w8[t];
+  const unsigned xrows = (xlen + 127) / 128;
+  for (unsigned r = 0; r < gc; ++r) {  // thread tid copies lane tid
+    unsigned row = row0 + r;
+    bool ok = row < xrows && row * 128 + tid < xlen;
+    cp_async4(win + r * 128 + tid, ok ? x + row * 128 + tid : x, ok);
   }
-  g1[ge] = v;
+  asm volatile("cp.async.commit_group;\n" ::);
+  const int4 idx = __ldcs(reinterpret_cast<const int4*>(li + e));
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  const unsigned lim = gc * 128;
+  // int16 lane j of the 16 B row piece: low half first (little-endian)
+  float4 a, b;
+  a.x = window_at(win, static_cast<int16_t>(idx.x & 0xffff), lim);
+  a.y = window_at(win, idx.x >> 16, lim);
+  a.z = window_at(win, static_cast<int16_t>(idx.y & 0xffff), lim);
+  a.w = window_at(win, idx.y >> 16, lim);
+  b.x = window_at(win, static_cast<int16_t>(idx.z & 0xffff), lim);
+  b.y = window_at(win, idx.z >> 16, lim);
+  b.z = window_at(win, static_cast<int16_t>(idx.w & 0xffff), lim);
+  b.w = window_at(win, idx.w >> 16, lim);
+  float4* out = reinterpret_cast<float4*>(g1 + e);
+  out[0] = a;
+  out[1] = b;
 }
 
 // K2: the recursive route middle's first two stages in one pass: the
@@ -178,24 +226,47 @@ __global__ void reduce_slices_kernel(
 }
 
 // K4: a whole 1024-tile route (the y-route when the output fits one),
-// stage 1 + middle + stage 3 and the flatten, in one pass:
-//   y[D*1024 + i*128 + l] = ysp[s1v>>7, a, s1v&127]
-// with s3v = s3[i,D,l], a = mid[D>>7, s3v, D&127],
-// s1v = s1[s3v>>7, a, s3v&127].
+// stage 1 + middle + stage 3 and the flatten, in one gather:
+//   y[e] = ysp_flat[src[e]]
+// where src (int32, one per output) is the composition of the three stage
+// planes, made once at upload (route_planes.compose_small_route).  The TPU
+// gathers only inside (8, 128) VMEM tiles, so it runs the route as lane
+// gathers, selects and transposes (_sr1_kernel, _sr2_kernel); the H100
+// gathers from anywhere through its L2, which still holds ysp (4 MB, just
+// written).  So each output costs one 4 B index and one 4 B store,
+// streamed, and one scattered 4 B read: each thread loads kSmallQuads
+// 16 B pieces of src, keeps their 4*kSmallQuads gathers in flight and
+// stores 16 B pieces of y; the thread past the last whole piece does the
+// n % 4 tail.  Index arithmetic is 32-bit (n <= 2^20).
+constexpr int kSmallQuads = 2;
+
 __global__ void route_small_kernel(const float* __restrict__ ysp,
-                                   const int16_t* __restrict__ s1,
-                                   const int16_t* __restrict__ mid,
-                                   const int16_t* __restrict__ s3,
-                                   float* __restrict__ y, long long n) {
-  long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  long long D = e >> 10;
-  long long i = (e >> 7) & 7;
-  long long l = e & 127;
-  long long s3v = s3[(i * 1024 + D) * 128 + l];
-  long long a = mid[((D >> 7) * 1024 + s3v) * 128 + (D & 127)];
-  long long s1v = s1[((s3v >> 7) * 1024 + a) * 128 + (s3v & 127)];
-  y[e] = ysp[((s1v >> 7) * 1024 + a) * 128 + (s1v & 127)];
+                                   const int32_t* __restrict__ src,
+                                   float* __restrict__ y, unsigned n) {
+  const unsigned nq = n >> 2;
+  const unsigned q0 = blockIdx.x * (kThreads * kSmallQuads) + threadIdx.x;
+  int4 s[kSmallQuads];
+#pragma unroll
+  for (int u = 0; u < kSmallQuads; ++u) {
+    unsigned q = q0 + u * kThreads;
+    if (q < nq) s[u] = __ldcs(reinterpret_cast<const int4*>(src) + q);
+  }
+  float4 v[kSmallQuads];
+#pragma unroll
+  for (int u = 0; u < kSmallQuads; ++u) {
+    if (q0 + u * kThreads < nq)
+      v[u] = make_float4(__ldg(ysp + s[u].x), __ldg(ysp + s[u].y),
+                         __ldg(ysp + s[u].z), __ldg(ysp + s[u].w));
+  }
+#pragma unroll
+  for (int u = 0; u < kSmallQuads; ++u) {
+    unsigned q = q0 + u * kThreads;
+    if (q < nq) {
+      reinterpret_cast<float4*>(y)[q] = v[u];
+    } else if (q == nq) {
+      for (unsigned e = nq * 4; e < n; ++e) y[e] = __ldg(ysp + src[e]);
+    }
+  }
 }
 
 // K5 and K17: a within-tile permutation over P planes of T rows,
@@ -339,15 +410,15 @@ __global__ void reduce_stream_kernel(
 extern "C" {
 
 int cvr_expand(const void* li, const void* w8, const void* gcls,
-               const void* seg, const void* x, void* g1, long long T,
-               long long off_t, long long n, long long k_lo, long long segw8,
-               long long xlen, int tb, void* stream) {
-  expand_kernel<<<blocks_for(8LL * n * 128), kThreads, 0,
+               const void* seg, const void* x, void* g1, int T, int off_t,
+               int n, int k_lo, int segw8, int xlen, int tb, void* stream) {
+  // one block per tile of the n tiles
+  expand_kernel<<<static_cast<unsigned int>(n), kExpandThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(li), static_cast<const int32_t*>(w8),
       static_cast<const int32_t*>(gcls), static_cast<const int32_t*>(seg),
-      static_cast<const float*>(x), static_cast<float*>(g1), T, off_t, n,
-      k_lo, segw8, xlen, tb);
+      static_cast<const float*>(x), static_cast<float*>(g1), T, off_t, k_lo,
+      segw8, xlen, tb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -375,12 +446,14 @@ int cvr_reduce_slices(const void* m, const void* m3, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-int cvr_route_small(const void* ysp, const void* s1, const void* mid,
-                    const void* s3, void* y, long long n, void* stream) {
-  route_small_kernel<<<blocks_for(n), kThreads, 0,
+int cvr_route_small(const void* ysp, const void* src, void* y, int n,
+                    void* stream) {
+  // every whole 16 B piece of y, and piece n/4 (the tail) too
+  unsigned int blocks = (n / 4 + kThreads * kSmallQuads) /
+                        (kThreads * kSmallQuads);
+  route_small_kernel<<<blocks, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ysp), static_cast<const int16_t*>(s1),
-      static_cast<const int16_t*>(mid), static_cast<const int16_t*>(s3),
+      static_cast<const float*>(ysp), static_cast<const int32_t*>(src),
       static_cast<float*>(y), n);
   return static_cast<int>(cudaGetLastError());
 }

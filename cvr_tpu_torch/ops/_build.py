@@ -109,14 +109,13 @@ def load():
         return _LIB
     lib = ctypes.CDLL(str(build()))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.cvr_expand.argtypes = [
-        p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i32, p,
-    ]
+    lib.cvr_expand.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32, i32,
+                               i32, i32, p]
     lib.cvr_route_middle.argtypes = [p, p, p, p, i64, i32, p]
     lib.cvr_reduce_slices.argtypes = [
         p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, p,
     ]
-    lib.cvr_route_small.argtypes = [p, p, p, p, p, i64, p]
+    lib.cvr_route_small.argtypes = [p, p, p, i32, p]
     lib.cvr_tileperm.argtypes = [p, p, p, i64, i64, i32, p]
     lib.cvr_route_m3.argtypes = [p, p, p, i64, i32, p]
     lib.cvr_reduce_hot.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, p]

@@ -117,6 +117,31 @@ def _check_dtype(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
 
 
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless each tensor's data starts on a 16 B boundary (the
+    kernel moves it in 16 B pieces)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: a tensor is not 16 B aligned")
+
+
+INT32_MAX = 2**31 - 1
+
+
+def expand_blocks(T: int, n: int, xlen: int) -> int:
+    """K1's and K15's launch geometry: the blocks (of 128 threads, one
+    per tile) over the n tiles launched, in a stream of T tiles read from
+    an x of xlen elements.  The kernel's index arithmetic is 32-bit, so it
+    raises when 8*T*128 or xlen exceeds 2**31 - 1 (pack_auto's routed cap,
+    T 98304, is far below), and when n is not in [0, T]."""
+    if 8 * T * 128 > INT32_MAX or xlen > INT32_MAX:
+        raise ValueError(f"expand: 8*T*128 = {8 * T * 128} or xlen {xlen} "
+                         "exceeds the kernel's 32-bit indices")
+    if not 0 <= n <= T:
+        raise ValueError(f"expand: {n} tiles of the stream's {T}")
+    return n
+
+
 def _launch(fn: str, device: torch.device, *args) -> None:
     from cvr_tpu_torch.ops import _build
 
@@ -156,7 +181,8 @@ def expand(w8, gcls, seg_blk, li, x, segw: int, n_segs: int):
 
     w8 (T,) int32 segment-relative sublane bases; gcls (T//8,) int32
     gather classes; seg_blk (T//TB,) int32 x segments; li (8, T, 128)
-    int16 in-window offsets (stage 1 composed); x (ncols,) f32.
+    int16 in-window offsets in [0, 1024) (stage 1 composed), 16 B
+    aligned; x (ncols,) f32, at any offset.
     """
     if not _on_card("expand", w8, gcls, seg_blk, li, x):
         return expand_plain(w8, gcls, seg_blk, li, x, segw, n_segs)
@@ -167,6 +193,8 @@ def expand(w8, gcls, seg_blk, li, x, segw: int, n_segs: int):
     T = w8.shape[0]
     if T % rp.TB or li.shape != (8, T, 128):
         raise ValueError("expand: tiles must be padded to TB, li (8, T, 128)")
+    expand_blocks(T, T, x.shape[0])
+    _check_aligned("expand", li)
     g1 = torch.empty((8, T, 128), dtype=torch.float32, device=x.device)
     if T:
         _launch("cvr_expand", x.device, _p(li), _p(w8), _p(gcls),
@@ -228,6 +256,8 @@ def expand_ring(w8_s, gcls_s, seg_s, li, xg, off: int, k_lo: int,
             or not 0 <= off <= off + cnt <= T // rp.TB):
         raise ValueError("expand_ring: the step's slices must cover blocks "
                          "[off, off+cnt) of li and g1 (8, T, 128)")
+    expand_blocks(T, n, xg.numel())
+    _check_aligned("expand_ring", li, g1)
     if cnt:
         _launch("cvr_expand", xg.device, _p(li), _p(w8_s), _p(gcls_s),
                 _p(seg_s), _p(xg), _p(g1), T, off * rp.TB, n, k_lo,
@@ -368,12 +398,15 @@ reduce_slices.launches = 0
 
 # ---------------------------------------------------------------------------
 # K4 route_small: a whole 1024-tile route (stage 1 + middle + stage 3)
+# in one gather by the index composed at upload
 # ---------------------------------------------------------------------------
 
 
-def route_small_plain(ysp, s1, mid, s3, n: int):
+def route_small_chain(ysp, s1, mid, s3, n: int):
     """y (n,) = the route of the stream ysp (8, 1024, 128) by its stage
-    planes s1, mid (flat middle) and s3, flattened to natural order."""
+    planes s1, mid (flat middle) and s3, flattened to natural order: the
+    three-stage chain the TPU runs, and the one
+    route_planes.compose_small_route composes into K4's index."""
     r = torch.arange(1024, device=ysp.device).view(1, 1024, 1)
     s1l = s1.long()
     g = ysp[s1l >> 7, r, s1l & 127]  # stage 1, [q>>7, a, q&127]
@@ -382,23 +415,29 @@ def route_small_plain(ysp, s1, mid, s3, n: int):
     return stream_to_flat(y)[:n]
 
 
-def route_small(ysp, s1, mid, s3, n: int):
-    """K4: y (n,) from ysp (8, 1024, 128) f32 and the int16 planes s1,
-    mid, s3 (8, 1024, 128) of a flat 1024-tile route; see
-    route_small_plain."""
-    if not _on_card("route_small", ysp, s1, mid, s3):
-        return route_small_plain(ysp, s1, mid, s3, n)
+def route_small_plain(ysp, src, n: int):
+    """y (n,) = ysp's flat elements at src: route_small_chain's function
+    for src = compose_small_route of the same planes."""
+    return ysp.reshape(-1)[src.long()]
+
+
+def route_small(ysp, src, n: int):
+    """K4: y (n,) from ysp (8, 1024, 128) f32 by the int32 index src (n,)
+    into its flat elements, 16 B aligned: a flat 1024-tile route composed
+    at upload (RouteDevice.src); see route_small_plain."""
+    if not _on_card("route_small", ysp, src):
+        return route_small_plain(ysp, src, n)
     _check_dtype("route_small", ysp, torch.float32)
-    for t in (s1, mid, s3):
-        _check_dtype("route_small", t, torch.int16)
-    if ysp.shape != (8, 1024, 128) or not (
-        s1.shape == mid.shape == s3.shape == ysp.shape
-    ) or not 0 <= n <= 1024 * 1024:
-        raise ValueError("route_small: a flat route is (8, 1024, 128)")
+    _check_dtype("route_small", src, torch.int32)
+    if ysp.shape != (8, 1024, 128) or src.shape != (n,) or not (
+        0 <= n <= 1024 * 1024
+    ):
+        raise ValueError("route_small: a flat route is (8, 1024, 128) with "
+                         "one index per output")
+    _check_aligned("route_small", src)
     y = torch.empty(n, dtype=torch.float32, device=ysp.device)
     if n:
-        _launch("cvr_route_small", ysp.device, _p(ysp), _p(s1), _p(mid),
-                _p(s3), _p(y), n)
+        _launch("cvr_route_small", ysp.device, _p(ysp), _p(src), _p(y), n)
         route_small.launches += 1
     return y
 

@@ -9,7 +9,7 @@ Pipeline (cvr_tpu_torch/formats/sell_routed.py packs the planes):
     ys  = reduce_slices(m, m3, vals, p3)  K3  M3 + stage 3 + x vals + sums
     ysp = zone-A fold, pad to the y-route's tiles
     ysp += reduce_hot(x[hot_ids], ...)    K7  hub-column hybrid (hot planes)
-    y   = route_small(ysp)                K4  the y-route, Tp == 1024
+    y   = route_small(ysp, src)           K4  the y-route, Tp == 1024
         | tileperm(ysp, s1) -> middle_pass -> tileperm(s3)
                                           K5, (K2, K6), K5  Tp > 1024
     y   = y * ymask ; y[extra_row] += ysp[extra_src]
@@ -60,7 +60,10 @@ class RouteMidDevice:
 
 @dataclass(frozen=True)
 class RouteDevice:
-    """A route's stage planes: stages 1/3 and the middle."""
+    """A route's stage planes: stages 1/3 and the middle; for a flat
+    1024-tile route also ``src``, the three stages composed into one
+    (n,) int32 gather index (route_planes.compose_small_route), which K4
+    reads in their place."""
 
     s1: torch.Tensor
     mid: RouteMidDevice
@@ -68,6 +71,7 @@ class RouteDevice:
     T: int
     Tp: int
     n: int
+    src: torch.Tensor | None = None
 
 
 @dataclass(frozen=True)
@@ -183,11 +187,17 @@ def mid_to_device(mp: dict, device) -> RouteMidDevice:
 
 def route_to_device(ra: dict, device) -> RouteDevice:
     """Upload a route's arrays (route_planes.route_arrays_from_perm) to
-    ``device``."""
+    ``device``; a flat route also gets its composed K4 index, made here
+    once."""
     put = _put(device)
-    mid = mid_to_device(ra["mid_planes"], device)
-    return RouteDevice(s1=put(ra["s1"]), mid=mid, s3=put(ra["s3"]),
-                       T=ra["T"], Tp=ra["Tp"], n=ra["n"])
+    mp = ra["mid_planes"]
+    src = None
+    if mp["kind"] == "flat":
+        src = put(rp.compose_small_route(ra["s1"], mp["mid"], ra["s3"],
+                                         ra["n"]))
+    return RouteDevice(s1=put(ra["s1"]), mid=mid_to_device(mp, device),
+                       s3=put(ra["s3"]), T=ra["T"], Tp=ra["Tp"], n=ra["n"],
+                       src=src)
 
 
 def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
@@ -324,10 +334,10 @@ def middle_pass(g1: torch.Tensor, planes: RouteMidDevice) -> torch.Tensor:
 
 def apply_route_stream(ra: RouteDevice, g: torch.Tensor) -> torch.Tensor:
     """Route the stream g (8, Tp, 128) to y (n,) in natural order: one
-    K4 pass for a flat 1024-tile route, else stage 1 (K5), middle_pass
-    and stage 3 (K5)."""
+    K4 gather by the composed index for a flat 1024-tile route, else
+    stage 1 (K5), middle_pass and stage 3 (K5)."""
     if ra.mid.kind == "flat":
-        return rk.route_small(g, ra.s1, ra.mid.mid, ra.s3, ra.n)
+        return rk.route_small(g, ra.src, ra.n)
     g2 = middle_pass(rk.tileperm(g, ra.s1), ra.mid)
     return rk.stream_to_flat(rk.tileperm(g2, ra.s3))[: ra.n]
 

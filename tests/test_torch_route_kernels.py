@@ -111,8 +111,9 @@ def test_route_small_matches_pallas():
     want = np.asarray(jpr._route_small_call(True)(
         jnp.asarray(ysp), ya["s1"], ya["mid_planes"]["mid"], ya["s3"]
     ))[: ya["n"]]
-    got = rk.route_small(_t(ysp), _t(ya["s1"]), _t(ya["mid_planes"]["mid"]),
-                         _t(ya["s3"]), ya["n"])
+    src = tpr.compose_small_route(ya["s1"], ya["mid_planes"]["mid"],
+                                  ya["s3"], ya["n"])
+    got = rk.route_small(_t(ysp), _t(src), ya["n"])
     np.testing.assert_array_equal(got.numpy(), want)
 
 
