@@ -62,6 +62,10 @@ Phases, each printed on its own lines:
      each SpMM kernel's launch against its plain version over all K
      columns, and a looped SpMM's launches at column 0; then ``cli spmv
      --rhs K`` on a smaller MatrixMarket file of each generator, verified;
+     then K11 and K12 on small matrices at K 17 and 130 and at K 64 with
+     X at a 4 B offset (RAGGED: banded 3000 and 2999 rows, a reach wider
+     than one K11 window, BSR row blocks without bricks), each at the
+     golden and against its plain version;
   8. the row-sharded routed SpMV (dist_routed_pack, dist_spmv_routed) on a
      mesh of 4 shards that all share this one card, so the all-gather and
      the ring's moves are copies inside it and the times are not scaling
@@ -117,7 +121,9 @@ from cvr_tpu_torch.bench import synthetic as syn
 from cvr_tpu_torch.bench.harness import run_spmv_benchmark, time_iterations
 from cvr_tpu_torch.formats import pack_auto
 from cvr_tpu_torch.formats.bell import BellMatrix
-from cvr_tpu_torch.formats.dia import DiaMatrix
+from cvr_tpu_torch.formats.bsr import bsr_pack
+from cvr_tpu_torch.formats.coo import COOMatrix
+from cvr_tpu_torch.formats.dia import DiaMatrix, dia_pack
 from cvr_tpu_torch.formats.sell_routed import (
     RingSpec,
     SellRouted,
@@ -127,6 +133,7 @@ from cvr_tpu_torch.formats.sell_routed import (
 from cvr_tpu_torch.formats.sell_window import SellWindow
 from cvr_tpu_torch.io.mmio import write_matrix_market
 from cvr_tpu_torch.ops import _build, kernels
+from cvr_tpu_torch.ops import dia_kernels as dk
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops import route_planes as rp
 from cvr_tpu_torch.ops import spmv_routed as sp
@@ -155,6 +162,7 @@ GATHERS = {"expand": 4, "route_middle": 0, "route_small": 0, "route_m3": 0,
            "route_flat": 0, "groupperm": 0, "expand_ring": 4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, 80 GB HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 FORCE_HOT = {"CVR_HOT": "1"}
 
 # name, matrix, split_len, YB (None: the default), hot, environment of the
@@ -237,6 +245,42 @@ SPMM_CASES = (
      ((8, "cli", "bell"),)),
 )
 SPMM_CHECK_COLS = 8  # columns of Y held against the float64 golden
+
+
+def diagonals_matrix(nrows, ncols, offsets, seed=4) -> COOMatrix:
+    """Dense diagonals at ``offsets``, standard normal values."""
+    rows = [np.arange(max(0, -o), min(nrows, ncols - o)) for o in offsets]
+    cols = [r + o for r, o in zip(rows, offsets)]
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    vals = np.random.default_rng(seed).standard_normal(rows.shape[0])
+    return COOMatrix(rows=rows.astype(np.int32), cols=cols.astype(np.int32),
+                     vals=vals.astype(np.float32), shape=(nrows, ncols))
+
+
+def empty_row_blocks(seed=6) -> COOMatrix:
+    """900 x 1000 with entries only in rows 128-639: BSR-128 row blocks
+    0 and 5-7 hold no entry (the pack gives each a zero brick)."""
+    rng = np.random.default_rng(seed)
+    return COOMatrix(
+        rows=rng.integers(128, 640, 3000).astype(np.int32),
+        cols=rng.integers(0, 1000, 3000).astype(np.int32),
+        vals=rng.standard_normal(3000).astype(np.float32),
+        shape=(900, 1000)).sum_duplicates()
+
+
+# Phase [7]'s small cases, where K11 and K12 take the paths the full-size
+# cases do not: a ragged K (the 4 B copies of X, a masked last K tile),
+# K 64 with X at a 4 B offset (4 B copies at K % 4 == 0), an odd row count
+# (K11's 4 B band copies), a reach wider than one window (K11's several
+# windows) and row blocks without bricks (K12 writes their zeros).
+RAGGED_K = (17, 130)
+RAGGED = (
+    ("banded_3000_27", lambda: syn.banded_matrix(3000, 27), "dia"),
+    ("banded_2999_27", lambda: syn.banded_matrix(2999, 27), "dia"),
+    ("wide_reach", lambda: diagonals_matrix(4000, 4000,
+                                            (-2500, -1, 0, 1, 1800)), "dia"),
+    ("empty_row_blocks", empty_row_blocks, "bsr"),
+)
 
 # Phase [8]: the row-sharded routed SpMV on DIST_SHARDS shards of the one
 # card.  Per matrix: (mode, on the ring pack, check shard 0's kernels
@@ -466,9 +510,13 @@ def build() -> None:
     _build.load()
     print(f"[1] build: native ({how}) {t_native:.2f} s, kernels "
           f"{time.perf_counter() - t0:.2f} s ({_build.library_path().name})")
+    # per kernel: registers, static shared memory, stack and spills; K11's
+    # dynamic shared memory is its window plan's, printed in [7]
     for line in (_build.build_log or "").splitlines():
-        if "ptxas info" in line:
+        if "ptxas info" in line or "spill" in line:
             print(f"[1]   {line.strip()}")
+    print(f"[1] bsr_spmm_kernel takes {_build.load().cvr_bsr_spmm_smem()} B "
+          "of dynamic shared memory a block")
 
 
 def cusparse_ms(tag, csr, xd, golden, scale, device) -> float:
@@ -701,13 +749,15 @@ def bound(name, args, out) -> tuple[float, str]:
     rate outside the tensor cores (one multiply and one add per stored
     element, and per column of X for an SpMM kernel: BSR counts its dense
     bricks, lane the plane rows its slots sum, PMM the element slots that
-    hold an entry).  The reduces read only the plane rows their slice
-    tables name (this run's data); the unfused reduce reads emit, and per
-    element of those rows its value, p3 entry and one gx element (its
-    gemit is not read); K4 its index and the ysp elements it names."""
+    hold an entry).  BSR's f32-grade product runs on the tensor cores as
+    3xTF32: three TF32 passes over its bricks at the TF32 rate.  The
+    reduces read only the plane rows their slice tables name (this run's
+    data); the unfused reduce reads emit, and per element of those rows
+    its value, p3 entry and one gx element (its gemit is not read); K4 its
+    index and the ysp elements it names."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    ops = 0
+    ops, rate = 0, F32_OPS_PER_S
     if name == "route_small":  # the ysp elements the index reaches
         ysp, src, _n = args
         nbytes = (int(torch.unique(src).numel()) + src.numel()) * 4
@@ -731,8 +781,10 @@ def bound(name, args, out) -> tuple[float, str]:
         ops = 2 * used
     elif name in ("dia_spmv", "bell_gather_mac"):
         ops = 2 * args[0].numel()
-    elif name in ("dia_spmm", "bsr_spmm"):
+    elif name == "dia_spmm":
         ops = 2 * args[0].numel() * out.shape[1]
+    elif name == "bsr_spmm":  # three TF32 passes
+        ops, rate = 3 * 2 * args[0].numel() * out.shape[1], TF32_OPS_PER_S
     elif name == "lane_reduce":
         used = int((args[3].long() - args[2].long()).sum()) * 1024
         ops = 2 * used * out.shape[1]
@@ -740,7 +792,7 @@ def bound(name, args, out) -> tuple[float, str]:
         ops = 2 * int((args[0] >= 0).sum()) * out.shape[1]
     nbytes += out.numel() * out.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -755,7 +807,10 @@ def library_call(name, args, want=None):
     The index, the flat views and the appended 0 are made here, outside
     what is timed, and the call must give the kernel's output (``want``,
     where the wrapper needs more than ``args``: K15 writes into the
-    shard's g1)."""
+    shard's g1).  bell_gather_mac: cuSPARSE's CSR SpMV
+    (torch.sparse_csr_tensor @ x) of the matrix its planes hold, the BELL
+    part without the routed spill, within 1e-6 of the row scale of the
+    kernel's output (it sums in another order)."""
     if name == "tileperm":
         data, idx = args
         T = data.shape[1]
@@ -775,10 +830,37 @@ def library_call(name, args, want=None):
         src = torch.cat([data.reshape(-1), data.new_zeros(1)])
         want = wrapper(*args) if want is None else want
         call = functools.partial(torch.take, src, ix)
+    elif name == "bell_gather_mac":
+        return bell_csr_call(args)
     else:
         return None
     if not torch.equal(call(), want):
         raise AssertionError(f"the library call is not {name}'s function")
+    return call
+
+
+def bell_csr_call(args):
+    """K9's library call (library_call): the CSR matrix of the entries
+    its planes hold, at the rows and columns bell_gather_mac_plain reads,
+    times x by cuSPARSE."""
+    li, vals, x, d, pre, n_keep = args
+    wrapper, plain, _ = kernels.KERNELS["bell_gather_mac"]
+    R_sub = li.shape[1]
+    q = torch.arange(R_sub, device=x.device).view(1, R_sub, 1)
+    lane = torch.arange(128, device=x.device).view(1, 1, 128)
+    idx = li.long()
+    col = (8 * (q >> 3) + d + (idx >> 7) - pre) * 128 + (idx & 127)
+    keep = (col >= 0) & (col < n_keep) & (vals != 0)
+    row = (q * 128 + lane).expand_as(col)
+    A = torch.sparse_coo_tensor(
+        torch.stack([row[keep], col[keep]]), vals[keep],
+        size=(R_sub * 128, x.shape[0])).coalesce().to_sparse_csr()
+    call = functools.partial(torch.matmul, A, x)
+    got, want = call().view(R_sub, 128), wrapper(*args)
+    scale = plain(*row_scale_args("bell_gather_mac", args))
+    if not bool(((got - want).abs() <= 1e-6 * scale + 1e-30).all()):
+        raise AssertionError("the library call is not bell_gather_mac's "
+                             "function")
     return call
 
 
@@ -1158,9 +1240,62 @@ def spmm_case(tag, name, coo, K, entry, want, device):
     return rows
 
 
+def ragged_spmm(device) -> None:
+    """Phase [7]'s RAGGED cases: each packed as DIA or BSR, through spmm at
+    each of RAGGED_K and at K 64 with X at a 4 B offset: the launch count,
+    every column at the float64 golden, and the launch against its plain
+    version within 1e-6 of the row scale."""
+    for name, make, fmt in RAGGED:
+        coo = make()
+        csr = coo.to_csr()
+        A = dia_pack(csr) if fmt == "dia" else bsr_pack(csr, min_fill=0.0)
+        sd = upload(A, device)
+        if fmt == "dia":
+            _, nwin, smem = dk.window_plan(sd.offsets)
+            print(f"[7] {name}: {describe(A)}; K11 plan {nwin} windows, "
+                  f"{smem} B of shared memory a block")
+            if name == "wide_reach" and nwin < 2:
+                raise AssertionError("[7] wide_reach fits one K11 window")
+        else:
+            zero = int((sd.vals.abs().sum((1, 2)) == 0).sum())
+            print(f"[7] {name}: BSR {sd.vals.shape[0]} bricks ({zero} of "
+                  f"them zero) in {sd.nrb} row blocks")
+        for K, offset in [(k, 0) for k in RAGGED_K] + [(64, 1)]:
+            tag = f"[7] {name} K {K}" + (" (X at a 4 B offset)"
+                                         if offset else "")
+            X = np.random.default_rng(K).standard_normal(
+                (coo.shape[1], K)).astype(np.float32)
+            buf = torch.empty(X.size + offset, device=device)
+            Xd = buf[offset:].view(X.shape)
+            Xd.copy_(torch.from_numpy(X))
+            kernels.reset_launches()
+            Y = spmm(sd, Xd)
+            torch.cuda.synchronize()
+            launches = kernels.launches()
+            if launches != expected_spmm_launches(sd, K):
+                raise AssertionError(f"{tag} launches {launches}")
+            golden, scale = spmm_golden(csr, X)
+            check_columns(tag, f"{fmt} SpMM", Y.cpu().numpy(), golden, scale)
+            if fmt == "bsr" and (Y[:128].any() or Y[640:].any()):
+                raise AssertionError(f"{tag} rows without entries are not 0")
+            [(kname, _, args)] = kernel_cases(tag, sd, Xd)
+            wrapper, plain, _ = kernels.KERNELS[kname]
+            got, want = wrapper(*args), plain(*args)
+            row_scale = plain(*row_scale_args(kname, args))
+            err = float((got - want).abs().max())
+            ok = bool(((got - want).abs() <= 1e-6 * row_scale + 1e-30).all())
+            print(f"{tag} {kname}: "
+                  f"{'within' if ok else 'NOT within'} 1e-6 of the row "
+                  f"scale of its plain version, max abs err {err:.3e}")
+            if not ok:
+                raise AssertionError(f"{tag} {kname} disagrees with its "
+                                     "plain version")
+
+
 def spmm_paths(device):
     """Phase [7]: each of SPMM_CASES at full size, then ``cli spmv --rhs
-    K`` on a MatrixMarket file of the smaller matrix of its generator."""
+    K`` on a MatrixMarket file of the smaller matrix of its generator,
+    then the RAGGED cases."""
     rows = []
     for name, make, small, cases in SPMM_CASES:
         t0 = time.perf_counter()
@@ -1183,6 +1318,7 @@ def spmm_paths(device):
                 if rc != 0:
                     raise AssertionError(f"[7] cli spmv --rhs {K} on "
                                          f"{name}_small: rc {rc}")
+    ragged_spmm(device)
     return rows
 
 

@@ -123,6 +123,34 @@ def worker(root: str, npz: str, iters: int) -> dict:
     return out
 
 
+def card() -> str:
+    """nvidia-smi's name and power limit of the card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def run_roots(script: str, roots, npz: str, iters: int) -> list[dict]:
+    """Run ``script --worker ROOT NPZ`` once per root, in the order given,
+    each in a subprocess started in the root, and print and return the
+    JSON line each prints last."""
+    rows = []
+    for root in roots:
+        proc = subprocess.run(
+            [sys.executable, str(Path(script).resolve()), "--worker",
+             str(Path(root).resolve()), npz, "--iters", str(iters)],
+            cwd=root, capture_output=True, text=True, timeout=900,
+        )
+        if proc.returncode:
+            raise SystemExit(f"{Path(script).stem}: {root} failed:\n"
+                             f"{proc.stderr[-3000:]}")
+        rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="*")
@@ -141,29 +169,13 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("ab_routed: torch.cuda.is_available() is false")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(f"nvidia-smi: {smi}")
+    print(f"nvidia-smi: {card()}")
     coo = web_google_like()
-    rows = []
     with tempfile.TemporaryDirectory() as tmp:
         npz = str(Path(tmp) / "matrix.npz")
         np.savez(npz, rows=coo.rows, cols=coo.cols, vals=coo.vals,
                  shape=np.asarray(coo.shape))
-        for root in args.roots:
-            proc = subprocess.run(
-                [sys.executable, str(Path(__file__).resolve()), "--worker",
-                 str(Path(root).resolve()), npz, "--iters", str(args.iters)],
-                cwd=root, capture_output=True, text=True, timeout=900,
-            )
-            if proc.returncode:
-                raise SystemExit(f"ab_routed: {root} failed:\n"
-                                 f"{proc.stderr[-3000:]}")
-            rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-            print(json.dumps(rows[-1]), flush=True)
+        rows = run_roots(__file__, args.roots, npz, args.iters)
     digests = {k for r in rows for k in r if k.endswith("_digest")}
     differ = [k for k in sorted(digests) if len({r[k] for r in rows}) > 1]
     if differ:

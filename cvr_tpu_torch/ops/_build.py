@@ -126,8 +126,10 @@ def load():
     lib.cvr_window_reduce.argtypes = [
         p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i32, i32, i32, i32, p,
     ]
-    lib.cvr_dia_spmm.argtypes = [p, p, p, p, i32, i64, i64, i32, p]
+    lib.cvr_dia_spmm.argtypes = [p, p, p, i32, i32, p, p, i64, i64, i32,
+                                  p]
     lib.cvr_bsr_spmm.argtypes = [p, p, p, p, p, i64, i64, i64, i32, p]
+    lib.cvr_bsr_spmm_smem.argtypes = []
     lib.cvr_lane_reduce.argtypes = [p, p, p, p, p, p, i64, i32, p]
     lib.cvr_pmm_spmm.argtypes = [p, p, p, p, p, p, i64, i64, i32, p]
     for fn in (
@@ -135,7 +137,8 @@ def load():
         lib.cvr_route_small, lib.cvr_tileperm, lib.cvr_route_m3,
         lib.cvr_reduce_hot, lib.cvr_reduce_stream, lib.cvr_dia_spmv,
         lib.cvr_bell_gather_mac, lib.cvr_window_reduce, lib.cvr_dia_spmm,
-        lib.cvr_bsr_spmm, lib.cvr_lane_reduce, lib.cvr_pmm_spmm,
+        lib.cvr_bsr_spmm, lib.cvr_bsr_spmm_smem, lib.cvr_lane_reduce,
+        lib.cvr_pmm_spmm,
     ):
         fn.restype = ctypes.c_int
     _LIB = lib

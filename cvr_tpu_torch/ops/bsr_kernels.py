@@ -12,7 +12,13 @@ import torch
 import torch.nn.functional as F
 
 from cvr_tpu_torch.formats.bsr import B
-from cvr_tpu_torch.ops.route_kernels import _check_dtype, _launch, _on_card, _p
+from cvr_tpu_torch.ops.route_kernels import (
+    _check_aligned,
+    _check_dtype,
+    _launch,
+    _on_card,
+    _p,
+)
 
 SOURCE = "cvr_tpu_torch/csrc/bsr_kernels.cu"
 
@@ -44,7 +50,7 @@ def bsr_spmm(vals, brick_row, brick_col, row_start, X, nrows: int):
     (nbricks, 128, 128) f32 sorted by row block, their coordinates
     brick_row / brick_col (nbricks,) int32, each row block's brick range
     row_start (nrb + 1,) int64, and X (ncols, K) f32 row-major; see
-    bsr_spmm_plain."""
+    bsr_spmm_plain.  vals must start on a 16 B boundary (X may not)."""
     args = (vals, brick_row, brick_col, row_start, X)
     if not _on_card("bsr_spmm", *args):
         return bsr_spmm_plain(*args, nrows)
@@ -58,6 +64,7 @@ def bsr_spmm(vals, brick_row, brick_col, row_start, X, nrows: int):
             or not 0 <= nrows <= nrb * B):
         raise ValueError("bsr_spmm: bricks (nb, 128, 128), one row and "
                          "column per brick, X (ncols, K), nrows <= nrb*128")
+    _check_aligned("bsr_spmm", vals)  # copied in 16 B pieces
     K = X.shape[1]
     Y = torch.empty((nrows, K), dtype=torch.float32, device=X.device)
     if nrows and K:

@@ -9,12 +9,19 @@ plain version, and only then.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from cvr_tpu_torch.ops.route_kernels import _check_dtype, _launch, _on_card, _p
 
 SOURCE = "cvr_tpu_torch/csrc/dia_kernels.cu"
+
+# K11's block (kTm, kKt in the source), and the shared memory one window of
+# diagonals may take: at most 96 KB, so that two blocks share an SM
+TM = 128
+KT = 64
+WINDOW_BYTES = 96 * 1024
 
 
 def dia_spmv_plain(bands, offsets, x):
@@ -63,10 +70,50 @@ def dia_spmm_plain(bands, offsets, X):
     return Y
 
 
+def window_bytes(offs) -> int:
+    """Shared memory of one K11 window over the diagonals at ``offs``: its
+    X rows [r0 + min, r0 + TM + max) by the K tile and TM band values a
+    diagonal, float32."""
+    return ((TM + int(max(offs)) - int(min(offs))) * KT + len(offs) * TM) * 4
+
+
+def dia_windows(offsets, budget: int = WINDOW_BYTES) -> np.ndarray:
+    """K11's window plan: int32 (nwin + 1,) starts, window w holding the
+    diagonals starts[w] .. starts[w + 1] - 1 in pack order.  A window takes
+    the next diagonal while its window_bytes stays within ``budget``."""
+    offs = [int(o) for o in np.asarray(offsets, dtype=np.int64).reshape(-1)]
+    if window_bytes([0]) > budget:
+        raise ValueError("dia_windows: one diagonal exceeds the budget")
+    starts = []
+    for d in range(len(offs)):
+        if not starts or window_bytes(offs[starts[-1]:d + 1]) > budget:
+            starts.append(d)
+    return np.asarray(starts + [len(offs)], dtype=np.int32)
+
+
+def window_plan(offsets: torch.Tensor, host=None):
+    """(windows on offsets' device, window count, shared bytes of the
+    largest window) for K11, made once per offsets tensor and kept on it
+    (``host``: the offsets as a host array, where the caller has them, as
+    the upload does).  Recomputed if the tensor was written since."""
+    plan = getattr(offsets, "_dia_windows", None)
+    if plan is None or plan[0] != offsets._version:
+        offs = np.asarray(offsets.cpu() if host is None else host,
+                          dtype=np.int64)
+        starts = dia_windows(offs)
+        smem = max((window_bytes(offs[a:b]) for a, b in
+                    zip(starts[:-1], starts[1:])), default=0)
+        plan = (offsets._version, torch.from_numpy(starts).to(offsets.device),
+                len(starts) - 1, smem)
+        offsets._dia_windows = plan
+    return plan[1:]
+
+
 def dia_spmm(bands, offsets, X):
     """K11: the whole DIA SpMM, Y (nrows, K) from the band planes bands
     (nd, nrows) f32, the diagonal offsets (nd,) int64 and X (ncols, K) f32
-    row-major; see dia_spmm_plain."""
+    row-major; see dia_spmm_plain.  The kernel walks the diagonals in the
+    windows of window_plan(offsets)."""
     if not _on_card("dia_spmm", bands, offsets, X):
         return dia_spmm_plain(bands, offsets, X)
     for t, dt in ((bands, torch.float32), (offsets, torch.int64),
@@ -78,8 +125,9 @@ def dia_spmm(bands, offsets, X):
     K = X.shape[1]
     Y = torch.empty((nrows, K), dtype=torch.float32, device=X.device)
     if nrows and K:
-        _launch("cvr_dia_spmm", X.device, _p(bands), _p(offsets), _p(X),
-                _p(Y), nd, nrows, X.shape[0], K)
+        windows, nwin, smem = window_plan(offsets)
+        _launch("cvr_dia_spmm", X.device, _p(bands), _p(offsets),
+                _p(windows), nwin, smem, _p(X), _p(Y), nrows, X.shape[0], K)
         dia_spmm.launches += 1
     return Y
 

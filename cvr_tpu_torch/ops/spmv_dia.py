@@ -26,11 +26,14 @@ class DiaDevice:
 
 
 def to_device_dia(dm: DiaMatrix, device="cuda") -> DiaDevice:
-    """Upload the DIA artifact's planes to ``device``."""
+    """Upload the DIA artifact's planes to ``device``, with K11's window
+    plan of the offsets (kept on the offsets tensor)."""
+    offsets = torch.from_numpy(
+        np.ascontiguousarray(dm.offsets, dtype=np.int64)).to(device)
+    dk.window_plan(offsets, host=dm.offsets)
     return DiaDevice(
         bands=torch.from_numpy(np.ascontiguousarray(dm.bands)).to(device),
-        offsets=torch.from_numpy(
-            np.ascontiguousarray(dm.offsets, dtype=np.int64)).to(device),
+        offsets=offsets,
         shape=tuple(dm.shape),
         nnz=dm.nnz,
     )
