@@ -18,8 +18,10 @@ Phases, each printed on its own lines:
   3. each of its kernels (K1-K4) against its plain PyTorch version at the
      main path's own tensors: expand, route_middle and route_small bit for
      bit, reduce_slices within 1e-6 of the row scale (it sums in another
-     order); route_small's uploaded index against compose_small_route of
-     its planes, and K4 bit for bit against the three-plane chain
+     order) and against a second launch bit for bit (its split slices'
+     partials are added in a fixed order); route_small's uploaded index
+     against compose_small_route of its planes, and K4 bit for bit
+     against the three-plane chain
      (route_small_chain) wherever a flat y-route runs (here, the spill of
      [6], the looped SpMMs of [7], the shards of [8] and [9c]); kernel
      time beside plain time, by CUDA events and as device time from a
@@ -62,10 +64,12 @@ Phases, each printed on its own lines:
      each SpMM kernel's launch against its plain version over all K
      columns, and a looped SpMM's launches at column 0; then ``cli spmv
      --rhs K`` on a smaller MatrixMarket file of each generator, verified;
-     then K11 and K12 on small matrices at K 17 and 130 and at K 64 with
-     X at a 4 B offset (RAGGED: banded 3000 and 2999 rows, a reach wider
-     than one K11 window, BSR row blocks without bricks), each at the
-     golden and against its plain version;
+     then K11, K12 and K13 on small matrices at K 17 and 130 and at K 64
+     with X at a 4 B offset, K13 also at K 132 (RAGGED: banded 3000 and
+     2999 rows, a reach wider than one K11 window, BSR row blocks without
+     bricks, a lane plan whose 1,024-row slot is split), each at the
+     golden and against its plain version (K13 also against a second
+     launch, bit for bit);
   8. the row-sharded routed SpMV (dist_routed_pack, dist_spmv_routed) on a
      mesh of 4 shards that all share this one card, so the all-gather and
      the ring's moves are copies inside it and the times are not scaling
@@ -78,8 +82,10 @@ Phases, each printed on its own lines:
      spmv_routed of the same matrix; every shard's uploaded K4 index
      against compose_small_route of its planes; then K15 on every ring
      step of every shard against its plain version, bit for bit, with its
-     time alone, its bound and its torch.take, and shard 0's K1-K6 in the
-     all-gather mode as in [3];
+     time alone, its bound and its torch.take, shard 0's K1-K6 in the
+     all-gather mode as in [3], and K3 on every other shard as in [3]
+     (each shard of a forced pack holds a slice of up to 1,024 plane rows),
+     with its launches, time alone and bound summed over the shards;
   9. the route library's device API on [2]'s matrix, pack and tensors:
      (a) [2]'s y stream through K5, middle_pass on the y-route's flat
      planes (K16) and K5, bit for bit against K4's one pass; (b)
@@ -268,18 +274,23 @@ def empty_row_blocks(seed=6) -> COOMatrix:
         shape=(900, 1000)).sum_duplicates()
 
 
-# Phase [7]'s small cases, where K11 and K12 take the paths the full-size
-# cases do not: a ragged K (the 4 B copies of X, a masked last K tile),
-# K 64 with X at a 4 B offset (4 B copies at K % 4 == 0), an odd row count
-# (K11's 4 B band copies), a reach wider than one window (K11's several
-# windows) and row blocks without bricks (K12 writes their zeros).
+# Phase [7]'s small cases, where K11, K12 and K13 take the paths the
+# full-size cases do not: a ragged K (the 4 B copies of X, a masked last K
+# tile; K13's 4 B X reads), K 64 with X at a 4 B offset (4 B copies at
+# K % 4 == 0; K13's 4 B X reads), an odd row count (K11's 4 B band
+# copies), a reach wider than one window (K11's several windows), row
+# blocks without bricks (K12 writes their zeros), and for K13 also K 132
+# (16 B X reads over two column tiles, the second one masked) on a lane
+# plan whose 1,024-row slot is split into pieces.
 RAGGED_K = (17, 130)
+RAGGED_LANE_K = (132,)
 RAGGED = (
     ("banded_3000_27", lambda: syn.banded_matrix(3000, 27), "dia"),
     ("banded_2999_27", lambda: syn.banded_matrix(2999, 27), "dia"),
     ("wide_reach", lambda: diagonals_matrix(4000, 4000,
                                             (-2500, -1, 0, 1, 1800)), "dia"),
     ("empty_row_blocks", empty_row_blocks, "bsr"),
+    ("rmat14_lane", lambda: syn.rmat_matrix(14, 6, seed=42), "lane"),
 )
 
 # Phase [8]: the row-sharded routed SpMV on DIST_SHARDS shards of the one
@@ -390,14 +401,26 @@ EVENTS = {"tileperm": "tileperm_kernel<false>",
           "route_flat": "route_m3_kernel<true>"}
 
 
+# kernels of ours whose wrapper launches a second pass (adding a split
+# item's partials): kernel -> the second pass's device events' name
+SECOND = {"reduce_slices": "reduce_slices_combine_kernel",
+          "lane_reduce": "lane_reduce_combine_kernel"}
+# kernels whose output must repeat bit for bit from launch to launch
+# (split sums added in a fixed order, no float atomics)
+REPEAT = tuple(SECOND)
+
+
 def event_of(name: str) -> str:
-    """The name (a part of it) of kernel ``name``'s device events."""
+    """The name (a part of it) of kernel ``name``'s device events (its
+    first pass's, where it has two)."""
     return EVENTS.get(name, f"{name}_kernel")
 
 
 def by_kernel(per) -> dict[str, float]:
-    """Device ms by kernel of ours, from device_ms's ms by event name."""
-    return {k: sum(v for n, v in per.items() if event_of(k) in n)
+    """Device ms by kernel of ours (both passes where it has two), from
+    device_ms's ms by event name."""
+    return {k: sum(v for n, v in per.items()
+                   if event_of(k) in n or (k in SECOND and SECOND[k] in n))
             for k in kernels.KERNELS}
 
 
@@ -443,9 +466,15 @@ def geometry(sr) -> str:
     )
 
 
+def second_pass(split) -> int:
+    """1 when a split plan (route_kernels.Split) has split items, whose
+    partials its kernel's second pass adds, else 0."""
+    return int(split.combine.shape[0] > 0)
+
+
 def expected_launches(sd) -> dict[str, int]:
     """Launches of each kernel in one SpMV of the device artifact ``sd``
-    on the card."""
+    on the card (K3's second pass counted as a launch)."""
     want = dict.fromkeys(kernels.KERNELS, 0)
     if isinstance(sd, DiaDevice):
         want["dia_spmv"] = 1
@@ -461,7 +490,7 @@ def expected_launches(sd) -> dict[str, int]:
         want.update({
             "expand": 1,
             "route_middle": int(sd.mid.kind == "rec") + int(yrec),
-            "reduce_slices": 1,
+            "reduce_slices": 1 + second_pass(sd.red_plan.split),
             "route_small": int(not yrec),
             "tileperm": 2 * int(yrec),
             "route_m3": int(yrec),
@@ -470,15 +499,24 @@ def expected_launches(sd) -> dict[str, int]:
     return want
 
 
-def expected_spmm_launches(sd, K: int) -> dict[str, int]:
-    """Launches of each kernel in one SpMM of the device artifact ``sd``
-    at width K: one of the SpMM kernel, or K SpMVs' worth."""
+def spmm_kernel(sd) -> str | None:
+    """The SpMM kernel of the device artifact ``sd``, None for a looped
+    SpMM (one SpMV per column)."""
     one = {BsrDevice: "bsr_spmm", LaneDevice: "lane_reduce",
            PmmDevice: "pmm_spmm", DiaDevice: "dia_spmm"}
-    for kind, name in one.items():
-        if isinstance(sd, kind):
-            return {**dict.fromkeys(kernels.KERNELS, 0), name: 1}
-    return {k: n * K for k, n in expected_launches(sd).items()}
+    return next((name for kind, name in one.items()
+                 if isinstance(sd, kind)), None)
+
+
+def expected_spmm_launches(sd, K: int) -> dict[str, int]:
+    """Launches of each kernel in one SpMM of the device artifact ``sd``
+    at width K: the SpMM kernel's (K13's second pass counted as a
+    launch), or K SpMVs' worth."""
+    name = spmm_kernel(sd)
+    if name is None:
+        return {k: n * K for k, n in expected_launches(sd).items()}
+    n = 1 + (second_pass(sd.split) if name == "lane_reduce" else 0)
+    return {**dict.fromkeys(kernels.KERNELS, 0), name: n}
 
 
 def describe(A) -> str:
@@ -636,11 +674,14 @@ def kernel_cases(tag, sd, xd):
         cases.append(("route_middle", "x side", (g1, sd.mid.m1,
                                                  sd.mid.csel)))
     m, m3 = sp.middle(sd, g1)
-    cases.append(("reduce_slices", "", (m, m3, sd.vals_ss, sd.p3,
-                                        sd.red_row0, sd.red_row1,
-                                        sd.red_out, sd.red_fast,
-                                        sd.nslices)))
+    cases.append(("reduce_slices", "", k3_args(sd, m, m3)))
     return cases + y_cases(tag, sd, sp.reduce(sd, m, m3), xd)
+
+
+def k3_args(sd, m, m3):
+    """K3's arguments at the path's tensors (sp.reduce's call)."""
+    return (m, m3, sd.vals_ss, sd.p3, sd.red_row0, sd.red_row1, sd.red_out,
+            sd.red_fast, sd.nslices, sd.red_plan)
 
 
 def y_cases(tag, sd, ys, xd):
@@ -727,8 +768,8 @@ def row_scale_args(name, args):
         vals, brow, bcol, row_start, X, nrows = args
         return (vals.abs(), brow, bcol, row_start, X.abs(), nrows)
     if name == "lane_reduce":
-        cols, vals, row0, row1, X = args
-        return (cols, vals.abs(), row0, row1, X.abs())
+        cols, vals, row0, row1, X, *rest = args
+        return (cols, vals.abs(), row0, row1, X.abs(), *rest)
     if name == "pmm_spmm":
         col, val, rl, chunk_start, X, nrows = args
         return (col, val.abs(), rl, chunk_start, X.abs(), nrows)
@@ -752,9 +793,12 @@ def bound(name, args, out) -> tuple[float, str]:
     hold an entry).  BSR's f32-grade product runs on the tensor cores as
     3xTF32: three TF32 passes over its bricks at the TF32 rate.  The
     reduces read only the plane rows their slice tables name (this run's
-    data); the unfused reduce reads emit, and per element of those rows
-    its value, p3 entry and one gx element (its gemit is not read); K4 its
-    index and the ysp elements it names."""
+    data); K3 reads, per element of those rows, its value and its composed
+    index (in place of p3 and the M3 plane), one m element at most per
+    element (at most m's size in all), and its piece tables; the unfused
+    reduce reads emit, and per element of those rows its value, p3 entry
+    and one gx element (its gemit is not read); K4 its index and the ysp
+    elements it names."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     ops, rate = 0, F32_OPS_PER_S
@@ -767,9 +811,15 @@ def bound(name, args, out) -> tuple[float, str]:
         used = int((row1.long() - row0.long()).sum()) * 8 * 128
         nbytes = emit.numel() * 4 + used * (4 + 2 + 4)
         ops = 2 * used
+    if name == "reduce_slices":
+        m, _m3, _vals, _p3, row0, row1, *_, plan = args
+        used = int((row1.long() - row0.long()).sum()) * 8 * 128
+        nbytes = (used * (4 + 4) + min(used, m.numel()) * 4
+                  + 4 * (plan.split.pieces.numel()
+                         + plan.split.combine.numel()))
+        ops = 2 * used
     # (row0, row1) index and the planes of each reduce
-    reduces = {"reduce_slices": (4, 5, slice(0, 4)),
-               "reduce_hot": (3, 4, slice(1, 3)),
+    reduces = {"reduce_hot": (3, 4, slice(1, 3)),
                "window_reduce": (5, 6, slice(0, 2))}
     if name in reduces:
         i0, i1, planes = reduces[name]
@@ -809,8 +859,11 @@ def library_call(name, args, want=None):
     where the wrapper needs more than ``args``: K15 writes into the
     shard's g1).  bell_gather_mac: cuSPARSE's CSR SpMV
     (torch.sparse_csr_tensor @ x) of the matrix its planes hold, the BELL
-    part without the routed spill, within 1e-6 of the row scale of the
-    kernel's output (it sums in another order)."""
+    part without the routed spill; reduce_slices: cuSPARSE's CSR SpMV of
+    the entries its slices sum, times m flattened (reduce_csr_call);
+    lane_reduce: cuSPARSE's CSR SpMM of the entries its slots sum, times X
+    (lane_csr_call); each within 1e-6 of the row scale of the kernel's
+    output (they sum in another order)."""
     if name == "tileperm":
         data, idx = args
         T = data.shape[1]
@@ -832,6 +885,10 @@ def library_call(name, args, want=None):
         call = functools.partial(torch.take, src, ix)
     elif name == "bell_gather_mac":
         return bell_csr_call(args)
+    elif name == "reduce_slices":
+        return reduce_csr_call(args)
+    elif name == "lane_reduce":
+        return lane_csr_call(args)
     else:
         return None
     if not torch.equal(call(), want):
@@ -844,7 +901,6 @@ def bell_csr_call(args):
     its planes hold, at the rows and columns bell_gather_mac_plain reads,
     times x by cuSPARSE."""
     li, vals, x, d, pre, n_keep = args
-    wrapper, plain, _ = kernels.KERNELS["bell_gather_mac"]
     R_sub = li.shape[1]
     q = torch.arange(R_sub, device=x.device).view(1, R_sub, 1)
     lane = torch.arange(128, device=x.device).view(1, 1, 128)
@@ -852,16 +908,58 @@ def bell_csr_call(args):
     col = (8 * (q >> 3) + d + (idx >> 7) - pre) * 128 + (idx & 127)
     keep = (col >= 0) & (col < n_keep) & (vals != 0)
     row = (q * 128 + lane).expand_as(col)
-    A = torch.sparse_coo_tensor(
-        torch.stack([row[keep], col[keep]]), vals[keep],
-        size=(R_sub * 128, x.shape[0])).coalesce().to_sparse_csr()
-    call = functools.partial(torch.matmul, A, x)
-    got, want = call().view(R_sub, 128), wrapper(*args)
-    scale = plain(*row_scale_args("bell_gather_mac", args))
+    return csr_call("bell_gather_mac", row[keep], col[keep], vals[keep],
+                    (R_sub * 128, x.shape[0]), x, args,
+                    lambda y: y.view(R_sub, 128))
+
+
+def csr_call(name, rows, cols, vals, shape, data, args, view):
+    """The CSR matrix of the entries (rows, cols, vals) times ``data`` by
+    cuSPARSE (torch.matmul of torch.sparse_csr_tensor), built here, once
+    (duplicate entries summed), and checked to give the kernel's output
+    ``view(call())`` within 1e-6 of the row scale of its plain version."""
+    wrapper, plain, _ = kernels.KERNELS[name]
+    A = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                size=shape).coalesce().to_sparse_csr()
+    call = functools.partial(torch.matmul, A, data)
+    got, want = view(call()), wrapper(*args)
+    scale = plain(*row_scale_args(name, args))
     if not bool(((got - want).abs() <= 1e-6 * scale + 1e-30).all()):
-        raise AssertionError("the library call is not bell_gather_mac's "
-                             "function")
+        raise AssertionError(f"the library call is not {name}'s function")
     return call
+
+
+def reduce_csr_call(args):
+    """K3's library call (library_call): cuSPARSE's CSR SpMV of the
+    entries its slices sum, one row per (sublane i, slice, lane), each
+    entry a plane value at the column its composed index names in m
+    flattened, times m flattened; its output is ys flattened."""
+    m, _m3, vals, _p3, row0, row1, out, _fast, nys, plan = args
+    item, rows = rk.slice_rows(row0, row1)
+    n = rows.shape[0]
+    dev = m.device
+    i = torch.arange(8, device=dev).view(8, 1, 1)
+    lane = torch.arange(128, device=dev).view(1, 1, 128)
+    row = ((i * nys + out.long()[item].view(1, n, 1)) * 128 + lane)
+    return csr_call("reduce_slices", row.reshape(-1),
+                    plan.idx[:, rows, :].long().reshape(-1),
+                    vals[:, rows, :].reshape(-1), (8 * nys * 128, m.numel()),
+                    m.reshape(-1), args, lambda y: y.view(8, nys, 128))
+
+
+def lane_csr_call(args):
+    """K13's library call (library_call): cuSPARSE's CSR SpMM of the
+    entries its slots sum, one row per (slot, lane), each entry a plane
+    value at the column the plane names, times X; its output is ys."""
+    cols, vals, row0, row1, X, _split = args
+    nslots = row0.shape[0]
+    slot, rows = rk.slice_rows(row0, row1)
+    lane = torch.arange(1024, device=X.device).view(1, 1024)
+    row = slot.view(-1, 1) * 1024 + lane
+    return csr_call("lane_reduce", row.reshape(-1),
+                    cols.view(-1, 1024)[rows].long().reshape(-1),
+                    vals[rows].reshape(-1), (nslots * 1024, X.shape[0]), X,
+                    args, lambda y: y)
 
 
 def library_ms(call, device) -> tuple[float | None, float | None]:
@@ -927,6 +1025,11 @@ def check_case(tag, path, name, which, args, launches, path_dms, device,
         same = bool(((got - want).abs() <= 1e-6 * scale + 1e-30).all())
         verdict = "within 1e-6 of the row scale" if same else "DIFFERS"
     err = float((got - want).abs().max()) if got.numel() else 0.0
+    if name in REPEAT:
+        if not torch.equal(got, wrapper(*args)):
+            raise AssertionError(f"{label}: two launches on the same inputs "
+                                 "differ")
+        verdict += "; two launches equal bit for bit"
     ms = time_iterations(lambda: wrapper(*args), KERNEL_ITERS, device) * 1e3
     plain_ms = time_iterations(lambda: plain(*args), KERNEL_ITERS,
                                device) * 1e3
@@ -1036,8 +1139,8 @@ def fsm_path(device, walks):
                     and sr.mid["kind"] == "rec"),
     )
     want = {**dict.fromkeys(kernels.KERNELS, 0), "expand": 1,
-            "route_middle": 2, "reduce_slices": 1, "tileperm": 2,
-            "route_m3": 1, "reduce_hot": 1}
+            "route_middle": 2, "tileperm": 2, "route_m3": 1, "reduce_hot": 1,
+            "reduce_slices": 1 + second_pass(sd.red_plan.split)}
     if launches != want:
         raise AssertionError(f"[5] launches {launches}, want {want}")
     walks |= hot_branches(sr.hot)
@@ -1211,8 +1314,8 @@ def spmm_case(tag, name, coo, K, entry, want, device):
         raise AssertionError(f"{tag} launches {launches}, the {want} SpMM "
                              f"needs {expected_spmm_launches(sd, K)}")
     ms = time_iterations(lambda: spmm(sd, Xd), ITERS, device) * 1e3
-    ours_one = [k for k, n in launches.items() if n == 1]
-    marker = f"{ours_one[0]}_kernel" if ours_one else None
+    name_k = spmm_kernel(sd)
+    marker = None if name_k is None else event_of(name_k)
     per = device_ms(lambda: spmm(sd, Xd), KERNEL_ITERS, marker)
     dev_ms = sum(per.values())
     ours = by_kernel(per)
@@ -1225,8 +1328,9 @@ def spmm_case(tag, name, coo, K, entry, want, device):
           + f", other device work {dev_ms - sum(ours.values()):.4f} ms")
     lib = library_spmm(tag, csr, Xd, golden, scale, device, sd)
     rows = []
-    if marker is not None:  # an SpMM kernel: hold it against its plain
-        name_k = ours_one[0]
+    if name_k is not None:  # an SpMM kernel: hold it against its plain
+        # K13's library call is its own (library_call): cuSPARSE's SpMM of
+        # the entries its slots name
         lib_ms = lib["bsr"] if name_k == "bsr_spmm" and lib["bsr"] else (
             None if name_k == "lane_reduce" else lib["csr"])
         rows = check_kernels(tag, f"{name} K {K}", sd, Xd, launches, ours,
@@ -1241,16 +1345,31 @@ def spmm_case(tag, name, coo, K, entry, want, device):
 
 
 def ragged_spmm(device) -> None:
-    """Phase [7]'s RAGGED cases: each packed as DIA or BSR, through spmm at
-    each of RAGGED_K and at K 64 with X at a 4 B offset: the launch count,
-    every column at the float64 golden, and the launch against its plain
-    version within 1e-6 of the row scale."""
+    """Phase [7]'s RAGGED cases: each packed as DIA, BSR or the lane plan,
+    through spmm at each of RAGGED_K (and RAGGED_LANE_K for the lane
+    plan) and at K 64 with X at a 4 B offset: the launch count, every
+    column at the float64 golden, and the launch against its plain version
+    within 1e-6 of the row scale (K13's also against a second launch, bit
+    for bit)."""
+    packs = {"dia": dia_pack, "bsr": lambda c: bsr_pack(c, min_fill=0.0),
+             "lane": spmm_lane.spmm_lane_pack}
     for name, make, fmt in RAGGED:
         coo = make()
         csr = coo.to_csr()
-        A = dia_pack(csr) if fmt == "dia" else bsr_pack(csr, min_fill=0.0)
+        A = packs[fmt](csr)
         sd = upload(A, device)
-        if fmt == "dia":
+        ks = [(k, 0) for k in RAGGED_K] + [(64, 1)]
+        if fmt == "lane":
+            split = sd.split
+            width = int((sd.row1 - sd.row0).max())
+            print(f"[7] {name}: lane plan, {sd.row0.shape[0]} slots (the "
+                  f"widest {width} plane rows), K13 pieces of at most "
+                  f"{split.rows} rows: {split.pieces.shape[0]}, "
+                  f"{split.combine.shape[0]} slots split")
+            if not split.combine.shape[0]:
+                raise AssertionError(f"[7] {name}: no K13 slot is split")
+            ks += [(k, 0) for k in RAGGED_LANE_K]
+        elif fmt == "dia":
             _, nwin, smem = dk.window_plan(sd.offsets)
             print(f"[7] {name}: {describe(A)}; K11 plan {nwin} windows, "
                   f"{smem} B of shared memory a block")
@@ -1260,7 +1379,7 @@ def ragged_spmm(device) -> None:
             zero = int((sd.vals.abs().sum((1, 2)) == 0).sum())
             print(f"[7] {name}: BSR {sd.vals.shape[0]} bricks ({zero} of "
                   f"them zero) in {sd.nrb} row blocks")
-        for K, offset in [(k, 0) for k in RAGGED_K] + [(64, 1)]:
+        for K, offset in ks:
             tag = f"[7] {name} K {K}" + (" (X at a 4 B offset)"
                                          if offset else "")
             X = np.random.default_rng(K).standard_normal(
@@ -1284,9 +1403,13 @@ def ragged_spmm(device) -> None:
             row_scale = plain(*row_scale_args(kname, args))
             err = float((got - want).abs().max())
             ok = bool(((got - want).abs() <= 1e-6 * row_scale + 1e-30).all())
+            if kname in REPEAT:
+                ok = ok and torch.equal(got, wrapper(*args))
+            again = ", a second launch bit for bit" if kname in REPEAT else ""
             print(f"{tag} {kname}: "
                   f"{'within' if ok else 'NOT within'} 1e-6 of the row "
-                  f"scale of its plain version, max abs err {err:.3e}")
+                  f"scale of its plain version{again}, max abs err "
+                  f"{err:.3e}")
             if not ok:
                 raise AssertionError(f"{tag} {kname} disagrees with its "
                                      "plain version")
@@ -1326,8 +1449,10 @@ def dist_launches(dm, mode) -> dict[str, int]:
     """Launches of each kernel in one SpMV of the row-sharded artifact
     ``dm``: every shard runs one shard's passes (one geometry); the ring
     mode replaces each shard's K1 by one K15 per ring step with blocks."""
-    want = {k: n * dm.n_shards
-            for k, n in expected_launches(dm.shards[0]).items()}
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    for shard in dm.shards:  # K3's second pass runs where a shard splits
+        for k, n in expected_launches(shard).items():
+            want[k] += n
     if mode == "overlap":
         want["expand"] = 0
         want["expand_ring"] = dm.n_shards * sum(
@@ -1526,6 +1651,29 @@ def dist_mode(tag, dm, mode, xd, golden, scale, device):
     return launches, ms, ours
 
 
+def shard_reduces(tag, path, dm, xd, launches, ours, device, shard0):
+    """K3 on every shard but 0 (whose row is among ``shard0``) against its
+    plain version, as check_case; every shard of a forced pack holds a
+    slice of up to 1,024 plane rows, split into pieces.  Prints K3's
+    launches, device time alone and bound summed over the shards.
+    Returns the kernels-JSON rows of shards 1 .."""
+    rows = []
+    for i, s in enumerate(dm.shards[1:], 1):
+        g1 = rk.expand(s.w8, s.gcls, s.seg_blk, s.li, xd, s.segw, s.n_segs)
+        rows.append(check_case(tag, path, "reduce_slices", f"shard {i}",
+                               k3_args(s, *sp.middle(s, g1)), launches,
+                               ours, device))
+    every = [r for r in shard0 if r["name"] == "reduce_slices"] + rows
+    splits = [second_pass(s.red_plan.split) for s in dm.shards]
+    print(f"{tag} reduce_slices over the {dm.n_shards} shards: "
+          f"{dm.n_shards + sum(splits)} launches (second passes on shards "
+          f"{[i for i, k in enumerate(splits) if k]}), device time alone "
+          f"{sum(r['device_ms'] for r in every):.4f} ms, bound "
+          f"{sum(r['bound_ms'] for r in every):.4f} ms, in the path's trace "
+          f"{ours['reduce_slices']:.4f} ms")
+    return rows
+
+
 def dist_paths(device, main_sd, main_coo):
     """Phase [8]: the row-sharded routed SpMV on DIST_SHARDS shards that
     share the one card, in each mode of DIST_CASES, beside the one-card
@@ -1601,6 +1749,8 @@ def dist_paths(device, main_sd, main_coo):
                 for r in got:
                     r["launch"] = f"shard 0 {r['launch']}".strip()
                 rows += got
+                rows += shard_reduces(f"{tag} {mode}", path, dm, xd,
+                                      launches, ours, device, got)
             print(f"[8] {name} {mode}: {ms:.4f} ms/iter on {DIST_SHARDS} "
                   f"shards of one card vs {one_ms:.4f} ms/iter for the "
                   f"one-card spmv_routed (x{ms / one_ms:.2f})")

@@ -1,8 +1,9 @@
-"""Time the routed SpMV's K1 (expand), K4 (route_small) and K15
-(expand_ring) of several checkouts of this repository on one card, in
+"""Time the routed SpMV's K1 (expand), K3 (reduce_slices), K4
+(route_small) and K15 (expand_ring), and the route API's K16
+(route_flat), of several checkouts of this repository on one card, in
 turns.
 
-    python3 -m cvr_tpu_torch.bench.ab_routed ROOT [ROOT ...]
+    python3 -m cvr_tpu_torch.bench.ab_routed ROOT [ROOT ...] [--kernels K,..]
 
 Each ROOT is a directory holding a checkout's ``cvr_tpu_torch/`` and
 ``native/`` (for example the parent commit unpacked with ``git archive``
@@ -12,12 +13,19 @@ the order given (give them as A B B A), a subprocess imports that root's
 package, builds its kernels and native library, packs the matrix with
 ``sell_pack_routed`` and, for the ring, ``dist_routed_pack`` on 4 shards of
 the one card, and takes from torch.profiler traces the device time per
-launch of K1 and K4 at the main path's tensors and of K15 in the ring
-SpMV (K1's kernel: its events carry K1's name).  It prints one JSON line
-per root with a checksum of K1's and K4's outputs, and exits 1 if two
-roots' differ (the SpMVs' own outputs are not compared: the split-row
-extras are added by index_add_, whose atomics add in any order).  It
-needs a CUDA card and imports nothing of JAX.
+launch of K1 and K4 at the main path's tensors, of K16 on the y-route's
+flat middle, and of K15 in the ring SpMV (K1's kernel: its events carry
+K1's name), and the device time per call of K3 (its kernels, a split
+slice's second pass included) at the main path's tensors and at each
+shard's of ``dist_routed_pack`` forced on 4 shards (x replicated).  It
+prints one JSON line per root with a checksum of K1's output and of K4's
+and K16's on a y stream made from a seed, and exits 1 if two roots'
+differ (the SpMVs' own outputs are not compared: the split-row extras
+are added by index_add_, whose atomics add in any order) or if a root's
+K3 is not
+within 1e-6 of the row scale of that root's plain version (the order of
+its sums is free).  ``--kernels`` names the ones to time (default all).
+It needs a CUDA card and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +40,11 @@ from pathlib import Path
 
 ITERS = 50
 SHARDS = 4
+# K3's kernels' device event names (the second pass where a checkout has
+# one)
+K3_EVENTS = ("reduce_slices_kernel", "reduce_slices_combine_kernel")
+KERNELS = ("expand", "route_small", "route_flat", "expand_ring",
+           "reduce_slices")
 
 
 def _digest(t) -> str:
@@ -60,7 +73,35 @@ def _device_us(fn, event: str, iters: int):
     return sum(durs) / len(durs), len(durs) / iters
 
 
-def worker(root: str, npz: str, iters: int) -> dict:
+def _device_per_call(fn, events, iters: int) -> float:
+    """Device us per call of ``fn`` in the kernels whose event names hold
+    one of ``events`` (one trace each; a name no trace holds counts 0:
+    an older checkout may lack a kernel)."""
+    total = 0.0
+    for event in events:
+        try:
+            us, per_call = _device_us(fn, event, iters)
+        except RuntimeError:
+            continue
+        total += us * round(per_call)
+    return total
+
+
+def _k3_case(rk, sp, sd, g1):
+    """(K3 at the shard's or matrix's tensors as a call, the largest
+    error of its output over 1e-6 of the row scale of its plain version:
+    at most 1 when within)."""
+    m, m3 = sp.middle(sd, g1)
+    got = sp.reduce(sd, m, m3)
+    args = (sd.p3, sd.red_row0, sd.red_row1, sd.red_out, sd.red_fast,
+            sd.nslices)
+    want = rk.reduce_slices_plain(m, m3, sd.vals_ss, *args)
+    scale = rk.reduce_slices_plain(m.abs(), m3, sd.vals_ss.abs(), *args)
+    ratio = float(((got - want).abs() / (1e-6 * scale + 1e-30)).max())
+    return (lambda: sp.reduce(sd, m, m3)), ratio
+
+
+def worker(root: str, npz: str, iters: int, names) -> dict:
     """One root's measurements (run in a subprocess whose path starts at
     ``root``)."""
     import numpy as np
@@ -96,8 +137,12 @@ def worker(root: str, npz: str, iters: int) -> dict:
                          sd.n_segs)
 
     g1 = k1()
-    ysp = sp.y_stream(sd, sp.reduce(sd, *sp.middle(sd, g1)))
     ra = sd.yroute
+    # K4 gathers whatever stream it is given: one made from a seed, the
+    # same in every root (K3's sums, which feed it on the path, may differ
+    # in their last bits from root to root)
+    ysp = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (8, ra.Tp, 128)).astype(np.float32)).to("cuda")
     if getattr(ra, "src", None) is not None:
         def k4():
             return rk.route_small(ysp, ra.src, ra.n)
@@ -105,21 +150,39 @@ def worker(root: str, npz: str, iters: int) -> dict:
         def k4():
             return rk.route_small(ysp, ra.s1, ra.mid.mid, ra.s3, ra.n)
 
-    dm = dist_routed_pack(csr, make_mesh(devices=["cuda"] * SHARDS),
-                          overlap=True)
-
-    def ring():
-        return dist_spmv_routed(dm, xd, x_sharded=True, overlap=True)
-
-    out = {"root": root, "device": torch.cuda.get_device_name(0),
-           "expand_digest": _digest(k1()),
-           "route_small_digest": _digest(k4())}
-    for name, fn, event in (("expand", k1, "expand_kernel"),
-                            ("route_small", k4, "route_small_kernel"),
-                            ("ring_expand", ring, "expand_kernel")):
+    out = {"root": root, "device": torch.cuda.get_device_name(0)}
+    # K16: the y-route's flat middle on the seeded stream after stage 1
+    g2 = rk.tileperm(ysp, ra.s1)
+    timed = [("expand", k1, "expand_kernel"),
+             ("route_small", k4, "route_small_kernel"),
+             ("route_flat", lambda: rk.route_flat(g2, ra.mid.mid),
+              "route_m3_kernel<true>")]
+    if "expand_ring" in names:
+        dm = dist_routed_pack(csr, make_mesh(devices=["cuda"] * SHARDS),
+                              overlap=True)
+        timed.append(("expand_ring", lambda: dist_spmv_routed(
+            dm, xd, x_sharded=True, overlap=True), "expand_kernel"))
+    for name, fn, event in timed:
+        if name not in names:
+            continue
+        if name != "expand_ring":  # its SpMV sums by index_add_, in any order
+            out[f"{name}_digest"] = _digest(fn())
         us, per_call = _device_us(fn, event, iters)
         out[f"{name}_ms"] = us / 1e3
         out[f"{name}_launches"] = per_call
+    if "reduce_slices" not in names:
+        return out
+    forced = dist_routed_pack(csr, make_mesh(devices=["cuda"] * SHARDS))
+    k3 = [("reduce_slices", sd, g1)] + [
+        (f"reduce_slices_shard{i}", s,
+         rk.expand(s.w8, s.gcls, s.seg_blk, s.li, xd, s.segw, s.n_segs))
+        for i, s in enumerate(forced.shards)]
+    for name, s, g in k3:
+        fn, ratio = _k3_case(rk, sp, s, g)
+        out[f"{name}_ms"] = _device_per_call(fn, K3_EVENTS, iters) / 1e3
+        out[f"{name}_err_over_tol"] = ratio
+    out["reduce_slices_shards_ms"] = sum(
+        out[f"reduce_slices_shard{i}_ms"] for i in range(SHARDS))
     return out
 
 
@@ -132,15 +195,16 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def run_roots(script: str, roots, npz: str, iters: int) -> list[dict]:
-    """Run ``script --worker ROOT NPZ`` once per root, in the order given,
-    each in a subprocess started in the root, and print and return the
-    JSON line each prints last."""
+def run_roots(script: str, roots, npz: str, iters: int,
+              extra=()) -> list[dict]:
+    """Run ``script --worker ROOT NPZ [extra]`` once per root, in the
+    order given, each in a subprocess started in the root, and print and
+    return the JSON line each prints last."""
     rows = []
     for root in roots:
         proc = subprocess.run(
             [sys.executable, str(Path(script).resolve()), "--worker",
-             str(Path(root).resolve()), npz, "--iters", str(iters)],
+             str(Path(root).resolve()), npz, "--iters", str(iters), *extra],
             cwd=root, capture_output=True, text=True, timeout=900,
         )
         if proc.returncode:
@@ -156,11 +220,16 @@ def main(argv=None) -> int:
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--iters", type=int, default=ITERS)
     ap.add_argument("--worker", nargs=2, metavar=("ROOT", "NPZ"))
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated kernels to time")
     args = ap.parse_args(argv)
+    names = args.kernels.split(",")
+    if not set(names) <= set(KERNELS):
+        raise SystemExit(f"ab_routed: --kernels among {KERNELS}")
     if args.worker:
         # the root's package, not the one beside this file
         sys.path[0] = str(Path(args.worker[0]).resolve())
-        print(json.dumps(worker(*args.worker, args.iters)))
+        print(json.dumps(worker(*args.worker, args.iters, names)))
         return 0
     import numpy as np
     import torch
@@ -175,11 +244,17 @@ def main(argv=None) -> int:
         npz = str(Path(tmp) / "matrix.npz")
         np.savez(npz, rows=coo.rows, cols=coo.cols, vals=coo.vals,
                  shape=np.asarray(coo.shape))
-        rows = run_roots(__file__, args.roots, npz, args.iters)
+        rows = run_roots(__file__, args.roots, npz, args.iters,
+                         ["--kernels", args.kernels])
     digests = {k for r in rows for k in r if k.endswith("_digest")}
     differ = [k for k in sorted(digests) if len({r[k] for r in rows}) > 1]
     if differ:
         print(f"ab_routed: the roots' outputs differ: {differ}")
+        return 1
+    bad = [(r["root"], k) for r in rows for k, v in r.items()
+           if k.endswith("_err_over_tol") and not v <= 1.0]
+    if bad:
+        print(f"ab_routed: K3 disagrees with its plain version: {bad}")
         return 1
     return 0
 

@@ -1,22 +1,27 @@
-"""Time the SpMM kernels K11 (dia_spmm) and K12 (bsr_spmm) of several
-checkouts of this repository on one card, in turns.
+"""Time the SpMM kernels K11 (dia_spmm), K12 (bsr_spmm) and K13
+(lane_reduce) of several checkouts of this repository on one card, in
+turns.
 
-    python3 -m cvr_tpu_torch.bench.ab_spmm ROOT [ROOT ...]
+    python3 -m cvr_tpu_torch.bench.ab_spmm ROOT [ROOT ...] [--kernels K,..]
 
 Each ROOT is a directory holding a checkout's ``cvr_tpu_torch/`` and
 ``native/``, as for ab_routed.py, whose helpers this tool shares.  The
-matrices, banded-2M (2,097,152 rows, 27 diagonals) and fem-like
-(1,048,576 rows, ~51.9M nnz), are generated once, and X (ncols, 64) from
-``np.random.default_rng(64)``; then, for each root in the order given (give
+matrices, banded-2M (2,097,152 rows, 27 diagonals), fem-like (1,048,576
+rows, ~51.9M nnz) and web-Google-like (R-MAT scale 20, 6,162,120 nnz), are
+generated once, and X (ncols, K) from ``np.random.default_rng(K)``, K 64
+for K11 and K12, 128 for K13; then, for each root in the order given (give
 them as A B B A), a subprocess imports that root's package, builds its
-kernels and native library, packs banded-2M as DIA and both matrices as
-BSR-128, and takes from torch.profiler traces of back-to-back launches the
-device time per launch of K11 on banded-2M's DIA and of K12 on both BSR
-packs.  Each launch's output is held against the root's own plain version
-within 1e-6 of the row scale (the order of a sum is free, so outputs are
-not compared across roots).  It prints one JSON line per root and exits 1
-if a root's kernel disagrees with its plain version.  It needs a CUDA card
-and imports nothing of JAX.
+kernels and native library, packs banded-2M as DIA, banded-2M and
+fem-like as BSR-128 and web-Google-like as the lane plan, and takes from
+torch.profiler traces of back-to-back launches the device time per launch
+of K11 on banded-2M's DIA and of K12 on both BSR packs, and per call of
+K13 (its kernels, a split slot's second pass included).  ``--kernels``
+names the ones to time (default all).  Each launch's output is held
+against the root's own plain version within 1e-6 of the row scale (the
+order of a sum is free, so outputs are not compared across roots).  It
+prints one JSON line per root and exits 1 if a root's kernel disagrees
+with its plain version or two of its launches on the same inputs differ.
+It needs a CUDA card and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -29,9 +34,15 @@ from pathlib import Path
 
 ITERS = 50
 K = 64
+K_LANE = 128
+MATRICES = {"dia_spmm": ("banded_2m",), "bsr_spmm": ("banded_2m", "fem_like"),
+            "lane_reduce": ("web_google_like",)}
+# K13's kernels' device event names (the second pass where a checkout has
+# one)
+K13_EVENTS = ("lane_reduce_kernel", "lane_reduce_combine_kernel")
 
 
-def worker(root: str, npz: str, iters: int) -> dict:
+def worker(root: str, npz: str, iters: int, names) -> dict:
     """One root's measurements (run in a subprocess whose path starts at
     ``root``)."""
     import numpy as np
@@ -43,9 +54,10 @@ def worker(root: str, npz: str, iters: int) -> dict:
     from cvr_tpu_torch.formats.bsr import bsr_pack
     from cvr_tpu_torch.formats.coo import COOMatrix
     from cvr_tpu_torch.formats.dia import dia_pack
-    from cvr_tpu_torch.ops import _build, spmm_bsr
+    from cvr_tpu_torch.ops import _build, spmm_bsr, spmm_lane
     from cvr_tpu_torch.ops import bsr_kernels as bk
     from cvr_tpu_torch.ops import dia_kernels as dk
+    from cvr_tpu_torch.ops import lane_kernels as lk
     from cvr_tpu_torch.ops.spmv_dia import to_device_dia
 
     pkg = Path(cvr_tpu_torch.__file__).resolve().parent
@@ -55,23 +67,37 @@ def worker(root: str, npz: str, iters: int) -> dict:
     _build.load()
     z = np.load(npz)
     out = {"root": root, "device": torch.cuda.get_device_name(0)}
-    for mat in ("banded_2m", "fem_like"):
+    mats = [m for m in ("banded_2m", "fem_like", "web_google_like")
+            if any(m in MATRICES[n] for n in names)]
+    for mat in mats:
         csr = COOMatrix(rows=z[f"{mat}_rows"], cols=z[f"{mat}_cols"],
                         vals=z[f"{mat}_vals"],
                         shape=tuple(z[f"{mat}_shape"])).to_csr()
-        X = torch.from_numpy(np.random.default_rng(64).standard_normal(
-            (csr.shape[1], K)).astype(np.float32)).to("cuda")
+        k = K_LANE if mat == "web_google_like" else K
+        X = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (csr.shape[1], k)).astype(np.float32)).to("cuda")
         cases = []
-        if mat == "banded_2m":
+        if mat == "banded_2m" and "dia_spmm" in names:
             sd = to_device_dia(dia_pack(csr), "cuda")
             cases.append(("dia_spmm", dk.dia_spmm, dk.dia_spmm_plain,
                           (sd.bands, sd.offsets, X),
-                          (sd.bands.abs(), sd.offsets, X.abs())))
-        bd = spmm_bsr.to_device_bsr(bsr_pack(csr), "cuda")
-        args = spmm_bsr.kernel_args(bd, X)
-        cases.append(("bsr_spmm", bk.bsr_spmm, bk.bsr_spmm_plain, args,
-                      (bd.vals.abs(), *args[1:4], X.abs(), args[5])))
-        for name, wrapper, plain, args, abs_args in cases:
+                          (sd.bands.abs(), sd.offsets, X.abs()),
+                          ("dia_spmm_kernel",)))
+        if mat != "web_google_like" and "bsr_spmm" in names:
+            bd = spmm_bsr.to_device_bsr(bsr_pack(csr), "cuda")
+            args = spmm_bsr.kernel_args(bd, X)
+            cases.append(("bsr_spmm", bk.bsr_spmm, bk.bsr_spmm_plain, args,
+                          (bd.vals.abs(), *args[1:4], X.abs(), args[5]),
+                          ("bsr_spmm_kernel",)))
+        if mat == "web_google_like":
+            ld = spmm_lane.to_device_lane(spmm_lane.spmm_lane_pack(csr),
+                                          "cuda")
+            args = spmm_lane.kernel_args(ld, X)
+            cases.append(("lane_reduce", lk.lane_reduce,
+                          lambda *a: lk.lane_reduce_plain(*a[:5]), args,
+                          (args[0], args[1].abs(), *args[2:4], X.abs()),
+                          K13_EVENTS))
+        for name, wrapper, plain, args, abs_args, events in cases:
             got, want = wrapper(*args), plain(*args)
             err = (got - want).abs()
             del want
@@ -81,12 +107,18 @@ def worker(root: str, npz: str, iters: int) -> dict:
             out[f"{key}_max_row_scaled_err"] = float(
                 (err / (scale + 1e-30)).max())
             out[f"{key}_within"] = bool((err <= 1e-6 * scale + 1e-30).all())
+            out[f"{key}_repeats"] = bool(torch.equal(got, wrapper(*args)))
             del got, err, scale
-            us, per_call = _device_us(lambda: wrapper(*args),
-                                      f"{name}_kernel", iters)
-            out[f"{key}_ms"] = us / 1e3
+            total, per_call = 0.0, 0.0
+            for event in events:  # an older checkout may lack the 2nd pass
+                try:
+                    us, n = _device_us(lambda: wrapper(*args), event, iters)
+                except RuntimeError:
+                    continue
+                total, per_call = total + us * round(n), per_call + n
+            out[f"{key}_ms"] = total / 1e3
             out[f"{key}_launches"] = per_call
-        del cases, args, bd, X
+        del cases, args, X
         torch.cuda.empty_cache()
     return out
 
@@ -96,22 +128,34 @@ def main(argv=None) -> int:
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--iters", type=int, default=ITERS)
     ap.add_argument("--worker", nargs=2, metavar=("ROOT", "NPZ"))
+    ap.add_argument("--kernels", default=",".join(MATRICES),
+                    help="comma-separated kernels to time")
     args = ap.parse_args(argv)
+    names = args.kernels.split(",")
+    if not set(names) <= set(MATRICES):
+        raise SystemExit(f"ab_spmm: --kernels among {sorted(MATRICES)}")
     if args.worker:
         # the root's package (and its ab_routed), not the one beside this file
         sys.path[0] = str(Path(args.worker[0]).resolve())
-        print(json.dumps(worker(*args.worker, args.iters)))
+        print(json.dumps(worker(*args.worker, args.iters, names)))
         return 0
     import numpy as np
     import torch
 
     from cvr_tpu_torch.bench.ab_routed import card, run_roots
-    from cvr_tpu_torch.bench.synthetic import banded_matrix, fem_like
+    from cvr_tpu_torch.bench.synthetic import (
+        banded_matrix,
+        fem_like,
+        web_google_like,
+    )
 
     if not torch.cuda.is_available():
         raise SystemExit("ab_spmm: torch.cuda.is_available() is false")
     print(f"nvidia-smi: {card()}")
-    mats = {"banded_2m": banded_matrix(1 << 21, 27), "fem_like": fem_like()}
+    make = {"banded_2m": lambda: banded_matrix(1 << 21, 27),
+            "fem_like": fem_like, "web_google_like": web_google_like}
+    mats = {m: make[m]() for m in make
+            if any(m in MATRICES[n] for n in names)}
     with tempfile.TemporaryDirectory() as tmp:
         npz = str(Path(tmp) / "matrices.npz")
         np.savez(npz, **{f"{m}_{k}": v for m, coo in mats.items()
@@ -119,9 +163,10 @@ def main(argv=None) -> int:
                                       ("vals", coo.vals),
                                       ("shape", np.asarray(coo.shape)))})
         del mats
-        rows = run_roots(__file__, args.roots, npz, args.iters)
+        rows = run_roots(__file__, args.roots, npz, args.iters,
+                         ["--kernels", args.kernels])
     bad = [(r["root"], k) for r in rows for k, v in r.items()
-           if k.endswith("_within") and not v]
+           if k.endswith(("_within", "_repeats")) and not v]
     if bad:
         print(f"ab_spmm: kernels disagree with their plain versions: {bad}")
         return 1

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) kernels of the routed-gather SpMV and of the route
 // library's device API.
 //
-// Eleven passes, in eight kernels, replace the fifteen Pallas TPU kernels
-// that the JAX package runs on these paths (cvr_tpu/ops/pallas_route.py):
+// Eleven passes, in eight kernels (K3's with a second pass), replace the
+// fifteen Pallas TPU kernels that the JAX package runs on these paths
+// (cvr_tpu/ops/pallas_route.py):
 //
 //   K1 expand         <- _expand_kernel                (:343)
 //   K15 expand_ring   <- _expand_kernel over a tile-block range, one ring
@@ -39,19 +40,20 @@
 // Index planes are int16 in [0, 1024); scalar tables are int32.
 //
 // What bounds them: every pass is an index-driven gather.  Per output
-// element a pass reads ~2 B of int16 index (K3 chases two of them) and
-// 4 B of f32 data, and writes 4 B, so all are bound by device-memory bytes
-// and by the latency of the dependent loads, not by arithmetic.  The
-// design answer of the first version, kept by K2, K3 and K5-K7: one thread
-// per output element (K3: one thread per lane of a slice), so that the
-// index planes and the outputs are read and written fully coalesced
-// (neighbour threads, neighbour lanes) and only the data gathers are
-// scattered; the int16 planes are read as they are, never widened in
-// memory; the TPU's staging through VMEM (x segment tables, mstream
-// blocks, relayouts) is dropped, because the L2 (50 MB) holds x and the
-// gathered chunks.  K1 and K4 are redesigned for the H100 (see each):
-// K1 stages each tile's x window in shared memory and moves 16 B per
-// thread, K4 gathers by one int32 index composed at upload.
+// element a pass reads ~2 B of int16 index and 4 B of f32 data, and
+// writes 4 B, so all are bound by device-memory bytes and by the latency
+// of the dependent loads, not by arithmetic.  The design answer of the
+// first version, kept by K2 and K5-K7: one thread per output element
+// (K7: one thread per lane of a slice), so that the index planes and the
+// outputs are read and written fully coalesced (neighbour threads,
+// neighbour lanes) and only the data gathers are scattered; the int16
+// planes are read as they are, never widened in memory; the TPU's staging
+// through VMEM (x segment tables, mstream blocks, relayouts) is dropped,
+// because the L2 (50 MB) holds x and the gathered chunks.  K1, K3 and K4
+// are redesigned for the H100 (see each): K1 stages each tile's x window
+// in shared memory and moves 16 B per thread, K3 splits long slices into
+// pieces summed side by side and gathers by one int32 index composed at
+// upload, K4 gathers by one int32 index composed at upload.
 //
 // Each entry point is a plain C function that launches on the stream it is
 // given and returns cudaGetLastError(); the Python wrapper raises if that
@@ -190,39 +192,122 @@ __global__ void route_middle_kernel(const float* __restrict__ g1,
 }
 
 // K3: route stage M3 + the mstream->stream relayout + stage 3 + the value
-// multiply + per-slice lane sums, for one slice per block row.  For global
-// plane row R: c = R>>7, fL = R&127, base = (c>>3)*1024, idx = p3[i,R,l],
-// hi = fast ? i : idx>>7, q = (hi<<7) | (idx&127),
-// i3 = m3[c&7, base+q, fL], and
-//   P[i,R,l] = vals[i,R,l] * m[i3>>7, base+q, i3&127].
-// Slice `it` sums P over plane rows [row0[it], row1[it]) into
-// ys[i, out[it], l].  The TPU walks the rows in one sequential grid with
-// an emission sweep; here the host derives each slice's row range once
-// (from emit, the reduce groups and the regular regions), and one thread
-// per (slice, sublane, lane) loops over its rows.
-__global__ void reduce_slices_kernel(
-    const float* __restrict__ m, const int16_t* __restrict__ m3,
-    const float* __restrict__ vals, const int16_t* __restrict__ p3,
-    const int32_t* __restrict__ row0, const int32_t* __restrict__ row1,
-    const int32_t* __restrict__ out, const int32_t* __restrict__ fast,
-    float* __restrict__ ys, long long TM, long long S, long long nys) {
-  int it = blockIdx.x;
-  long long i = blockIdx.y;
-  int l = threadIdx.x;
-  int fst = fast[it];
-  float acc = 0.f;
-  for (long long R = row0[it]; R < row1[it]; ++R) {
-    long long c = R >> 7;
-    long long fL = R & 127;
-    long long base = (c >> 3) << 10;
-    long long pe = (i * S + R) * 128 + l;
-    int idx = p3[pe];
-    long long hi = fst ? i : (idx >> 7);
-    long long q = base + ((hi << 7) | (idx & 127));
-    int i3 = m3[((c & 7) * TM + q) * 128 + fL];
-    acc += vals[pe] * m[((i3 >> 7) * TM + q) * 128 + (i3 & 127)];
+// multiply + per-slice lane sums (the TPU's _reduce_m3_kernel :641 and
+// _reduce_m3_regular_kernel :752, with _emission_sweep :86).  For plane
+// row R of a slice: c = R>>7, fL = R&127, base = (c>>3)*1024,
+// idx = p3[i,R,l], hi = fast ? i : idx>>7, q = base + ((hi<<7) | (idx&127)),
+// i3 = m3[c&7, q, fL], and
+//   P[i,R,l] = vals[i,R,l] * m[i3>>7, q, i3&127].
+// Slice k sums P over plane rows [row0[k], row1[k]) into ys[i, out[k], l].
+//
+// What bounds it: bytes (4 B of value, 4 B of index and one scattered 4 B
+// read of m per plane element) and, in the first design (one thread per
+// lane walking a whole slice), the latency of the chain p3 -> m3 -> m,
+// one row after another: a slice's rows are a serial walk, so the longest slice
+// set the kernel's time (128 plane rows on web-Google-like; 1024 on every
+// shard of the forced 4-shard pack, ~half of a shard's rows).  The design:
+//   * the chain is one streamed int32 index per plane element, composed at
+//     upload from p3, the M3 plane and zone A's aligned stage 3 (fast)
+//     (reduce_index): m[idx[i,R,l]] is the factor above, so a row costs a
+//     16 B index load, a 16 B value load and four independent gathers;
+//   * the host cuts every slice into pieces of at most P plane rows
+//     (split_rows, made at upload): one block of 256 threads takes one
+//     piece, warp i its sublane i, each thread 4 lanes; it keeps
+//     kReduceUnroll rows' loads in flight with one accumulator per row of
+//     the unroll, added in a fixed order at the end;
+//   * a slice of one piece writes its ys row directly; the pieces of a
+//     longer slice write partial rows, and a second pass
+//     (reduce_slices_combine_kernel) adds them in piece order into ys.
+//     No float atomics: the output's bits repeat run to run.
+// Index arithmetic is 32-bit: the wrapper refuses planes, m, ys or the
+// partials past 2^31 - 1 elements.
+constexpr int kReduceThreads = 256;  // 8 sublanes x 32 threads of 4 lanes
+constexpr int kReduceUnroll = 4;     // plane rows in flight a thread
+
+__device__ __forceinline__ void fma4(float4& a, const float4& v,
+                                     const float4& g) {
+  a.x = fmaf(v.x, g.x, a.x);
+  a.y = fmaf(v.y, g.y, a.y);
+  a.z = fmaf(v.z, g.z, a.z);
+  a.w = fmaf(v.w, g.w, a.w);
+}
+
+__device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 gather4(const float* __restrict__ m,
+                                          const int4& ix) {
+  return make_float4(__ldg(m + ix.x), __ldg(m + ix.y), __ldg(m + ix.z),
+                     __ldg(m + ix.w));
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_slices_kernel(const float* __restrict__ m,
+                         const int32_t* __restrict__ idx,
+                         const float* __restrict__ vals,
+                         const int32_t* __restrict__ pieces,
+                         float* __restrict__ ys, float* __restrict__ part,
+                         unsigned S, unsigned nys, unsigned npart) {
+  // piece: plane rows [r0, r1) and its destination: ys slice dst >= 0, or
+  // partial row -1 - dst
+  const int r0 = __ldg(pieces + 3 * blockIdx.x);
+  const int r1 = __ldg(pieces + 3 * blockIdx.x + 1);
+  const int dst = __ldg(pieces + 3 * blockIdx.x + 2);
+  const unsigned i = threadIdx.x >> 5;
+  const unsigned lq = (threadIdx.x & 31) * 4;
+  const unsigned base = i * S * 128 + lq;
+  float4 acc[kReduceUnroll];
+#pragma unroll
+  for (int u = 0; u < kReduceUnroll; ++u) acc[u] = make_float4(0, 0, 0, 0);
+  int R = r0;
+  for (; R + kReduceUnroll <= r1; R += kReduceUnroll) {
+    int4 ix[kReduceUnroll];
+    float4 v[kReduceUnroll];
+#pragma unroll
+    for (int u = 0; u < kReduceUnroll; ++u) {
+      const unsigned e = base + static_cast<unsigned>(R + u) * 128;
+      ix[u] = __ldcs(reinterpret_cast<const int4*>(idx + e));
+      v[u] = __ldcs(reinterpret_cast<const float4*>(vals + e));
+    }
+#pragma unroll
+    for (int u = 0; u < kReduceUnroll; ++u)
+      fma4(acc[u], v[u], gather4(m, ix[u]));
   }
-  ys[(i * nys + out[it]) * 128 + l] = acc;
+  for (; R < r1; ++R) {  // the piece's last rows % kReduceUnroll
+    const unsigned e = base + static_cast<unsigned>(R) * 128;
+    const int4 ix = __ldcs(reinterpret_cast<const int4*>(idx + e));
+    const float4 v = __ldcs(reinterpret_cast<const float4*>(vals + e));
+    fma4(acc[0], v, gather4(m, ix));
+  }
+  const float4 s = add4(add4(acc[0], acc[1]), add4(acc[2], acc[3]));
+  float* o = dst >= 0
+                 ? ys + (i * nys + static_cast<unsigned>(dst)) * 128 + lq
+                 : part + (i * npart + static_cast<unsigned>(-1 - dst)) * 128 +
+                       lq;
+  *reinterpret_cast<float4*>(o) = s;
+}
+
+// K3's second pass: each split slice's partial rows [c0, c1), added in
+// piece order, into its ys row out; one block of 256 threads a slice.
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_slices_combine_kernel(const float* __restrict__ part,
+                                 const int32_t* __restrict__ combine,
+                                 float* __restrict__ ys, unsigned nys,
+                                 unsigned npart) {
+  const int c0 = __ldg(combine + 3 * blockIdx.x);
+  const int c1 = __ldg(combine + 3 * blockIdx.x + 1);
+  const int out = __ldg(combine + 3 * blockIdx.x + 2);
+  const unsigned i = threadIdx.x >> 5;
+  const unsigned lq = (threadIdx.x & 31) * 4;
+  const float* p = part + i * npart * 128 + lq;
+  float4 s = *reinterpret_cast<const float4*>(
+      p + static_cast<unsigned>(c0) * 128);
+  for (int c = c0 + 1; c < c1; ++c)
+    s = add4(s, *reinterpret_cast<const float4*>(
+                    p + static_cast<unsigned>(c) * 128));
+  *reinterpret_cast<float4*>(
+      ys + (i * nys + static_cast<unsigned>(out)) * 128 + lq) = s;
 }
 
 // K4: a whole 1024-tile route (the y-route when the output fits one),
@@ -353,7 +438,7 @@ __global__ void route_m3_kernel(const float* __restrict__ m,
 // slice's row range once (reduce_table over the hot planes' emissions,
 // reduce groups and regions), the table (at most 4 KB) is read in place
 // from L1/L2 by direct index, and one thread per (slice, sublane, lane)
-// loops over its rows, as K3 does.
+// loops over its rows.
 __global__ void reduce_hot_kernel(
     const float* __restrict__ xh, const int16_t* __restrict__ hidx,
     const float* __restrict__ hvals, const int32_t* __restrict__ row0,
@@ -383,8 +468,8 @@ __global__ void reduce_hot_kernel(
 // wrapper derives every row's slice start on the device (a running max of
 // the emission rows, no host sync), one block per (plane row, sublane)
 // returns at once unless its row is an emission with an id below nys, and
-// its threads (one per lane) loop over the slice's rows, as K3 does,
-// reading gx in place where K3 reads the mstream through M3.
+// its threads (one per lane) loop over the slice's rows, reading gx in
+// place where K3 reads the mstream through M3.
 __global__ void reduce_stream_kernel(
     const float* __restrict__ vals, const float* __restrict__ gx,
     const int16_t* __restrict__ p3, const int32_t* __restrict__ emit,
@@ -431,18 +516,27 @@ int cvr_route_middle(const void* g1, const void* m1, const void* csel,
   return static_cast<int>(cudaGetLastError());
 }
 
-int cvr_reduce_slices(const void* m, const void* m3, const void* vals,
-                      const void* p3, const void* row0, const void* row1,
-                      const void* out, const void* fast, void* ys,
-                      long long nitems, long long TM, long long S,
-                      long long nys, void* stream) {
-  dim3 grid(static_cast<unsigned int>(nitems), 8);
-  reduce_slices_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(m), static_cast<const int16_t*>(m3),
-      static_cast<const float*>(vals), static_cast<const int16_t*>(p3),
-      static_cast<const int32_t*>(row0), static_cast<const int32_t*>(row1),
-      static_cast<const int32_t*>(out), static_cast<const int32_t*>(fast),
-      static_cast<float*>(ys), TM, S, nys);
+int cvr_reduce_slices(const void* m, const void* idx, const void* vals,
+                      const void* pieces, void* ys, void* part, int npieces,
+                      int S, int nys, int npart, void* stream) {
+  // one block per piece
+  reduce_slices_kernel<<<static_cast<unsigned int>(npieces), kReduceThreads,
+                         0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(m), static_cast<const int32_t*>(idx),
+      static_cast<const float*>(vals), static_cast<const int32_t*>(pieces),
+      static_cast<float*>(ys), static_cast<float*>(part), S, nys, npart);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_reduce_slices_combine(const void* part, const void* combine, void* ys,
+                              int ncombine, int nys, int npart,
+                              void* stream) {
+  // one block per split slice
+  reduce_slices_combine_kernel<<<static_cast<unsigned int>(ncombine),
+                                 kReduceThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<const int32_t*>(combine),
+      static_cast<float*>(ys), nys, npart);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 """The routed SpMV's and the route library's device passes: eleven
 wrappers over eight Hopper kernels (K1's kernel also runs the ring steps
-of K15, K5's the brute middle K17 and K6's the flat middle K16).
+of K15, K5's the brute middle K17 and K6's the flat middle K16; K3 adds a
+second pass for its split slices).
 
 Each pass has three parts side by side:
 
@@ -24,7 +25,9 @@ stream<->middle and flat<->stream relayouts are plain tensor permutes.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -357,38 +360,166 @@ def slice_sums(P, item, out, nys: int):
     return ys
 
 
-def reduce_slices_plain(m, m3, vals, p3, row0, row1, out, fast, nys: int):
+def reduce_slices_plain(m, m3, vals, p3, row0, row1, out, fast, nys: int,
+                        plan=None):
     """ys (8, nys, 128): ys[:, out[k], :] = sum over plane rows
     [row0[k], row1[k]) of the products (reduce_products_plain); slices
-    no item names stay zero."""
+    no item names stay zero.  ``plan`` (the kernel's) is not read."""
     item, rows = slice_rows(row0, row1)
     P = reduce_products_plain(m, m3, vals, p3, rows, fast.bool()[item])
     return slice_sums(P, item, out, nys)
 
 
-def reduce_slices(m, m3, vals, p3, row0, row1, out, fast, nys: int):
+def reduce_index(m3, p3, row0, row1, fast):
+    """(8, S, 128) int32: K3's composed index.  For each element of a
+    plane row that slice k names, the flat position in the mstream m
+    (8, TM, 128) of the element it multiplies (reduce_products_plain's
+    m[i3>>7, q, i3&127]: stage 3 by p3, aligned on zone-A slices, then the
+    M3 plane m3); 0 on the rows no slice names, which are never read."""
+    TM = m3.shape[1]
+    if 8 * TM * 128 > INT32_MAX:
+        raise ValueError(f"reduce_slices: an mstream of {TM} rows exceeds "
+                         "the kernel's 32-bit indices")
+    item, rows = slice_rows(row0, row1)
+    c = (rows >> 7).view(1, -1, 1)
+    fL = (rows & 127).view(1, -1, 1)
+    idx = p3[:, rows, :].long()
+    sub = torch.arange(8, device=p3.device).view(8, 1, 1)
+    hi = torch.where(fast.bool()[item].view(1, -1, 1), sub, idx >> 7)
+    q = ((c >> 3) << 10) + ((hi << 7) | (idx & 127))
+    i3 = m3[c & 7, q, fL].long()
+    out = torch.zeros(p3.shape, dtype=torch.int32, device=p3.device)
+    out[:, rows, :] = (((i3 >> 7) * TM + q) * 128 + (i3 & 127)).int()
+    return out
+
+
+@dataclass(frozen=True)
+class Split:
+    """A reduce's items cut into pieces of at most ``rows`` rows
+    (split_rows), on the kernel's device.  pieces (npieces, 3) int32: a
+    piece's first row, end row and destination (the item's output >= 0
+    when the item is one piece, else -1 - the piece's partial); combine
+    (nsplit, 3) int32: a split item's first partial, end partial and
+    output.  The partials of an item are consecutive, in row order."""
+
+    pieces: torch.Tensor
+    combine: torch.Tensor
+    npart: int
+    rows: int
+
+
+def split_rows(row0, row1, out, rows: int):
+    """(pieces, combine) int32 numpy arrays of Split: item k's row range
+    [row0[k], row1[k]) cut into ceil(n/rows) pieces (one if it is empty)
+    whose sizes differ by at most 1, in row order."""
+    if rows < 1:
+        raise ValueError(f"split_rows: pieces of {rows} rows")
+    row0 = np.asarray(row0, dtype=np.int64)
+    out = np.asarray(out, dtype=np.int64)
+    n = np.asarray(row1, dtype=np.int64) - row0
+    if (n < 0).any():
+        raise ValueError("split_rows: a row range ends before it starts")
+    npc = np.maximum(1, -(-n // rows))
+    item = np.repeat(np.arange(n.shape[0]), npc)
+    first = np.cumsum(npc) - npc  # each item's first piece
+    j = np.arange(item.shape[0]) - first[item]
+    p0 = row0[item] + j * n[item] // npc[item]
+    p1 = row0[item] + (j + 1) * n[item] // npc[item]
+    split = npc[item] > 1
+    part = np.cumsum(split) - 1  # partial of each split item's piece
+    pieces = np.stack([p0, p1, np.where(split, -1 - part, out[item])], 1)
+    multi = np.flatnonzero(npc > 1)
+    c0 = part[first[multi]]
+    combine = np.stack([c0, c0 + npc[multi], out[multi]], 1)
+    return (np.ascontiguousarray(pieces, dtype=np.int32).reshape(-1, 3),
+            np.ascontiguousarray(combine, dtype=np.int32).reshape(-1, 3))
+
+
+def make_split(row0, row1, out, rows: int, device) -> Split:
+    """split_rows of the tables (tensors on any device), on ``device``."""
+    pieces, combine = split_rows(*(t.cpu().numpy() for t in (row0, row1, out)),
+                                 rows)
+    return Split(pieces=torch.from_numpy(pieces).to(device),
+                 combine=torch.from_numpy(combine).to(device),
+                 npart=int((pieces[:, 2] < 0).sum()), rows=rows)
+
+
+# plane rows a K3 piece sums at most (a slice of more rows is split)
+REDUCE_PIECE_ROWS = 16
+
+
+@dataclass(frozen=True)
+class ReducePlan:
+    """What K3 reads in place of p3, the M3 plane and the slice table,
+    made at upload (reduce_plan): the composed index and the pieces."""
+
+    idx: torch.Tensor  # (8, S, 128) int32, reduce_index
+    split: Split
+    TM: int  # the mstream rows idx reaches
+
+
+def reduce_plan(m3, p3, row0, row1, out, fast) -> ReducePlan:
+    """K3's plan for the slice table (row0, row1, out, fast) over the
+    planes p3 and m3, on their device: pieces of at most
+    REDUCE_PIECE_ROWS rows."""
+    return ReducePlan(idx=reduce_index(m3, p3, row0, row1, fast),
+                      split=make_split(row0, row1, out, REDUCE_PIECE_ROWS,
+                                       p3.device),
+                      TM=m3.shape[1])
+
+
+def reduce_geometry(S: int, TM: int, nys: int, npart: int) -> None:
+    """Raise where K3's 32-bit index arithmetic cannot reach: planes of S
+    rows, an mstream of TM rows, ys of nys slices or npart partial rows
+    (8 x rows x 128 elements each)."""
+    for what, rows in (("planes", S), ("mstream", TM), ("ys", nys),
+                       ("partials", npart)):
+        if 8 * rows * 128 > INT32_MAX:
+            raise ValueError(f"reduce_slices: {what} of {rows} rows exceed "
+                             "the kernel's 32-bit indices")
+
+
+def reduce_slices(m, m3, vals, p3, row0, row1, out, fast, nys: int,
+                  plan: ReducePlan | None = None):
     """K3: per-slice lane sums ys (8, nys, 128) from the mstream m
     (8, TM, 128) f32, its M3 plane m3 (8, TM, 128) int16, the value
     planes vals (8, S_pad, 128) f32 and stage-3 plane p3 (8, S_pad, 128)
     int16.  Slice k sums plane rows [row0[k], row1[k]) into ys[:, out[k]];
     fast[k] marks zone-A slices (aligned stage 3).  Tables are int32;
-    see reduce_slices_plain."""
+    see reduce_slices_plain.  On the card the kernel reads ``plan``
+    (reduce_plan of the same planes and table, made at upload) in place
+    of m3, p3 and the table: two launches, the second adding the split
+    slices' partials."""
     if not _on_card("reduce_slices", m, m3, vals, p3, row0, row1, out, fast):
         return reduce_slices_plain(m, m3, vals, p3, row0, row1, out, fast, nys)
-    for t, dt in ((m, torch.float32), (m3, torch.int16),
-                  (vals, torch.float32), (p3, torch.int16),
-                  (row0, torch.int32), (row1, torch.int32),
-                  (out, torch.int32), (fast, torch.int32)):
+    if plan is None:
+        raise ValueError("reduce_slices: the kernel needs the plan made at "
+                         "upload (reduce_plan)")
+    split = plan.split
+    for t, dt in ((m, torch.float32), (vals, torch.float32),
+                  (plan.idx, torch.int32), (split.pieces, torch.int32),
+                  (split.combine, torch.int32)):
         _check_dtype("reduce_slices", t, dt)
     TM, S = m.shape[1], vals.shape[1]
-    if m3.shape != m.shape or p3.shape != vals.shape or TM % 1024:
-        raise ValueError("reduce_slices: plane shapes disagree")
+    if (m.shape != (8, TM, 128) or vals.shape != (8, S, 128)
+            or plan.idx.shape != vals.shape or plan.TM != TM):
+        raise ValueError("reduce_slices: plane shapes disagree with the plan")
+    _on_card("reduce_slices", m, plan.idx, split.pieces, split.combine)
+    reduce_geometry(S, TM, nys, split.npart)
+    _check_aligned("reduce_slices", vals, plan.idx)
     ys = torch.zeros((8, nys, 128), dtype=torch.float32, device=m.device)
-    n = row0.shape[0]
+    part = torch.empty((8, split.npart, 128), dtype=torch.float32,
+                       device=m.device)
+    n = split.pieces.shape[0]
     if n:
-        _launch("cvr_reduce_slices", m.device, _p(m), _p(m3), _p(vals),
-                _p(p3), _p(row0), _p(row1), _p(out), _p(fast), _p(ys), n,
-                TM, S, nys)
+        _launch("cvr_reduce_slices", m.device, _p(m), _p(plan.idx),
+                _p(vals), _p(split.pieces), _p(ys), _p(part), n, S, nys,
+                split.npart)
+        reduce_slices.launches += 1
+    if split.combine.shape[0]:
+        _launch("cvr_reduce_slices_combine", m.device, _p(part),
+                _p(split.combine), _p(ys), split.combine.shape[0], nys,
+                split.npart)
         reduce_slices.launches += 1
     return ys
 

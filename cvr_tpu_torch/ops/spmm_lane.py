@@ -161,6 +161,7 @@ class LaneDevice:
     vals_l: torch.Tensor  # (S_lane, 1024) f32
     row0: torch.Tensor  # (nslots,) int32 slot s sums plane rows
     row1: torch.Tensor  # [row0[s], row1[s])
+    split: lk.Split  # the slots cut into pieces (lane_split), for K13
     first_pos: torch.Tensor  # (nrows,) int64
     extra_pos: torch.Tensor  # (n_extra,) int64
     extra_row: torch.Tensor  # (n_extra,) int64
@@ -170,18 +171,21 @@ class LaneDevice:
 
 
 def to_device_lane(lp: LanePlan, device="cuda") -> LaneDevice:
-    """Upload the plan's planes, its slot table and combine maps.  The
-    slots are the plan's 8-slice output blocks plus one zero slot."""
+    """Upload the plan's planes, its slot table, K13's split of it
+    (lane_split, made here once) and the combine maps.  The slots are the
+    plan's 8-slice output blocks plus one zero slot."""
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
     nslots = -(-lp.nslices // SB) * SB + 1
-    row0, row1 = lane_table(lp.emit_l, lp.ob, nslots)
+    row0, row1 = (put(a, np.int32) for a in lane_table(lp.emit_l, lp.ob,
+                                                       nslots))
     return LaneDevice(
         cols_l=put(lp.cols_l, np.int32),
         vals_l=put(lp.vals_l, np.float32),
-        row0=put(row0, np.int32),
-        row1=put(row1, np.int32),
+        row0=row0,
+        row1=row1,
+        split=lk.lane_split(row0, row1),
         first_pos=put(lp.first_pos, np.int64),
         extra_pos=put(lp.extra_pos, np.int64),
         extra_row=put(lp.extra_row, np.int64),
@@ -193,7 +197,7 @@ def to_device_lane(lp: LanePlan, device="cuda") -> LaneDevice:
 
 def kernel_args(sd: LaneDevice, X: torch.Tensor) -> tuple:
     """K13's arguments for X (f32, contiguous)."""
-    return sd.cols_l, sd.vals_l, sd.row0, sd.row1, X
+    return sd.cols_l, sd.vals_l, sd.row0, sd.row1, X, sd.split
 
 
 def spmm_lane(sd: LaneDevice, X: torch.Tensor) -> torch.Tensor:

@@ -89,6 +89,9 @@ class SellRoutedDevice:
     red_row1: torch.Tensor
     red_out: torch.Tensor
     red_fast: torch.Tensor
+    # what K3 reads on the card in place of p3, the M3 plane and the
+    # table: the composed index and the slices cut into pieces
+    red_plan: rk.ReducePlan
     yroute: RouteDevice
     extra_src: torch.Tensor  # (n_extra,) int64 padded y-stream positions
     extra_row: torch.Tensor  # (n_extra,) int64 rows to add into
@@ -202,15 +205,17 @@ def route_to_device(ra: dict, device) -> RouteDevice:
 
 def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
     """Upload the routed artifact's planes to ``device`` (the card unless
-    the caller asks for another)."""
+    the caller asks for another), with K3's plan (reduce_plan: the
+    composed index and the slices cut into pieces), made here once."""
     put = _put(device)
     mid = mid_to_device(sr.mid, device)
     nrows_out = sr.y_ra["n"]
     # geometry-padding extras (forced dist shards) add into row nrows_out,
     # out of range: the reference drops them, the port filters them here
     keep = np.asarray(sr.extra_row) < nrows_out
-    row0, row1, out, fast = reduce_table(sr.emit, sr.ycall_rows, sr.regions,
-                                         sr.nslices, sr.zone_rows)
+    red = [put(a) for a in reduce_table(sr.emit, sr.ycall_rows, sr.regions,
+                                        sr.nslices, sr.zone_rows)]
+    p3 = put(sr.p3)
     hot = {}
     hp = sr.hot
     if hp is not None:
@@ -229,11 +234,13 @@ def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
         seg_blk=put(sr.seg_blk),
         mid=mid,
         vals_ss=put(sr.vals_ss),
-        p3=put(sr.p3),
-        red_row0=put(row0),
-        red_row1=put(row1),
-        red_out=put(out),
-        red_fast=put(fast),
+        p3=p3,
+        red_row0=red[0],
+        red_row1=red[1],
+        red_out=red[2],
+        red_fast=red[3],
+        red_plan=rk.reduce_plan(mid.m3 if mid.kind == "rec" else mid.mid,
+                                p3, *red),
         yroute=route_to_device(sr.y_ra, device),
         extra_src=put(np.asarray(sr.extra_src, dtype=np.int64)[keep]),
         extra_row=put(np.asarray(sr.extra_row, dtype=np.int64)[keep]),
@@ -276,7 +283,7 @@ def reduce(sd: SellRoutedDevice, m: torch.Tensor, m3: torch.Tensor):
     """Per-slice lane sums ys (8, nslices, 128)."""
     return rk.reduce_slices(m, m3, sd.vals_ss, sd.p3, sd.red_row0,
                             sd.red_row1, sd.red_out, sd.red_fast,
-                            sd.nslices)
+                            sd.nslices, sd.red_plan)
 
 
 def y_stream(sd: SellRoutedDevice, ys: torch.Tensor) -> torch.Tensor:
