@@ -64,12 +64,13 @@ Phases, each printed on its own lines:
      each SpMM kernel's launch against its plain version over all K
      columns, and a looped SpMM's launches at column 0; then ``cli spmv
      --rhs K`` on a smaller MatrixMarket file of each generator, verified;
-     then K11, K12 and K13 on small matrices at K 17 and 130 and at K 64
-     with X at a 4 B offset, K13 also at K 132 (RAGGED: banded 3000 and
+     then K11-K14 on small matrices at K 17 and 130 and at K 64 with X
+     at a 4 B offset, K13 and K14 also at K 132 (RAGGED: banded 3000 and
      2999 rows, a reach wider than one K11 window, BSR row blocks without
-     bricks, a lane plan whose 1,024-row slot is split), each at the
-     golden and against its plain version (K13 also against a second
-     launch, bit for bit);
+     bricks, a lane plan whose 1,024-row slot is split, a small fsm-like
+     whose long rows K14 splits), each at the golden and against its
+     plain version (K13 and K14 also against a second launch, bit for
+     bit);
   8. the row-sharded routed SpMV (dist_routed_pack, dist_spmv_routed) on a
      mesh of 4 shards that all share this one card, so the all-gather and
      the ring's moves are copies inside it and the times are not scaling
@@ -142,6 +143,7 @@ from cvr_tpu_torch.ops import _build, kernels
 from cvr_tpu_torch.ops import dia_kernels as dk
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops import route_planes as rp
+from cvr_tpu_torch.ops import window_kernels as wk
 from cvr_tpu_torch.ops import spmv_routed as sp
 from cvr_tpu_torch.ops import spmm_bsr, spmm_lane, spmm_pmm
 from cvr_tpu_torch.ops.spmm_bsr import BsrDevice
@@ -274,16 +276,34 @@ def empty_row_blocks(seed=6) -> COOMatrix:
         shape=(900, 1000)).sum_duplicates()
 
 
-# Phase [7]'s small cases, where K11, K12 and K13 take the paths the
-# full-size cases do not: a ragged K (the 4 B copies of X, a masked last K
-# tile; K13's 4 B X reads), K 64 with X at a 4 B offset (4 B copies at
-# K % 4 == 0; K13's 4 B X reads), an odd row count (K11's 4 B band
-# copies), a reach wider than one window (K11's several windows), row
-# blocks without bricks (K12 writes their zeros), and for K13 also K 132
-# (16 B X reads over two column tiles, the second one masked) on a lane
-# plan whose 1,024-row slot is split into pieces.
+def fsm_long_rows(seed=8) -> COOMatrix:
+    """A small fsm-like matrix (16,384 rows) with rows 5, 700 and 9000
+    given 300, 1,000 and 5,000 entries at random columns: rows that K14
+    cuts into pieces."""
+    coo = syn.fsm_like(n=1 << 14)
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [coo.rows], [coo.cols], [coo.vals]
+    for r, n in ((5, 300), (700, 1000), (9000, 5000)):
+        rows.append(np.full(n, r, dtype=np.int32))
+        cols.append(rng.choice(coo.shape[1], n, replace=False).astype(
+            np.int32))
+        vals.append(rng.standard_normal(n).astype(np.float32))
+    return COOMatrix(rows=np.concatenate(rows), cols=np.concatenate(cols),
+                     vals=np.concatenate(vals),
+                     shape=coo.shape).sum_duplicates()
+
+
+# Phase [7]'s small cases, where K11-K14 take the paths the full-size
+# cases do not: a ragged K (the 4 B copies of X, a masked last K tile;
+# K13's and K14's 4 B X reads), K 64 with X at a 4 B offset (4 B copies at
+# K % 4 == 0; K13's and K14's 4 B X reads), an odd row count (K11's 4 B
+# band copies), a reach wider than one window (K11's several windows), row
+# blocks without bricks (K12 writes their zeros), and for K13 and K14 also
+# K 132 (16 B X reads over several column tiles, the last one masked) on a
+# lane plan whose 1,024-row slot is split into pieces and a PMM plan whose
+# long rows are (K14's second pass).
 RAGGED_K = (17, 130)
-RAGGED_LANE_K = (132,)
+RAGGED_VEC_K = (132,)
 RAGGED = (
     ("banded_3000_27", lambda: syn.banded_matrix(3000, 27), "dia"),
     ("banded_2999_27", lambda: syn.banded_matrix(2999, 27), "dia"),
@@ -291,6 +311,7 @@ RAGGED = (
                                             (-2500, -1, 0, 1, 1800)), "dia"),
     ("empty_row_blocks", empty_row_blocks, "bsr"),
     ("rmat14_lane", lambda: syn.rmat_matrix(14, 6, seed=42), "lane"),
+    ("fsm14_long_rows", fsm_long_rows, "pmm"),
 )
 
 # Phase [8]: the row-sharded routed SpMV on DIST_SHARDS shards of the one
@@ -404,10 +425,12 @@ EVENTS = {"tileperm": "tileperm_kernel<false>",
 # kernels of ours whose wrapper launches a second pass (adding a split
 # item's partials): kernel -> the second pass's device events' name
 SECOND = {"reduce_slices": "reduce_slices_combine_kernel",
-          "lane_reduce": "lane_reduce_combine_kernel"}
+          "lane_reduce": "lane_reduce_combine_kernel",
+          "pmm_spmm": "pmm_spmm_combine_kernel"}
 # kernels whose output must repeat bit for bit from launch to launch
-# (split sums added in a fixed order, no float atomics)
-REPEAT = tuple(SECOND)
+# (sums in a fixed order, split sums added in a fixed order, no float
+# atomics)
+REPEAT = (*SECOND, "window_reduce")
 
 
 def event_of(name: str) -> str:
@@ -510,12 +533,13 @@ def spmm_kernel(sd) -> str | None:
 
 def expected_spmm_launches(sd, K: int) -> dict[str, int]:
     """Launches of each kernel in one SpMM of the device artifact ``sd``
-    at width K: the SpMM kernel's (K13's second pass counted as a
-    launch), or K SpMVs' worth."""
+    at width K: the SpMM kernel's (K13's and K14's second pass counted as
+    a launch), or K SpMVs' worth."""
     name = spmm_kernel(sd)
     if name is None:
         return {k: n * K for k, n in expected_launches(sd).items()}
-    n = 1 + (second_pass(sd.split) if name == "lane_reduce" else 0)
+    plan = {"lane_reduce": "split", "pmm_spmm": "work"}.get(name)
+    n = 1 + (second_pass(getattr(sd, plan)) if plan else 0)
     return {**dict.fromkeys(kernels.KERNELS, 0), name: n}
 
 
@@ -771,8 +795,8 @@ def row_scale_args(name, args):
         cols, vals, row0, row1, X, *rest = args
         return (cols, vals.abs(), row0, row1, X.abs(), *rest)
     if name == "pmm_spmm":
-        col, val, rl, chunk_start, X, nrows = args
-        return (col, val.abs(), rl, chunk_start, X.abs(), nrows)
+        col, val, rowptr, X, *rest = args
+        return (col, val.abs(), rowptr, X.abs(), *rest)
     if name == "bell_gather_mac":
         li, vals, x, *rest = args
         return (li, vals.abs(), x.abs(), *rest)
@@ -789,16 +813,18 @@ def bound(name, args, out) -> tuple[float, str]:
     once over the HBM rate, or the float32 operations over the card's
     rate outside the tensor cores (one multiply and one add per stored
     element, and per column of X for an SpMM kernel: BSR counts its dense
-    bricks, lane the plane rows its slots sum, PMM the element slots that
-    hold an entry).  BSR's f32-grade product runs on the tensor cores as
-    3xTF32: three TF32 passes over its bricks at the TF32 rate.  The
+    bricks, lane the plane rows its slots sum, PMM its entries).  BSR's
+    f32-grade product runs on the tensor cores as 3xTF32: three TF32
+    passes over its bricks at the TF32 rate.  The
     reduces read only the plane rows their slice tables name (this run's
     data); K3 reads, per element of those rows, its value and its composed
     index (in place of p3 and the M3 plane), one m element at most per
     element (at most m's size in all), and its piece tables; the unfused
     reduce reads emit, and per element of those rows its value, p3 entry
     and one gx element (its gemit is not read); K4 its index and the ysp
-    elements it names."""
+    elements it names; K14 its entries (8 B each), its work plan's tables
+    (segment offsets, units, combine table: on the card they take the
+    place of the row offsets, which it does not read) and X once."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     ops, rate = 0, F32_OPS_PER_S
@@ -839,7 +865,10 @@ def bound(name, args, out) -> tuple[float, str]:
         used = int((args[3].long() - args[2].long()).sum()) * 1024
         ops = 2 * used * out.shape[1]
     elif name == "pmm_spmm":
-        ops = 2 * int((args[0] >= 0).sum()) * out.shape[1]
+        col, val, rowptr, X, work = args
+        nbytes = sum(t.numel() * t.element_size() for t in (
+            col, val, X, work.segptr, work.units, work.combine))
+        ops = 2 * col.numel() * out.shape[1]
     nbytes += out.numel() * out.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
@@ -862,8 +891,9 @@ def library_call(name, args, want=None):
     part without the routed spill; reduce_slices: cuSPARSE's CSR SpMV of
     the entries its slices sum, times m flattened (reduce_csr_call);
     lane_reduce: cuSPARSE's CSR SpMM of the entries its slots sum, times X
-    (lane_csr_call); each within 1e-6 of the row scale of the kernel's
-    output (they sum in another order)."""
+    (lane_csr_call); window_reduce: cuSPARSE's CSR SpMV of the entries
+    its slices sum, times x (window_csr_call); each within 1e-6 of the row
+    scale of the kernel's output (they sum in another order)."""
     if name == "tileperm":
         data, idx = args
         T = data.shape[1]
@@ -889,6 +919,8 @@ def library_call(name, args, want=None):
         return reduce_csr_call(args)
     elif name == "lane_reduce":
         return lane_csr_call(args)
+    elif name == "window_reduce":
+        return window_csr_call(args)
     else:
         return None
     if not torch.equal(call(), want):
@@ -960,6 +992,28 @@ def lane_csr_call(args):
                     cols.view(-1, 1024)[rows].long().reshape(-1),
                     vals[rows].reshape(-1), (nslots * 1024, X.shape[0]), X,
                     args, lambda y: y)
+
+
+def window_csr_call(args):
+    """K10's library call (library_call): cuSPARSE's CSR SpMV of the
+    entries its slices sum, one row per (sublane i, slice, lane), each
+    entry a plane value at the x column its window names
+    (window_kernels.window_columns; the pads' zero values and the
+    elements that gather nothing left out), times x; its output is ys."""
+    li, vals, w10, seg_blk, x, row0, row1, out, nys, segw, G, wrl = args
+    item, rows = rk.slice_rows(row0, row1)
+    n = rows.shape[0]
+    dev = x.device
+    col, valid = wk.window_columns(li, w10, seg_blk, rows, segw, G, wrl,
+                                   x.shape[0])
+    v = vals[:, rows, :]
+    keep = valid & (v != 0)
+    i = torch.arange(8, device=dev).view(8, 1, 1)
+    lane = torch.arange(128, device=dev).view(1, 1, 128)
+    row = ((i * nys + out.long()[item].view(1, n, 1)) * 128 + lane)
+    return csr_call("window_reduce", row.expand_as(col)[keep], col[keep],
+                    v[keep], (8 * nys * 128, x.shape[0]), x, args,
+                    lambda y: y.view(8, nys, 128))
 
 
 def library_ms(call, device) -> tuple[float | None, float | None]:
@@ -1345,14 +1399,16 @@ def spmm_case(tag, name, coo, K, entry, want, device):
 
 
 def ragged_spmm(device) -> None:
-    """Phase [7]'s RAGGED cases: each packed as DIA, BSR or the lane plan,
-    through spmm at each of RAGGED_K (and RAGGED_LANE_K for the lane
-    plan) and at K 64 with X at a 4 B offset: the launch count, every
-    column at the float64 golden, and the launch against its plain version
-    within 1e-6 of the row scale (K13's also against a second launch, bit
-    for bit)."""
+    """Phase [7]'s RAGGED cases: each packed as DIA, BSR, the lane plan or
+    the PMM plan, through spmm at each of RAGGED_K (and RAGGED_VEC_K for
+    the lane and PMM plans) and at K 64 with X at a 4 B offset: the launch
+    count, every column at the float64 golden, and the launch against its
+    plain version within 1e-6 of the row scale (K13's and K14's also
+    against a second launch, bit for bit)."""
     packs = {"dia": dia_pack, "bsr": lambda c: bsr_pack(c, min_fill=0.0),
-             "lane": spmm_lane.spmm_lane_pack}
+             "lane": spmm_lane.spmm_lane_pack,
+             "pmm": lambda c: spmm_pmm.pmm_plan(c.row_ids(), c.cols, c.vals,
+                                                c.shape)}
     for name, make, fmt in RAGGED:
         coo = make()
         csr = coo.to_csr()
@@ -1368,7 +1424,18 @@ def ragged_spmm(device) -> None:
                   f"{split.combine.shape[0]} slots split")
             if not split.combine.shape[0]:
                 raise AssertionError(f"[7] {name}: no K13 slot is split")
-            ks += [(k, 0) for k in RAGGED_LANE_K]
+            ks += [(k, 0) for k in RAGGED_VEC_K]
+        elif fmt == "pmm":
+            work = sd.work
+            width = int((sd.rowptr[1:] - sd.rowptr[:-1]).max())
+            print(f"[7] {name}: PMM plan, {sd.rowptr.shape[0] - 1} rows (the "
+                  f"longest {width} entries), K14 segments of at most "
+                  f"{work.piece} entries: {work.segptr.shape[0] - 1} in "
+                  f"{work.units.shape[0]} units, {work.combine.shape[0]} "
+                  f"rows split into {work.npart} pieces")
+            if not work.combine.shape[0]:
+                raise AssertionError(f"[7] {name}: no K14 row is split")
+            ks += [(k, 0) for k in RAGGED_VEC_K]
         elif fmt == "dia":
             _, nwin, smem = dk.window_plan(sd.offsets)
             print(f"[7] {name}: {describe(A)}; K11 plan {nwin} windows, "
@@ -1399,6 +1466,12 @@ def ragged_spmm(device) -> None:
                 raise AssertionError(f"{tag} rows without entries are not 0")
             [(kname, _, args)] = kernel_cases(tag, sd, Xd)
             wrapper, plain, _ = kernels.KERNELS[kname]
+            if kname in ("lane_reduce", "pmm_spmm"):
+                vec = K % 4 == 0 and Xd.data_ptr() % 16 == 0
+                n = launches[kname]
+                print(f"{tag} {kname} reads X {'16' if vec else '4'} B a "
+                      f"lane; {n} launch{'es: the second adds the split '
+                      'items\' partials' if n > 1 else ''}")
             got, want = wrapper(*args), plain(*args)
             row_scale = plain(*row_scale_args(kname, args))
             err = float((got - want).abs().max())

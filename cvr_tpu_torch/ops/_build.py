@@ -124,7 +124,7 @@ def load():
     lib.cvr_dia_spmv.argtypes = [p, p, p, p, i32, i64, i64, p]
     lib.cvr_bell_gather_mac.argtypes = [p, p, p, p, i32, i64, i32, i32, i64, p]
     lib.cvr_window_reduce.argtypes = [
-        p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i32, i32, i32, i32, p,
+        p, p, p, p, p, p, p, p, p, i32, i32, i32, i64, i32, i32, i32, i32, p,
     ]
     lib.cvr_dia_spmm.argtypes = [p, p, p, i32, i32, p, p, i64, i64, i32,
                                   p]
@@ -132,7 +132,8 @@ def load():
     lib.cvr_bsr_spmm_smem.argtypes = []
     lib.cvr_lane_reduce.argtypes = [p, p, p, p, p, p, i32, i32, i32, p]
     lib.cvr_lane_reduce_combine.argtypes = [p, p, p, i32, i32, p]
-    lib.cvr_pmm_spmm.argtypes = [p, p, p, p, p, p, i64, i64, i32, p]
+    lib.cvr_pmm_spmm.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, p]
+    lib.cvr_pmm_spmm_combine.argtypes = [p, p, p, i32, i32, p]
     for fn in (
         lib.cvr_expand, lib.cvr_route_middle, lib.cvr_reduce_slices,
         lib.cvr_reduce_slices_combine, lib.cvr_lane_reduce_combine,
@@ -140,7 +141,7 @@ def load():
         lib.cvr_reduce_hot, lib.cvr_reduce_stream, lib.cvr_dia_spmv,
         lib.cvr_bell_gather_mac, lib.cvr_window_reduce, lib.cvr_dia_spmm,
         lib.cvr_bsr_spmm, lib.cvr_bsr_spmm_smem, lib.cvr_lane_reduce,
-        lib.cvr_pmm_spmm,
+        lib.cvr_pmm_spmm, lib.cvr_pmm_spmm_combine,
     ):
         fn.restype = ctypes.c_int
     _LIB = lib

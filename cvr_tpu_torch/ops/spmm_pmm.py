@@ -13,8 +13,10 @@ within the group, padded per group to a 128 multiple ("chunks"); each
 chunk emits one pair per distinct window, with the element slots of that
 window in ``lc`` (LC_SENTINEL elsewhere).  On the card the one-hot
 products become direct indexing: ``to_device_pmm`` derives each element
-slot's column (``win * 128 + lc``), value and local row once, and K14
-walks each row tile's chunks (no pairs, no segments).
+slot's column (``win * 128 + lc``) once, drops the pad slots and reorders
+the rest stably by row (``pmm_entries``: each row's entries in column
+order, 8 B an entry), and K14 sums each row from its entries and the work
+plan ``pmm_kernels.pmm_work`` made at upload (no pairs, no chunks).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from cvr_tpu_torch.ops import pmm_kernels
+from cvr_tpu_torch.ops.route_kernels import INT32_MAX
 
 LC_SENTINEL = 128  # local-col value that matches no source lane
 
@@ -226,10 +229,10 @@ def pmm_estimate(rows, cols, shape, sample: int = 256, seed: int = 0):
 
 @dataclass(frozen=True)
 class PmmDevice:
-    col: torch.Tensor  # (nchunks * 128,) int32 element column, -1 on pads
-    val: torch.Tensor  # (nchunks * 128,) f32 element value, 0 on pads
-    rl: torch.Tensor  # (nchunks * 128,) int32 row within the row tile
-    chunk_start: torch.Tensor  # (nrt + 1,) int64: row tile t's chunks
+    col: torch.Tensor  # (nnz,) int32 entry column, row order, columns sorted
+    val: torch.Tensor  # (nnz,) f32 entry value
+    rowptr: torch.Tensor  # (nrows + 1,) int32: row r's entries
+    work: pmm_kernels.PmmWork  # K14's segments, units and combine table
     shape: tuple
     nnz: int
     nchunks: int
@@ -237,26 +240,44 @@ class PmmDevice:
     nrt: int
 
 
-def to_device_pmm(plan: PmmPlan, device="cuda") -> PmmDevice:
-    """Upload the plan as element slots: each slot's column comes from the
-    one pair whose lc names it (win * 128 + lc), pad slots get -1; each
-    row tile's chunk range from the pairs' row tiles."""
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
-
+def pmm_entries(plan: PmmPlan):
+    """(col, val, rowptr) numpy: the plan's element slots as the entries
+    of each row.  A slot's column comes from the one pair whose lc names
+    it (win * 128 + lc); pad slots (no pair names them) are dropped; the
+    slots, column-sorted within each row tile, are reordered stably by
+    row, so that each row's entries stay in column order."""
     p, e = np.nonzero(plan.lc != LC_SENTINEL)
     col = np.full(plan.nchunks * 128, -1, dtype=np.int32)
     col[plan.ch[p].astype(np.int64) * 128 + e] = (
         plan.win[p].astype(np.int64) * 128 + plan.lc[p, e]
     )
+    slot = np.flatnonzero(col >= 0)
     chunk_rt = np.zeros(plan.nchunks, dtype=np.int64)
     chunk_rt[plan.ch] = plan.rt
-    chunk_start = np.searchsorted(chunk_rt, np.arange(plan.nrt + 1))
+    row = chunk_rt[slot >> 7] * 128 + plan.rl.reshape(-1)[slot]
+    by_row = np.argsort(row, kind="stable")
+    nrows = int(plan.shape[0])
+    rowptr = np.zeros(nrows + 1, dtype=np.int64)
+    np.cumsum(np.bincount(row, minlength=nrows), out=rowptr[1:])
+    slot = slot[by_row]
+    return col[slot], plan.val.reshape(-1)[slot], rowptr
+
+
+def to_device_pmm(plan: PmmPlan, device="cuda") -> PmmDevice:
+    """Upload the plan as the entries of each row (pmm_entries) and K14's
+    work plan of them (pmm_kernels.pmm_work)."""
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+    col, val, rowptr = pmm_entries(plan)
+    if col.shape[0] > INT32_MAX:
+        raise ValueError(f"to_device_pmm: {col.shape[0]} entries exceed the "
+                         "int32 row offsets")
     return PmmDevice(
         col=put(col, np.int32),
-        val=put(plan.val.reshape(-1), np.float32),
-        rl=put(plan.rl.reshape(-1), np.int32),
-        chunk_start=put(chunk_start, np.int64),
+        val=put(val, np.float32),
+        rowptr=put(rowptr, np.int32),
+        work=pmm_kernels.pmm_work(rowptr, device=device),
         shape=tuple(plan.shape),
         nnz=plan.nnz,
         nchunks=plan.nchunks,
@@ -267,7 +288,7 @@ def to_device_pmm(plan: PmmPlan, device="cuda") -> PmmDevice:
 
 def kernel_args(dev: PmmDevice, X: torch.Tensor) -> tuple:
     """K14's arguments for X (f32, contiguous)."""
-    return dev.col, dev.val, dev.rl, dev.chunk_start, X, dev.shape[0]
+    return dev.col, dev.val, dev.rowptr, X, dev.work
 
 
 def spmm_pmm(dev: PmmDevice, X: torch.Tensor) -> torch.Tensor:

@@ -173,8 +173,8 @@ def test_pmm_spmm_plain_matches_spmm_pmm(case, K, seg, monkeypatch):
     dev = spmm_pmm.to_device_pmm(spmm_pmm.from_reference(plan), "cpu")
     got = spmm_pmm.spmm_pmm(dev, torch.from_numpy(X)).numpy()
     _close(got, np.asarray(jpmm.spmm_pmm(jdev, X)), tcoo, X)
-    # every element slot of the plan names its entry once
-    assert int((dev.col >= 0).sum()) == tcoo.nnz
+    # the upload holds every entry of the plan once, row by row
+    assert dev.col.shape == (tcoo.nnz,) and int(dev.rowptr[-1]) == tcoo.nnz
 
 
 @pytest.mark.parametrize("wrapper,args", [
@@ -186,8 +186,7 @@ def test_pmm_spmm_plain_matches_spmm_pmm(case, K, seg, monkeypatch):
                                 t((2,), torch.int32), t((2,), torch.int32),
                                 t((64, 3)))),
     (pk.pmm_spmm, lambda t: (t((128,), torch.int32), t((128,)),
-                             t((128,), torch.int32), t((2,), torch.int64),
-                             t((64, 3)), 100)),
+                             t((101,), torch.int32), t((64, 3)))),
 ], ids=["dia_spmm", "bsr_spmm", "lane_reduce", "pmm_spmm"])
 def test_wrappers_take_no_plain_path_off_the_cpu(wrapper, args):
     """Given tensors that are not on the CPU, a wrapper launches its kernel
