@@ -15,15 +15,20 @@ Phases, each printed on its own lines:
      golden at rtol 1e-6 (row-scaled), time 100 iterations with CUDA
      events, and time cuSPARSE's CSR SpMV on the same matrix beside it
      (torch.sparse_csr_tensor @ x: a yardstick, never on the path);
-  3. each of its kernels (K1-K4) against its plain PyTorch version at the
-     main path's own tensors: expand, route_middle and route_small bit for
-     bit, reduce_slices within 1e-6 of the row scale (it sums in another
+  3. each of its kernels (K1, K3, K4) against its plain PyTorch version at
+     the main path's own tensors: expand and route_small bit for bit,
+     reduce_slices within 1e-6 of the row scale (it sums in another
      order) and against a second launch bit for bit (its split slices'
-     partials are added in a fixed order); route_small's uploaded index
-     against compose_small_route of its planes, and K4 bit for bit
-     against the three-plane chain
-     (route_small_chain) wherever a flat y-route runs (here, the spill of
-     [6], the looped SpMMs of [7], the shards of [8] and [9c]); kernel
+     partials are added in a fixed order); K3's index, composed at upload
+     through the route middle, against the staged middle (K2's mstream on
+     a recursive middle): the products bit for bit, and K3's sums against
+     K3 run on that mstream by the staged index, bit for bit; K4's
+     uploaded index against compose_route of its planes on the CPU, and
+     K4 bit for bit against the staged y-route: the three-plane chain
+     (route_small_chain) of a flat route, K5, K2, K6, K5 (each launch
+     against its plain version) above 1024 tiles, wherever a routed
+     SpMV runs (here, [5], the spill of [6], the looped SpMMs of [7],
+     shard 0 of each mode of [8] and [9c]); kernel
      time beside plain time, by CUDA events and as device time from a
      torch.profiler trace (alone, and inside the SpMV's trace of [2]),
      with the bound and, where one PyTorch call computes the same
@@ -36,16 +41,16 @@ Phases, each printed on its own lines:
      spmv_routed on the card against the float64 golden and against its
      own CPU plain path;
   5. fsm-like at full size (2,097,152 rows, ~16.5M nnz): the hub-column
-     hybrid (NH 256) and the y-route of 2048 tiles (K5, K2, K6, K5) as
-     in [2]; then every kernel launch of that path (K1, K2 on the x and
-     the y side, K3, K7, K5 at both stages, K6) against its plain version
-     at its own tensors as in [3]; then the same matrix packed with
+     hybrid (NH 256) and the y-route of 2048 tiles (one K4 gather) as in
+     [2]; then every kernel launch of that path (K1, K3, K7, K4) against
+     its plain version at its own tensors as in [3], K4 also against the
+     staged y-route (K5, K2, K6, K5); then the same matrix packed with
      hot="off", its SpMV timed beside the hybrid's;
   6. pack_auto's other formats at full size, each through pack_auto ->
      upload -> spmv as in [2], with the geometry pack_auto must reach:
      banded-2M (2,097,152 rows, 27 diagonals) -> DIA (K8), road-usa-like
      (8,388,608 rows, ~20.8M nnz) -> BELL (K9) with a routed spill (K1,
-     K2, K3, K4), fem-like (1,048,576 rows, ~51.9M nnz) -> SELL-W (K10);
+     K3, K4), fem-like (1,048,576 rows, ~51.9M nnz) -> SELL-W (K10);
      the same matrix through run_spmv_benchmark(impl="auto"), and a
      smaller one of its generator through `cli spmv` (--format auto),
      each printing its verified three-line report; then every kernel
@@ -55,9 +60,10 @@ Phases, each printed on its own lines:
      artifact) with the format it must pick: banded-2M at K 64 -> BSR
      (K12) through the CLI and DIA (K11) through spmm, fem-like at K 64 ->
      BSR (K12), fsm-like at K 32 -> PMM (K14), web-Google-like at K 128
-     -> lane (K13) and at K 8 -> the routed SpMV once per column (K1-K4,
-     8 launches each), road-usa-like at K 8 -> BELL once per column (K9
-     and the spill's K1-K4, 8 launches each); launch counts, 8 columns of
+     -> lane (K13) and at K 8 -> the routed SpMV once per column (K1, K3,
+     K4, 8 launches each), road-usa-like at K 8 -> BELL once per column
+     (K9 and the spill's K1, K3, K4, 8 launches each); launch counts, 8
+     columns of
      Y against the float64 golden, the SpMM timed by CUDA events and as
      device time, cuSPARSE's CSR SpMM (torch.sparse_csr_tensor @ X) and
      for BSR also torch's BSR matmul on the same bricks as yardsticks;
@@ -81,10 +87,11 @@ Phases, each printed on its own lines:
      pack's phases and geometry, launch counts, the float64 golden, its
      time by CUDA events and as device time beside the one-card
      spmv_routed of the same matrix; every shard's uploaded K4 index
-     against compose_small_route of its planes; then K15 on every ring
-     step of every shard against its plain version, bit for bit, with its
-     time alone, its bound and its torch.take, shard 0's K1-K6 in the
-     all-gather mode as in [3], and K3 on every other shard as in [3]
+     against compose_route of its planes (wiki-Talk-like's shards: 2048
+     tiles); then K15 on every ring step of every shard against its plain
+     version, bit for bit, with its time alone, its bound and its
+     torch.take, shard 0's K1, K3, K4 in each mode as in [3] (K4 also
+     against the staged y-route), and K3 on every other shard as in [3]
      (each shard of a forced pack holds a slice of up to 1,024 plane rows),
      with its launches, time alone and bound summed over the shards;
   9. the route library's device API on [2]'s matrix, pack and tensors:
@@ -100,7 +107,13 @@ Phases, each printed on its own lines:
      the float64 golden, its time beside spmv_routed's; each phase with
      its launch counts, and every launch of each sub-path against its
      plain version as in [3] (the set checked equals the set launched);
- 10. a JSON line of the kernels of every path, then the last line
+ 10. the digests: every routed y above (the SpMVs of [2], [4], [5], the
+     road-usa-like of [6] and each mode of [8]) has its sha256 printed
+     beside the one PARENT_Y_SHA256 records, taken with torch's
+     deterministic algorithms (index_add_ adds the split-row extras by
+     atomics otherwise); they must be equal (``--y-digests`` prints the
+     digests of a checkout's package alone);
+ 11. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero.  It needs a CUDA card
@@ -112,6 +125,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -334,6 +348,75 @@ DIST_CASES = (
      (("overlap", True, True), ("x_sharded", True, True))),
 )
 
+# Phase [10]: the first 16 hex digits of the sha256 of each routed y of
+# the phases, as the parent design gave them (the commit before the upload
+# composed the route: K2 on the x side, K5, K2, K6, K5 above 1024 y
+# tiles), printed by `python3 chip_smoke.py --y-digests` in a checkout of
+# it on an H100 (PERF.md).  Every routed y must equal them: composing the
+# route only moves values.  A change that sums in another order records
+# its own.
+PARENT_Y_SHA256 = {
+    "[2] web_google_like": "c5d93c94cd5f18f0",
+    "[4] rmat11": "651519c2bb2a2267",
+    "[4] banded": "0bba64547acc00d5",
+    "[4] rmat_split16": "41f666b61ed4bded",
+    "[4] empty_rows_cols": "8c08c212d9aca5f8",
+    "[4] uniform_w16": "bfbf4ba5499781db",
+    "[4] multisegment": "9b828c5e885f057f",
+    "[4] rmat12_yb2": "588f8089411b1b7f",
+    "[4] rmat14_yb4": "04cd14b2b3cfce4e",
+    "[4] rmat17_T2048": "97e38ef1e0741086",
+    "[4] wiki_talk_like": "6a7fb532252dcdbd",
+    "[4] rmat15_hot512": "b3779d0bfbb1b5b5",
+    "[4] rmat13_hot_yb2": "df0c2f66bdb5cc13",
+    "[4] fsm17_hot_regions": "8f7a5ebb5018f6e8",
+    "[5] fsm_like": "d407ce5ff8b03692",
+    "[6] road_usa_like": "1845a63d8ae6d087",
+    "[8] web_google_like replicated": "d564a462ba3e6450",
+    "[8] web_google_like x_sharded": "d564a462ba3e6450",
+    "[8] web_google_like overlap": "d564a462ba3e6450",
+    "[8] wiki_talk_like one-card": "ba551bf7f399659b",
+    "[8] wiki_talk_like overlap": "8dc6e398c51d2065",
+    "[8] wiki_talk_like x_sharded": "8dc6e398c51d2065",
+}
+Y_SHA256 = {}  # this run's, by label (record_y)
+
+
+def y_digest(fn) -> str:
+    """The first 16 hex digits of the sha256 of fn()'s output, which fn
+    computes twice under torch's deterministic algorithms (index_add_
+    adds the split-row extras by atomics, in any order, otherwise); it
+    raises where the two differ."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got = [hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()[:16]
+               for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if got[0] != got[1]:
+        raise AssertionError(f"two runs give two outputs: {got}")
+    return got[0]
+
+
+def routed(sd) -> bool:
+    """Whether the device artifact ``sd`` runs the routed SpMV (itself, or
+    as BELL's spill)."""
+    return isinstance(sd, sp.SellRoutedDevice) or (
+        isinstance(sd, BellDevice) and sd.spill is not None)
+
+
+def record_y(label, fn) -> str:
+    """fn()'s y_digest beside the parent's (PARENT_Y_SHA256); raises
+    where they differ or the parent's is not recorded."""
+    got = Y_SHA256[label] = y_digest(fn)
+    want = PARENT_Y_SHA256.get(label)
+    print(f"{label} y sha256 {got}, the parent's {want}: "
+          f"{'equal' if got == want else 'DIFFERENT'}")
+    if got != want:
+        raise AssertionError(f"{label}: y is not the parent's")
+    return got
+
+
 TRACES = 5  # traces device_ms takes at most to find one that holds every call
 MARGIN_S = 0.02  # idle time around the kept calls of a trace
 
@@ -508,15 +591,11 @@ def expected_launches(sd) -> dict[str, int]:
         if sd.spill is not None:
             for k, n in expected_launches(sd.spill).items():
                 want[k] += n
-    else:
-        yrec = sd.yroute.mid.kind == "rec"
+    else:  # the route is composed into K3's and K4's indices
         want.update({
             "expand": 1,
-            "route_middle": int(sd.mid.kind == "rec") + int(yrec),
             "reduce_slices": 1 + second_pass(sd.red_plan.split),
-            "route_small": int(not yrec),
-            "tileperm": 2 * int(yrec),
-            "route_m3": int(yrec),
+            "route_small": 1,
             "reduce_hot": int(sd.hot_nslices > 0),
         })
     return want
@@ -603,11 +682,12 @@ def cusparse_ms(tag, csr, xd, golden, scale, device) -> float:
     return ms
 
 
-def drive(tag, coo, device, reaches, pack=sell_pack_routed,
+def drive(tag, name, coo, device, reaches, pack=sell_pack_routed,
           marker="expand_kernel"):
     """Pack (sell_pack_routed with hot="auto", or ``pack``), check the
-    branch, upload, one verified SpMV with the launch counts, the timed
-    loop, its device time by kernel, and cuSPARSE's time beside it.
+    branch, upload, one verified SpMV with the launch counts (and, where
+    it is routed, y's digest against the parent's), the timed loop, its
+    device time by kernel, and cuSPARSE's time beside it.
     Returns (packed artifact, device artifact, x on the device, launches,
     ms per SpMV, device ms per SpMV by kernel, cuSPARSE ms)."""
     csr = coo.to_csr()
@@ -618,7 +698,10 @@ def drive(tag, coo, device, reaches, pack=sell_pack_routed,
     print(f"{tag} pack {pack_s:.3f} s ({phases}): {describe(A)}")
     if not reaches(A):
         raise AssertionError(f"{tag} pack misses its branch")
+    t0 = time.perf_counter()
     sd = upload(A, device)
+    torch.cuda.synchronize()
+    print(f"{tag} upload {time.perf_counter() - t0:.3f} s")
     x = np.random.default_rng(0).standard_normal(coo.shape[1]).astype(np.float32)
     xd = torch.from_numpy(x).to(device)
 
@@ -641,6 +724,8 @@ def drive(tag, coo, device, reaches, pack=sell_pack_routed,
     if launches != expected_launches(sd):
         raise AssertionError(f"{tag} launches {launches}, the pack needs "
                              f"{expected_launches(sd)}")
+    if routed(sd):
+        record_y(f"{tag} {name}", lambda: spmv(sd, xd))
 
     ms = time_iterations(lambda: spmv(sd, xd), ITERS, device) * 1e3
     print(f"{tag} spmv: {ms:.4f} ms/iter over {ITERS} iters, "
@@ -660,7 +745,7 @@ def drive(tag, coo, device, reaches, pack=sell_pack_routed,
 
 def main_path(coo, device):
     return drive(
-        "[2]", coo, device,
+        "[2]", "web_google_like", coo, device,
         lambda sr: (sr.mid["kind"] == "rec" and sr.y_ra["Tp"] == 1024
                     and sr.hot is None),
     )
@@ -694,18 +779,42 @@ def kernel_cases(tag, sd, xd):
     args = (sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw, sd.n_segs)
     cases.append(("expand", "", args))
     g1 = rk.expand(*args)
-    if sd.mid.kind == "rec":
-        cases.append(("route_middle", "x side", (g1, sd.mid.m1,
-                                                 sd.mid.csel)))
-    m, m3 = sp.middle(sd, g1)
-    cases.append(("reduce_slices", "", k3_args(sd, m, m3)))
-    return cases + y_cases(tag, sd, sp.reduce(sd, m, m3), xd)
+    check_fold(tag, sd, g1)
+    cases.append(("reduce_slices", "", k3_args(sd, g1)))
+    return cases + y_cases(tag, sd, sp.reduce(sd, g1), xd)
 
 
-def k3_args(sd, m, m3):
+def k3_args(sd, g1):
     """K3's arguments at the path's tensors (sp.reduce's call)."""
-    return (m, m3, sd.vals_ss, sd.p3, sd.red_row0, sd.red_row1, sd.red_out,
-            sd.red_fast, sd.nslices, sd.red_plan)
+    return (g1, sd.vals_ss, sd.red_plan, sd.nslices)
+
+
+def check_fold(tag, sd, g1) -> None:
+    """K3's index composed through the route middle against the staged
+    chain on the card, bit for bit: the products of the plane rows the
+    slices name (vals times g1 by the composed index, against
+    reduce_products_plain on the route middle's mstream, K2's output on
+    a recursive middle), and K3's sums against K3 run on that mstream by
+    the staged index (the parent design's K3)."""
+    m, m3 = sp.middle(sd, g1)
+    item, rows = rk.slice_rows(sd.red_row0, sd.red_row1)
+    plan = sd.red_plan
+    got = sd.vals_ss[:, rows, :] * rk.gather_or_zero(g1, plan.idx[:, rows, :])
+    want = rk.reduce_products_plain(m, m3, sd.vals_ss, sd.p3, rows,
+                                    sd.red_fast.bool()[item])
+    staged = dataclasses.replace(plan, T=m.shape[1], idx=rk.reduce_index(
+        m3, sd.p3, sd.red_row0, sd.red_row1, sd.red_fast))
+    ys, ys_staged = (rk.reduce_slices(g1, sd.vals_ss, plan, sd.nslices),
+                     rk.reduce_slices(m, sd.vals_ss, staged, sd.nslices))
+    zeros = int((plan.idx[:, rows, :] < 0).sum())
+    same = torch.equal(got, want) and torch.equal(ys, ys_staged)
+    print(f"{tag} reduce_slices on g1 (middle {sd.mid.kind!r}, {zeros} "
+          f"elements read as 0): products and K3's sums "
+          f"{'bit-exact with' if same else 'DIFFER from'} the staged "
+          "middle's")
+    if not same:
+        raise AssertionError(f"{tag} K3's composed index is not the staged "
+                             "chain")
 
 
 def y_cases(tag, sd, ys, xd):
@@ -718,43 +827,61 @@ def y_cases(tag, sd, ys, xd):
                 sd.hot_row1, sd.hot_out, sd.hot_nslices)
         cases.append(("reduce_hot", "", args))
         ysp[:, : sd.hot_nslices] += rk.reduce_hot(*args)
-    if sd.yroute.mid.kind == "flat":
-        check_small_route(tag, sd.yroute, ysp)
+    check_small_route(tag, sd.yroute, ysp)
     return cases + route_cases(sd.yroute, ysp, "y side")
 
 
 def check_src(tag, ra) -> None:
-    """A flat route's uploaded K4 index against compose_small_route of the
-    same planes, read back from the card."""
-    planes = [t.cpu().numpy() for t in (ra.s1, ra.mid.mid, ra.s3)]
-    want = rp.compose_small_route(*planes, ra.n)
-    if ra.src.dtype != torch.int32 or not np.array_equal(
-            ra.src.cpu().numpy(), want):
+    """A route's uploaded K4 index against compose_route of the same
+    planes read back from the card, on the CPU."""
+    cpu = sp.RouteMidDevice(kind=ra.mid.kind, Tk=ra.mid.Tk, **{
+        k: getattr(ra.mid, k).cpu() for k in ("mid", "m1", "csel", "m3")
+        if getattr(ra.mid, k) is not None})
+    want = sp.compose_route(ra.s1.cpu(), cpu, ra.s3.cpu(), ra.Tp, ra.n)
+    if ra.src.dtype != torch.int32 or not torch.equal(ra.src.cpu(), want):
         raise AssertionError(f"{tag} the uploaded K4 index is not "
-                             "compose_small_route of its planes")
+                             "compose_route of its planes")
 
 
 def check_small_route(tag, ra, g) -> None:
-    """K4 by its composed index against the three-plane chain
-    (route_small_chain over s1, mid and s3) on the stream g, bit for
-    bit, after check_src."""
+    """K4 by its composed index against the staged route on the stream g,
+    bit for bit, after check_src: a flat route's three-plane chain
+    (route_small_chain); a longer route's stages as the TPU runs them (K5,
+    K2, K6, K5: sp.staged_route), each launch held against its plain
+    version bit for bit, and their device time beside K4's."""
     check_src(tag, ra)
     got = rk.route_small(g, ra.src, ra.n)
-    want = rk.route_small_chain(g, ra.s1, ra.mid.mid, ra.s3, ra.n)
+    if ra.mid.kind == "flat":
+        want = rk.route_small_chain(g, ra.s1, ra.mid.mid, ra.s3, ra.n)
+        chain = "the three-plane chain"
+    else:
+        want = sp.staged_route(ra, g)
+        chain = "the staged route (K5, K2, K6, K5)"
+        for name, which, args in route_cases(ra, g, "", small=False):
+            wrapper, plain, _ = kernels.KERNELS[name]
+            if not torch.equal(wrapper(*args), plain(*args)):
+                raise AssertionError(f"{tag} {name} ({which}) of the staged "
+                                     "y-route differs from its plain version")
+        dms = {label: sum(device_ms(fn, KERNEL_ITERS, None).values())
+               for label, fn in (
+                   ("K4", lambda: rk.route_small(g, ra.src, ra.n)),
+                   ("staged", lambda: sp.staged_route(ra, g)))}
+        chain += (f", each launch bit-exact with its plain version; device "
+                  f"time K4 {dms['K4']:.4f} ms, staged {dms['staged']:.4f} ms")
     same = torch.equal(got, want)
-    print(f"{tag} route_small (y side, n {ra.n}): uploaded index equals "
-          f"compose_small_route of its planes; K4 "
-          f"{'bit-exact with' if same else 'DIFFERS from'} the three-plane "
-          "chain")
+    print(f"{tag} route_small (y side, Tp {ra.Tp}, n {ra.n}, "
+          f"{int((ra.src < 0).sum())} outputs read as 0): uploaded index "
+          f"equals compose_route of its planes; K4 "
+          f"{'bit-exact with' if same else 'DIFFERS from'} {chain}")
     if not same:
-        raise AssertionError(f"{tag} K4 differs from the three-plane chain")
+        raise AssertionError(f"{tag} K4 differs from the staged route")
 
 
 def route_cases(ra, g, side, small=True):
     """The kernel launches of sp.apply_route_stream(ra, g), as
-    kernel_cases gives them; ``small=False``: a flat route through K5,
+    kernel_cases gives them; ``small=False``: a route through K5,
     middle_pass and K5 in place of K4's one pass."""
-    if small and ra.mid.kind == "flat":
+    if small and ra.src is not None:
         return [("route_small", side, (g, ra.src, ra.n))]
     g1 = rk.tileperm(g, ra.s1)
     return ([("tileperm", f"{side} stage 1".strip(), (g, ra.s1))]
@@ -780,8 +907,8 @@ def row_scale_args(name, args):
     """The kernel's arguments with values and gathered data made
     nonnegative: the plain version then computes the row scale."""
     if name == "reduce_slices":
-        m, m3, vals, *rest = args
-        return (m.abs(), m3, vals.abs(), *rest)
+        g1, vals, *rest = args
+        return (g1.abs(), vals.abs(), *rest)
     if name == "reduce_stream":
         emit, gemit, vals, gx, p3, nys = args
         return (emit, gemit, vals.abs(), gx.abs(), p3, nys)
@@ -818,11 +945,12 @@ def bound(name, args, out) -> tuple[float, str]:
     passes over its bricks at the TF32 rate.  The
     reduces read only the plane rows their slice tables name (this run's
     data); K3 reads, per element of those rows, its value and its composed
-    index (in place of p3 and the M3 plane), one m element at most per
-    element (at most m's size in all), and its piece tables; the unfused
+    index (in place of the route middle's planes, p3 and the M3 plane),
+    one g1 element at most per element (at most g1's size in all), and its
+    piece tables; the unfused
     reduce reads emit, and per element of those rows its value, p3 entry
     and one gx element (its gemit is not read); K4 its index and the ysp
-    elements it names; K14 its entries (8 B each), its work plan's tables
+    elements it names (none for a -1); K14 its entries (8 B each), its work plan's tables
     (segment offsets, units, combine table: on the card they take the
     place of the row offsets, which it does not read) and X once."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
@@ -830,7 +958,7 @@ def bound(name, args, out) -> tuple[float, str]:
     ops, rate = 0, F32_OPS_PER_S
     if name == "route_small":  # the ysp elements the index reaches
         ysp, src, _n = args
-        nbytes = (int(torch.unique(src).numel()) + src.numel()) * 4
+        nbytes = (int(torch.unique(src[src >= 0]).numel()) + src.numel()) * 4
     if name == "reduce_stream":
         emit, _gemit, vals, gx, p3, nys = args
         row0, row1, _ = rk.reduce_stream_table(emit, nys)
@@ -838,9 +966,9 @@ def bound(name, args, out) -> tuple[float, str]:
         nbytes = emit.numel() * 4 + used * (4 + 2 + 4)
         ops = 2 * used
     if name == "reduce_slices":
-        m, _m3, _vals, _p3, row0, row1, *_, plan = args
-        used = int((row1.long() - row0.long()).sum()) * 8 * 128
-        nbytes = (used * (4 + 4) + min(used, m.numel()) * 4
+        g1, _vals, plan, _nys = args
+        used = int((plan.row1.long() - plan.row0.long()).sum()) * 8 * 128
+        nbytes = (used * (4 + 4) + min(used, g1.numel()) * 4
                   + 4 * (plan.split.pieces.numel()
                          + plan.split.combine.numel()))
         ops = 2 * used
@@ -889,7 +1017,7 @@ def library_call(name, args, want=None):
     shard's g1).  bell_gather_mac: cuSPARSE's CSR SpMV
     (torch.sparse_csr_tensor @ x) of the matrix its planes hold, the BELL
     part without the routed spill; reduce_slices: cuSPARSE's CSR SpMV of
-    the entries its slices sum, times m flattened (reduce_csr_call);
+    the entries its slices sum, times g1 flattened (reduce_csr_call);
     lane_reduce: cuSPARSE's CSR SpMM of the entries its slots sum, times X
     (lane_csr_call); window_reduce: cuSPARSE's CSR SpMV of the entries
     its slices sum, times x (window_csr_call); each within 1e-6 of the row
@@ -905,10 +1033,9 @@ def library_call(name, args, want=None):
         wrapper, plain, _ = kernels.KERNELS[name]
         pos = GATHERS[name]
         data = args[pos]
-        probe = list(args)
-        probe[pos] = torch.arange(1, data.numel() + 1, dtype=torch.float64,
-                                  device=data.device).view(data.shape)
-        ix = plain(*probe).long() - 1
+        ix = rk.source_index(
+            lambda d: plain(*args[:pos], d, *args[pos + 1:]), data.shape,
+            data.device)
         ix[ix < 0] = data.numel()  # the appended 0
         src = torch.cat([data.reshape(-1), data.new_zeros(1)])
         want = wrapper(*args) if want is None else want
@@ -964,19 +1091,21 @@ def csr_call(name, rows, cols, vals, shape, data, args, view):
 def reduce_csr_call(args):
     """K3's library call (library_call): cuSPARSE's CSR SpMV of the
     entries its slices sum, one row per (sublane i, slice, lane), each
-    entry a plane value at the column its composed index names in m
-    flattened, times m flattened; its output is ys flattened."""
-    m, _m3, vals, _p3, row0, row1, out, _fast, nys, plan = args
-    item, rows = rk.slice_rows(row0, row1)
+    entry a plane value at the column its composed index names in g1
+    flattened (the elements it reads as 0 left out), times g1 flattened;
+    its output is ys flattened."""
+    g1, vals, plan, nys = args
+    item, rows = rk.slice_rows(plan.row0, plan.row1)
     n = rows.shape[0]
-    dev = m.device
+    dev = g1.device
     i = torch.arange(8, device=dev).view(8, 1, 1)
     lane = torch.arange(128, device=dev).view(1, 1, 128)
-    row = ((i * nys + out.long()[item].view(1, n, 1)) * 128 + lane)
-    return csr_call("reduce_slices", row.reshape(-1),
-                    plan.idx[:, rows, :].long().reshape(-1),
-                    vals[:, rows, :].reshape(-1), (8 * nys * 128, m.numel()),
-                    m.reshape(-1), args, lambda y: y.view(8, nys, 128))
+    row = ((i * nys + plan.out.long()[item].view(1, n, 1)) * 128 + lane)
+    col = plan.idx[:, rows, :].long()
+    keep = col >= 0
+    return csr_call("reduce_slices", row.expand_as(col)[keep], col[keep],
+                    vals[:, rows, :][keep], (8 * nys * 128, g1.numel()),
+                    g1.reshape(-1), args, lambda y: y.view(8, nys, 128))
 
 
 def lane_csr_call(args):
@@ -1152,10 +1281,11 @@ def check_geometries(device) -> set[str]:
             sd = sp.to_device_routed(sr, device)
             if sd.yroute.src is not None:
                 check_src(f"[4] {name}", sd.yroute)
+            xd = torch.from_numpy(x).to(device)
             kernels.reset_launches()
-            y = sp.spmv_routed(sd, torch.from_numpy(x).to(device))
-            y = y.cpu().numpy()
+            y = sp.spmv_routed(sd, xd).cpu().numpy()
             launches = kernels.launches()
+            record_y(f"[4] {name}", lambda: sp.spmv_routed(sd, xd))
             # CPU tensors take the plain versions and launch nothing.
             y_cpu = sp.spmv_routed(sp.to_device_routed(sr, "cpu"),
                                    torch.from_numpy(x)).numpy()
@@ -1186,14 +1316,14 @@ def fsm_path(device, walks):
     print(f"[5] fsm_like: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} nnz, "
           f"generated in {time.perf_counter() - t0:.2f} s")
     sr, sd, xd, launches, _ms, spmv_dms, _lib = drive(
-        "[5]", coo, device,
+        "[5]", "fsm_like", coo, device,
         lambda sr: (sr.hot is not None and sr.hot.NH == 256
                     and sr.y_ra["Tp"] == 2048
                     and sr.y_ra["mid_planes"]["kind"] == "rec"
                     and sr.mid["kind"] == "rec"),
     )
     want = {**dict.fromkeys(kernels.KERNELS, 0), "expand": 1,
-            "route_middle": 2, "tileperm": 2, "route_m3": 1, "reduce_hot": 1,
+            "route_small": 1, "reduce_hot": 1,
             "reduce_slices": 1 + second_pass(sd.red_plan.split)}
     if launches != want:
         raise AssertionError(f"[5] launches {launches}, want {want}")
@@ -1252,7 +1382,7 @@ def format_paths(device):
         print(f"[6] {name}: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} nnz, "
               f"generated in {time.perf_counter() - t0:.2f} s")
         _A, sd, xd, launches, _ms, spmv_dms, lib_ms = drive(
-            "[6]", coo, device, reaches, pack=pack_auto,
+            "[6]", name, coo, device, reaches, pack=pack_auto,
             marker=f"{kernel}_kernel")
         del _A
         entry_points(name, coo, small(), device)
@@ -1708,6 +1838,7 @@ def dist_mode(tag, dm, mode, xd, golden, scale, device):
         raise AssertionError(f"{tag} {mode} launches {launches}, the pack "
                              f"needs {dist_launches(dm, mode)}")
     fn = functools.partial(dist_spmv_routed, dm, xd, **kw)
+    record_y(f"{tag} {mode}", fn)
     ms = time_iterations(fn, ITERS, device) * 1e3
     per = device_ms(fn, KERNEL_ITERS, "reduce_slices_kernel",
                     per_call=dm.n_shards)
@@ -1734,8 +1865,7 @@ def shard_reduces(tag, path, dm, xd, launches, ours, device, shard0):
     for i, s in enumerate(dm.shards[1:], 1):
         g1 = rk.expand(s.w8, s.gcls, s.seg_blk, s.li, xd, s.segw, s.n_segs)
         rows.append(check_case(tag, path, "reduce_slices", f"shard {i}",
-                               k3_args(s, *sp.middle(s, g1)), launches,
-                               ours, device))
+                               k3_args(s, g1), launches, ours, device))
     every = [r for r in shard0 if r["name"] == "reduce_slices"] + rows
     splits = [second_pass(s.red_plan.split) for s in dm.shards]
     print(f"{tag} reduce_slices over the {dm.n_shards} shards: "
@@ -1781,6 +1911,8 @@ def dist_paths(device, main_sd, main_coo):
                                row_scale=scale)
         if not ok:
             raise AssertionError(f"[8] {name} one-card SpMV disagrees")
+        if name != "web_google_like":  # [2]'s y
+            record_y(f"[8] {name} one-card", one)
         one_ms = time_iterations(one, ITERS, device) * 1e3
         one_dev = sum(device_ms(one, KERNEL_ITERS, "expand_kernel").values())
         print(f"[8] {name} one-card spmv_routed: {one_ms:.4f} ms/iter (CUDA "
@@ -1795,13 +1927,11 @@ def dist_paths(device, main_sd, main_coo):
             print(f"[8] {name} dist_routed_pack(overlap={overlap}) "
                   f"{time.perf_counter() - t0:.3f} s ({phases}): "
                   f"{dist_geometry(dm)}")
-            flat = [i for i, shard in enumerate(dm.shards)
-                    if shard.yroute.src is not None]
-            for i in flat:
-                check_src(f"[8] {name} shard {i}", dm.shards[i].yroute)
-            if flat:
-                print(f"[8] {name} shards {flat}: each uploaded K4 index "
-                      "equals compose_small_route of its planes")
+            for i, shard in enumerate(dm.shards):
+                check_src(f"[8] {name} shard {i}", shard.yroute)
+            print(f"[8] {name} shards 0-{dm.n_shards - 1}: each uploaded K4 "
+                  f"index (y-route Tp {dm.shards[0].yroute.Tp}) equals "
+                  "compose_route of its planes")
             packs[overlap] = dm
         for mode, ring, check in modes:
             dm = packs[ring]  # a ring pack also runs the all-gather modes
@@ -1855,7 +1985,7 @@ def flat_middle(device, sd, xd):
     if ra.mid.kind != "flat":
         raise AssertionError("[9a] the y-route of [2] is not flat")
     g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw, sd.n_segs)
-    ysp = sp.y_stream(sd, sp.reduce(sd, *sp.middle(sd, g1)))
+    ysp = sp.y_stream(sd, sp.reduce(sd, g1))
     y4 = rk.route_small(ysp, ra.src, ra.n)
 
     def path():
@@ -1952,13 +2082,16 @@ def unfused_reduce(device, sr, sd, csr, x, xd):
     want = expected_launches(sd)
     want["reduce_slices"] = 0
     want["reduce_stream"] = ngroups
-    want["route_m3" if sd.mid.kind == "rec" else "route_flat"] += 1
+    if sd.mid.kind == "rec":  # middle_pass: K2 and K6
+        want["route_middle"] += 1
+        want["route_m3"] += 1
+    else:
+        want["route_flat"] += 1
     (ys, y), launches = path_run("[9c]", unfused, want)
     g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw, sd.n_segs)
-    m, m3 = sp.middle(sd, g1)
-    ys3 = sp.reduce(sd, m, m3)
+    ys3 = sp.reduce(sd, g1)
     abs_sd = dataclasses.replace(sd, vals_ss=sd.vals_ss.abs())
-    scale = sp.reduce(abs_sd, m.abs(), m3)
+    scale = sp.reduce(abs_sd, g1.abs())
     err = float((ys - ys3).abs().max())
     if not bool(((ys - ys3).abs() <= 1e-6 * scale + 1e-30).all()):
         raise AssertionError(f"[9c] K18's ys differ from K3's ({err:.3e})")
@@ -2011,7 +2144,58 @@ def route_api(device, sr, sd, coo):
     return rows
 
 
-def main() -> int:
+def y_digests(device) -> dict[str, str]:
+    """y_digest of every routed y of the phases (PARENT_Y_SHA256's
+    labels), each computed as its phase computes it (the same pack, x and
+    call), by the package this script imports: run in a checkout of
+    another commit, it gives that commit's."""
+    out = {}
+
+    def x_of(coo, seed=0):
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            coo.shape[1]).astype(np.float32)).to(device)
+
+    def spmv_of(label, coo, pack):
+        sd, xd = upload(pack(coo.to_csr()), device), x_of(coo)
+        out[label] = y_digest(lambda: spmv(sd, xd))
+
+    web = syn.web_google_like()
+    spmv_of("[2] web_google_like", web, sell_pack_routed)
+    yb = rp.YB
+    try:
+        for name, make, split_len, case_yb, hot, env, _ in GEOMETRIES:
+            rp.YB = case_yb or yb
+            coo = make()
+            sd = sp.to_device_routed(
+                pack_with(coo.to_csr(), split_len, hot, env), device)
+            xd = x_of(coo, 7)
+            out[f"[4] {name}"] = y_digest(lambda: sp.spmv_routed(sd, xd))
+    finally:
+        rp.YB = yb
+    spmv_of("[5] fsm_like", syn.fsm_like(), sell_pack_routed)
+    spmv_of("[6] road_usa_like", syn.road_usa_like(), pack_auto)
+    mesh = make_mesh(devices=[device] * DIST_SHARDS)
+    for name, make, modes in DIST_CASES:
+        coo = web if name == "web_google_like" else make()
+        csr, xd = coo.to_csr(), x_of(coo)
+        if name != "web_google_like":
+            sd1 = sp.to_device_routed(sell_pack_routed(csr), device)
+            out[f"[8] {name} one-card"] = y_digest(
+                lambda: sp.spmv_routed(sd1, xd))
+        for overlap in sorted({ring for _, ring, _ in modes}):
+            dm = dist_routed_pack(csr, mesh, overlap=overlap)
+            for mode, ring, _ in modes:
+                if ring == overlap:
+                    out[f"[8] {name} {mode}"] = y_digest(functools.partial(
+                        dist_spmv_routed, dm, xd, **DIST_MODES[mode]))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--y-digests", action="store_true",
+                    help="print y_digests (a JSON object) and stop")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     kind = torch.cuda.get_device_name(0)
@@ -2023,6 +2207,9 @@ def main() -> int:
     print(f"[0] device: {kind}")
     print(f"[0] nvidia-smi: {smi}")
     build()
+    if args.y_digests:
+        print(json.dumps(y_digests("cuda")))
+        return 0
     t0 = time.perf_counter()
     coo = syn.web_google_like()
     print(f"[2] web_google_like: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} "
@@ -2037,6 +2224,11 @@ def main() -> int:
     rows += spmm_paths("cuda")
     rows += dist_paths("cuda", sd, coo)
     rows += route_api("cuda", sr, sd, coo)
+    if set(Y_SHA256) != set(PARENT_Y_SHA256):
+        raise AssertionError(f"[10] the routed y's {sorted(Y_SHA256)} are "
+                             f"not the recorded {sorted(PARENT_Y_SHA256)}")
+    print(f"[10] all {len(Y_SHA256)} routed y's equal the parent's bit for "
+          "bit (sha256)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

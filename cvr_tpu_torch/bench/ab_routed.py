@@ -1,41 +1,53 @@
 """Time the routed SpMV's K1 (expand), K3 (reduce_slices), K4
-(route_small) and K15 (expand_ring), and the route API's K16
-(route_flat), of several checkouts of this repository on one card, in
-turns.
+(route_small) and K15 (expand_ring), the route API's K16 (route_flat),
+and whole routed SpMVs, of several checkouts of this repository on one
+card, in turns.
 
     python3 -m cvr_tpu_torch.bench.ab_routed ROOT [ROOT ...] [--kernels K,..]
 
 Each ROOT is a directory holding a checkout's ``cvr_tpu_torch/`` and
 ``native/`` (for example the parent commit unpacked with ``git archive``
-into a directory that .gitignore lists).  The matrix, web-Google-like
-(R-MAT scale 20, 6,162,120 nnz), is generated once; then, for each root in
-the order given (give them as A B B A), a subprocess imports that root's
-package, builds its kernels and native library, packs the matrix with
-``sell_pack_routed`` and, for the ring, ``dist_routed_pack`` on 4 shards of
-the one card, and takes from torch.profiler traces the device time per
-launch of K1 and K4 at the main path's tensors, of K16 on the y-route's
-flat middle, and of K15 in the ring SpMV (K1's kernel: its events carry
-K1's name), and the device time per call of K3 (its kernels, a split
-slice's second pass included) at the main path's tensors and at each
-shard's of ``dist_routed_pack`` forced on 4 shards (x replicated).  It
-prints one JSON line per root with a checksum of K1's output and of K4's
-and K16's on a y stream made from a seed, and exits 1 if two roots'
-differ (the SpMVs' own outputs are not compared: the split-row extras
-are added by index_add_, whose atomics add in any order) or if a root's
-K3 is not
-within 1e-6 of the row scale of that root's plain version (the order of
-its sums is free).  ``--kernels`` names the ones to time (default all).
-It needs a CUDA card and imports nothing of JAX.
+into a directory that .gitignore lists).  The matrices are generated once;
+then, for each root in the order given (give them as A B B A), a
+subprocess imports that root's package, builds its kernels and native
+library, and takes device times from torch.profiler traces:
+
+  * on web-Google-like (R-MAT scale 20, 6,162,120 nnz) packed with
+    ``sell_pack_routed``: K1 and K4 per launch at the main path's tensors,
+    K16 on the y-route's flat middle, K15 in the ring SpMV of
+    ``dist_routed_pack`` on 4 shards of the one card (K1's kernel: its
+    events carry K1's name), and K3 per call (its kernels, a split
+    slice's second pass included) at the main path's tensors and at each
+    shard's of the forced 4-shard pack (x replicated);
+  * (``spmv``) on web-Google-like and fsm-like through
+    ``sell_pack_routed`` and road-usa-like through ``pack_auto``, whose
+    BELL artifact routes its spill: K3 per call, the x side's route
+    middle per call (K2 where a checkout still runs it), the y-route per
+    call (K4, or the staged K5, K2, K6, K5 of a checkout without the
+    composed index above 1024 tiles) on a y stream made from a seed, and
+    the whole SpMV's device time per call (every kernel and copy of its
+    trace), and the upload's seconds (``upload``, host clock to a
+    synchronize: the compositions of the route run there).
+
+It prints one JSON line per root with checksums: K1's output, K4's and
+K16's on seeded y streams, each matrix's K3 sums and y-route output, and
+each SpMV's y, taken with torch's deterministic algorithms (index_add_
+adds the split-row extras by atomics otherwise).  It exits 1 if two
+roots' checksums differ or if a root's K3 is not within 1e-6 of the row
+scale of that root's plain version.  ``--kernels`` names the ones to time
+(default all).  It needs a CUDA card and imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 ITERS = 50
@@ -44,17 +56,28 @@ SHARDS = 4
 # one)
 K3_EVENTS = ("reduce_slices_kernel", "reduce_slices_combine_kernel")
 KERNELS = ("expand", "route_small", "route_flat", "expand_ring",
-           "reduce_slices")
+           "reduce_slices", "spmv")
+MATRICES = ("web_google_like", "fsm_like", "road_usa_like")
 
 
 def _digest(t) -> str:
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def _device_us(fn, event: str, iters: int):
-    """(mean device us per event whose name holds ``event``, events per
-    call) over a trace of ``iters`` calls after a warm-up; a trace may
-    lose some events, so the mean is over those it holds."""
+def _y_digest(fn) -> str:
+    """_digest of fn()'s output under torch's deterministic algorithms."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _digest(fn())
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _trace(fn, iters: int):
+    """(device us of each event, by event name) over a trace of ``iters``
+    calls after a warm-up."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -65,9 +88,19 @@ def _device_us(fn, event: str, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    durs = [e.device_time for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and event in e.name]
+    durs = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            durs.setdefault(e.name, []).append(e.device_time)
+    return durs
+
+
+def _device_us(fn, event: str, iters: int):
+    """(mean device us per event whose name holds ``event``, events per
+    call) over a trace of ``iters`` calls; a trace may lose some events,
+    so the mean is over those it holds."""
+    durs = [d for name, ds in _trace(fn, iters).items() if event in name
+            for d in ds]
     if not durs:
         raise RuntimeError(f"the trace holds no {event} event")
     return sum(durs) / len(durs), len(durs) / iters
@@ -76,7 +109,10 @@ def _device_us(fn, event: str, iters: int):
 def _device_per_call(fn, events, iters: int) -> float:
     """Device us per call of ``fn`` in the kernels whose event names hold
     one of ``events`` (one trace each; a name no trace holds counts 0:
-    an older checkout may lack a kernel)."""
+    an older checkout may lack a kernel), or in all of them for None."""
+    if events is None:
+        return sum(sum(ds) / len(ds) * round(len(ds) / iters)
+                   for ds in _trace(fn, iters).values())
     total = 0.0
     for event in events:
         try:
@@ -88,17 +124,65 @@ def _device_per_call(fn, events, iters: int) -> float:
 
 
 def _k3_case(rk, sp, sd, g1):
-    """(K3 at the shard's or matrix's tensors as a call, the largest
-    error of its output over 1e-6 of the row scale of its plain version:
-    at most 1 when within)."""
-    m, m3 = sp.middle(sd, g1)
-    got = sp.reduce(sd, m, m3)
-    args = (sd.p3, sd.red_row0, sd.red_row1, sd.red_out, sd.red_fast,
-            sd.nslices)
-    want = rk.reduce_slices_plain(m, m3, sd.vals_ss, *args)
-    scale = rk.reduce_slices_plain(m.abs(), m3, sd.vals_ss.abs(), *args)
+    """(K3 at the shard's or matrix's tensors as a call, its output, the
+    largest error of that output over 1e-6 of the row scale of its plain
+    version: at most 1 when within).  A checkout whose K3 reads the route
+    middle's mstream (sp.reduce(sd, m, m3)) gets it made here, outside
+    the call."""
+    if "m3" in inspect.signature(sp.reduce).parameters:
+        m, m3 = sp.middle(sd, g1)
+        args = (sd.p3, sd.red_row0, sd.red_row1, sd.red_out, sd.red_fast,
+                sd.nslices)
+        want = rk.reduce_slices_plain(m, m3, sd.vals_ss, *args)
+        scale = rk.reduce_slices_plain(m.abs(), m3, sd.vals_ss.abs(), *args)
+        fn = lambda: sp.reduce(sd, m, m3)  # noqa: E731
+    else:
+        want = rk.reduce_slices_plain(g1, sd.vals_ss, sd.red_plan, sd.nslices)
+        scale = rk.reduce_slices_plain(g1.abs(), sd.vals_ss.abs(),
+                                       sd.red_plan, sd.nslices)
+        fn = lambda: sp.reduce(sd, g1)  # noqa: E731
+    got = fn()
     ratio = float(((got - want).abs() / (1e-6 * scale + 1e-30)).max())
-    return (lambda: sp.reduce(sd, m, m3)), ratio
+    return fn, got, ratio
+
+
+def _x_middle(sp, sd):
+    """The x side's route middle as a call where a checkout runs it apart
+    from K3 (sp.reduce(sd, m, m3)), else None."""
+    if "m3" not in inspect.signature(sp.reduce).parameters:
+        return None
+    return lambda g1: sp.middle(sd, g1)
+
+
+def _matrix_case(rk, sp, spmv, name, sd, xd, iters) -> dict:
+    """The SpMV of ``sd`` (routed, or BELL with a routed spill) on xd:
+    its routed part's K3, x-side middle and y-route per call, the SpMV's
+    device time per call, with checksums."""
+    import numpy as np
+    import torch
+
+    rsd = getattr(sd, "spill", None) or sd
+    g1 = rk.expand(rsd.w8, rsd.gcls, rsd.seg_blk, rsd.li, xd, rsd.segw,
+                   rsd.n_segs)
+    fn, ys, ratio = _k3_case(rk, sp, rsd, g1)
+    ra = rsd.yroute
+    ysp = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (8, ra.Tp, 128)).astype(np.float32)).to(xd.device)
+    out = {
+        f"{name}_k3_ms": _device_per_call(fn, K3_EVENTS, iters) / 1e3,
+        f"{name}_k3_err_over_tol": ratio,
+        f"{name}_k3_digest": _digest(ys),
+        f"{name}_yroute_ms": _device_per_call(
+            lambda: sp.apply_route_stream(ra, ysp), None, iters) / 1e3,
+        f"{name}_yroute_digest": _digest(sp.apply_route_stream(ra, ysp)),
+        f"{name}_spmv_ms": _device_per_call(
+            lambda: spmv(sd, xd), None, iters) / 1e3,
+        f"{name}_y_digest": _y_digest(lambda: spmv(sd, xd)),
+    }
+    mid = _x_middle(sp, rsd)
+    out[f"{name}_xmid_ms"] = 0.0 if mid is None else _device_per_call(
+        lambda: mid(g1), None, iters) / 1e3
+    return out
 
 
 def worker(root: str, npz: str, iters: int, names) -> dict:
@@ -109,11 +193,13 @@ def worker(root: str, npz: str, iters: int, names) -> dict:
 
     import cvr_tpu_torch
     from cvr_tpu_torch import _native
+    from cvr_tpu_torch.formats import pack_auto
     from cvr_tpu_torch.formats.coo import COOMatrix
     from cvr_tpu_torch.formats.sell_routed import sell_pack_routed
     from cvr_tpu_torch.ops import _build
     from cvr_tpu_torch.ops import route_kernels as rk
     from cvr_tpu_torch.ops import spmv_routed as sp
+    from cvr_tpu_torch.ops.spmv import spmv, upload
     from cvr_tpu_torch.parallel.dist import make_mesh
     from cvr_tpu_torch.parallel.dist_routed import (
         dist_routed_pack,
@@ -125,12 +211,16 @@ def worker(root: str, npz: str, iters: int, names) -> dict:
         raise RuntimeError(f"imported {pkg}, not the package under {root}")
     _native.build()
     _build.load()
-    z = np.load(npz)
-    csr = COOMatrix(rows=z["rows"], cols=z["cols"], vals=z["vals"],
-                    shape=tuple(z["shape"])).to_csr()
+
+    def load(name):
+        z = np.load(str(Path(npz) / f"{name}.npz"))
+        coo = COOMatrix(rows=z["rows"], cols=z["cols"], vals=z["vals"],
+                        shape=tuple(z["shape"]))
+        x = np.random.default_rng(0).standard_normal(coo.shape[1])
+        return coo.to_csr(), torch.from_numpy(x.astype(np.float32)).to("cuda")
+
+    csr, xd = load("web_google_like")
     sd = sp.to_device_routed(sell_pack_routed(csr), "cuda")
-    xd = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        csr.shape[1]).astype(np.float32)).to("cuda")
 
     def k1():
         return rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw,
@@ -139,16 +229,12 @@ def worker(root: str, npz: str, iters: int, names) -> dict:
     g1 = k1()
     ra = sd.yroute
     # K4 gathers whatever stream it is given: one made from a seed, the
-    # same in every root (K3's sums, which feed it on the path, may differ
-    # in their last bits from root to root)
+    # same in every root
     ysp = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (8, ra.Tp, 128)).astype(np.float32)).to("cuda")
-    if getattr(ra, "src", None) is not None:
-        def k4():
-            return rk.route_small(ysp, ra.src, ra.n)
-    else:  # the three-plane K4 of PRs 1-6
-        def k4():
-            return rk.route_small(ysp, ra.s1, ra.mid.mid, ra.s3, ra.n)
+
+    def k4():
+        return rk.route_small(ysp, ra.src, ra.n)
 
     out = {"root": root, "device": torch.cuda.get_device_name(0)}
     # K16: the y-route's flat middle on the seeded stream after stage 1
@@ -170,19 +256,33 @@ def worker(root: str, npz: str, iters: int, names) -> dict:
         us, per_call = _device_us(fn, event, iters)
         out[f"{name}_ms"] = us / 1e3
         out[f"{name}_launches"] = per_call
-    if "reduce_slices" not in names:
-        return out
-    forced = dist_routed_pack(csr, make_mesh(devices=["cuda"] * SHARDS))
-    k3 = [("reduce_slices", sd, g1)] + [
-        (f"reduce_slices_shard{i}", s,
-         rk.expand(s.w8, s.gcls, s.seg_blk, s.li, xd, s.segw, s.n_segs))
-        for i, s in enumerate(forced.shards)]
-    for name, s, g in k3:
-        fn, ratio = _k3_case(rk, sp, s, g)
-        out[f"{name}_ms"] = _device_per_call(fn, K3_EVENTS, iters) / 1e3
-        out[f"{name}_err_over_tol"] = ratio
-    out["reduce_slices_shards_ms"] = sum(
-        out[f"reduce_slices_shard{i}_ms"] for i in range(SHARDS))
+    if "reduce_slices" in names:
+        forced = dist_routed_pack(csr, make_mesh(devices=["cuda"] * SHARDS))
+        k3 = [("reduce_slices", sd, g1)] + [
+            (f"reduce_slices_shard{i}", s,
+             rk.expand(s.w8, s.gcls, s.seg_blk, s.li, xd, s.segw, s.n_segs))
+            for i, s in enumerate(forced.shards)]
+        for name, s, g in k3:
+            fn, ys, ratio = _k3_case(rk, sp, s, g)
+            out[f"{name}_ms"] = _device_per_call(fn, K3_EVENTS, iters) / 1e3
+            out[f"{name}_err_over_tol"] = ratio
+            out[f"{name}_digest"] = _digest(ys)
+        out["reduce_slices_shards_ms"] = sum(
+            out[f"reduce_slices_shard{i}_ms"] for i in range(SHARDS))
+        del forced
+    if "spmv" in names:
+        packs = {"web_google_like": sell_pack_routed,
+                 "fsm_like": sell_pack_routed, "road_usa_like": pack_auto}
+        for name in MATRICES:
+            mcsr, mx = load(name)
+            A = packs[name](mcsr)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            msd = upload(A, "cuda")
+            torch.cuda.synchronize()
+            out[f"{name}_upload_s"] = time.perf_counter() - t0
+            out.update(_matrix_case(rk, sp, spmv, name, msd, mx, iters))
+            del A, msd
     return out
 
 
@@ -234,20 +334,22 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from cvr_tpu_torch.bench.synthetic import web_google_like
+    from cvr_tpu_torch.bench import synthetic as syn
 
     if not torch.cuda.is_available():
         raise SystemExit("ab_routed: torch.cuda.is_available() is false")
     print(f"nvidia-smi: {card()}")
-    coo = web_google_like()
+    wanted = set(MATRICES) if "spmv" in names else {"web_google_like"}
     with tempfile.TemporaryDirectory() as tmp:
-        npz = str(Path(tmp) / "matrix.npz")
-        np.savez(npz, rows=coo.rows, cols=coo.cols, vals=coo.vals,
-                 shape=np.asarray(coo.shape))
-        rows = run_roots(__file__, args.roots, npz, args.iters,
+        for name in sorted(wanted):
+            coo = getattr(syn, name)()
+            np.savez(str(Path(tmp) / f"{name}.npz"), rows=coo.rows,
+                     cols=coo.cols, vals=coo.vals, shape=np.asarray(coo.shape))
+            del coo
+        rows = run_roots(__file__, args.roots, tmp, args.iters,
                          ["--kernels", args.kernels])
     digests = {k for r in rows for k in r if k.endswith("_digest")}
-    differ = [k for k in sorted(digests) if len({r[k] for r in rows}) > 1]
+    differ = [k for k in sorted(digests) if len({r.get(k) for r in rows}) > 1]
     if differ:
         print(f"ab_routed: the roots' outputs differ: {differ}")
         return 1

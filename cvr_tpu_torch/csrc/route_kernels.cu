@@ -25,13 +25,18 @@
 //                        on the middle layout, tileperm_kernel<true>
 //   K18 reduce_stream <- _reduce_kernel with _emission_sweep (:537, :86)
 //
-// K5, K2, K6, K5 in that order are the y-route above 1024 tiles (outputs
-// above 1,048,576 rows); K4 is the y-route up to 1024 tiles.  K7 runs only
-// when the pack captured hub columns (the hub-column hybrid).  K16-K18 are
-// the route library's own calls (middle_pass, apply_route, the unfused
-// reduce_stream of ops/spmv_routed.py): K5, K16, K5 route a flat
-// 1024-tile stream in three passes where K4 takes one; K5, K17, K5 route
-// any T not a multiple of 1024 tiles (the brute middle).
+// A routed SpMV runs K1, K3, K7 (only where the pack captured hub
+// columns: the hub-column hybrid) and K4.  The TPU stages its route
+// because it gathers only inside VMEM windows; every stage is a static
+// map, so the upload composes them (ops/spmv_routed.py): K3 gathers g1 by
+// an index composed through the x side's route middle (K2's map, or the
+// flat kind's relayout), M3 and stage 3, and K4 gathers the y stream by
+// an index composed through the whole y-route, of any length.  K2, K5 and
+// K6 are the staged route, which the route library runs (middle_pass,
+// apply_route of a compiled permutation: K5, K2, K6, K5 over a multiple
+// of 1024 tiles), with K16-K18 (the unfused reduce_stream): K5, K16, K5
+// route a flat 1024-tile stream in three passes where K4 takes one; K5,
+// K17, K5 route any T not a multiple of 1024 tiles (the brute middle).
 //
 // Layouts (all row-major, C contiguous):
 //   stream   (8, T, 128): element (tile a, pos p) at [p>>7, a, p&127]
@@ -52,8 +57,9 @@
 // because the L2 (50 MB) holds x and the gathered chunks.  K1, K3 and K4
 // are redesigned for the H100 (see each): K1 stages each tile's x window
 // in shared memory and moves 16 B per thread, K3 splits long slices into
-// pieces summed side by side and gathers by one int32 index composed at
-// upload, K4 gathers by one int32 index composed at upload.
+// pieces summed side by side and gathers g1 by one int32 index composed at
+// upload through the route middle, K4 gathers by one int32 index composed
+// at upload through the whole y-route.
 //
 // Each entry point is a plain C function that launches on the stream it is
 // given and returns cudaGetLastError(); the Python wrapper raises if that
@@ -165,7 +171,8 @@ __global__ void __launch_bounds__(kExpandThreads)
 
 // K2: the recursive route middle's first two stages in one pass: the
 // stream->mstream relayout with the within-chunk permutation m1 (M1), then
-// the chunk select csel (M2).
+// the chunk select csel (M2).  The route library runs it; the routed SpMV
+// reads its map composed into K3's index instead.
 //   mid[i, cd*1024+Q, l] = g1[Q>>7, ca*1024 + m1[i, ca*1024+Q, l], Q&127]
 // with ca = csel[i, cd*1024+Q, l].  The TPU block spans all Tk chunks in
 // VMEM (capping Tk); here each thread reads its one source, so Tk is free.
@@ -191,25 +198,33 @@ __global__ void route_middle_kernel(const float* __restrict__ g1,
   out[e] = v;
 }
 
-// K3: route stage M3 + the mstream->stream relayout + stage 3 + the value
-// multiply + per-slice lane sums (the TPU's _reduce_m3_kernel :641 and
-// _reduce_m3_regular_kernel :752, with _emission_sweep :86).  For plane
-// row R of a slice: c = R>>7, fL = R&127, base = (c>>3)*1024,
-// idx = p3[i,R,l], hi = fast ? i : idx>>7, q = base + ((hi<<7) | (idx&127)),
+// K3: the x side's route middle + stage M3 + the mstream->stream relayout
+// + stage 3 + the value multiply + per-slice lane sums (the TPU's
+// _reduce_m3_kernel :641 and _reduce_m3_regular_kernel :752, with
+// _emission_sweep :86, after _m1_fused_kernel :1203 and _chunksel_kernel
+// :1094 have written the mstream m).  For plane row R of a slice:
+// c = R>>7, fL = R&127, base = (c>>3)*1024, idx = p3[i,R,l],
+// hi = fast ? i : idx>>7, q = base + ((hi<<7) | (idx&127)),
 // i3 = m3[c&7, q, fL], and
-//   P[i,R,l] = vals[i,R,l] * m[i3>>7, q, i3&127].
+//   P[i,R,l] = vals[i,R,l] * m[i3>>7, q, i3&127],
+// where m[e] = g1[f(e)] is the route middle's map of the stream g1, or 0
+// where its chunk select is out of range.
 // Slice k sums P over plane rows [row0[k], row1[k]) into ys[i, out[k], l].
 //
 // What bounds it: bytes (4 B of value, 4 B of index and one scattered 4 B
-// read of m per plane element) and, in the first design (one thread per
+// read of g1 per plane element) and, in the first design (one thread per
 // lane walking a whole slice), the latency of the chain p3 -> m3 -> m,
 // one row after another: a slice's rows are a serial walk, so the longest slice
 // set the kernel's time (128 plane rows on web-Google-like; 1024 on every
 // shard of the forced 4-shard pack, ~half of a shard's rows).  The design:
-//   * the chain is one streamed int32 index per plane element, composed at
-//     upload from p3, the M3 plane and zone A's aligned stage 3 (fast)
-//     (reduce_index): m[idx[i,R,l]] is the factor above, so a row costs a
-//     16 B index load, a 16 B value load and four independent gathers;
+//   * the chain is one streamed int32 index per plane element into g1,
+//     composed at upload from p3, the M3 plane, zone A's aligned stage 3
+//     (fast) and the route middle's map f (reduce_plan): g1[idx[i,R,l]] is
+//     the factor above, or 0 where idx is -1, so a row costs a 16 B index
+//     load, a 16 B value load and four independent gathers, and neither K2
+//     nor the mstream (29-38 MB written and read back) is needed.  The
+//     gathers reach anywhere in g1 (K1 wrote it just before; 29-38 MB
+//     against the 50 MB L2) where they read m inside a 1024-row slab;
 //   * the host cuts every slice into pieces of at most P plane rows
 //     (split_rows, made at upload): one block of 256 threads takes one
 //     piece, warp i its sublane i, each thread 4 lanes; it keeps
@@ -219,7 +234,7 @@ __global__ void route_middle_kernel(const float* __restrict__ g1,
 //     longer slice write partial rows, and a second pass
 //     (reduce_slices_combine_kernel) adds them in piece order into ys.
 //     No float atomics: the output's bits repeat run to run.
-// Index arithmetic is 32-bit: the wrapper refuses planes, m, ys or the
+// Index arithmetic is 32-bit: the wrapper refuses planes, g1, ys or the
 // partials past 2^31 - 1 elements.
 constexpr int kReduceThreads = 256;  // 8 sublanes x 32 threads of 4 lanes
 constexpr int kReduceUnroll = 4;     // plane rows in flight a thread
@@ -236,14 +251,21 @@ __device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-__device__ __forceinline__ float4 gather4(const float* __restrict__ m,
+// data[i], or 0 for i = -1 (the composed indices' zero source): a
+// predicated load, no branch
+__device__ __forceinline__ float gather1(const float* __restrict__ data,
+                                         int i) {
+  return i >= 0 ? __ldg(data + i) : 0.f;
+}
+
+__device__ __forceinline__ float4 gather4(const float* __restrict__ data,
                                           const int4& ix) {
-  return make_float4(__ldg(m + ix.x), __ldg(m + ix.y), __ldg(m + ix.z),
-                     __ldg(m + ix.w));
+  return make_float4(gather1(data, ix.x), gather1(data, ix.y),
+                     gather1(data, ix.z), gather1(data, ix.w));
 }
 
 __global__ void __launch_bounds__(kReduceThreads)
-    reduce_slices_kernel(const float* __restrict__ m,
+    reduce_slices_kernel(const float* __restrict__ g1,
                          const int32_t* __restrict__ idx,
                          const float* __restrict__ vals,
                          const int32_t* __restrict__ pieces,
@@ -272,13 +294,13 @@ __global__ void __launch_bounds__(kReduceThreads)
     }
 #pragma unroll
     for (int u = 0; u < kReduceUnroll; ++u)
-      fma4(acc[u], v[u], gather4(m, ix[u]));
+      fma4(acc[u], v[u], gather4(g1, ix[u]));
   }
   for (; R < r1; ++R) {  // the piece's last rows % kReduceUnroll
     const unsigned e = base + static_cast<unsigned>(R) * 128;
     const int4 ix = __ldcs(reinterpret_cast<const int4*>(idx + e));
     const float4 v = __ldcs(reinterpret_cast<const float4*>(vals + e));
-    fma4(acc[0], v, gather4(m, ix));
+    fma4(acc[0], v, gather4(g1, ix));
   }
   const float4 s = add4(add4(acc[0], acc[1]), add4(acc[2], acc[3]));
   float* o = dst >= 0
@@ -310,19 +332,22 @@ __global__ void __launch_bounds__(kReduceThreads)
       ys + (i * nys + static_cast<unsigned>(out)) * 128 + lq) = s;
 }
 
-// K4: a whole 1024-tile route (the y-route when the output fits one),
-// stage 1 + middle + stage 3 and the flatten, in one gather:
-//   y[e] = ysp_flat[src[e]]
-// where src (int32, one per output) is the composition of the three stage
-// planes, made once at upload (route_planes.compose_small_route).  The TPU
-// gathers only inside (8, 128) VMEM tiles, so it runs the route as lane
-// gathers, selects and transposes (_sr1_kernel, _sr2_kernel); the H100
-// gathers from anywhere through its L2, which still holds ysp (4 MB, just
-// written).  So each output costs one 4 B index and one 4 B store,
-// streamed, and one scattered 4 B read: each thread loads kSmallQuads
-// 16 B pieces of src, keeps their 4*kSmallQuads gathers in flight and
-// stores 16 B pieces of y; the thread past the last whole piece does the
-// n % 4 tail.  Index arithmetic is 32-bit (n <= 2^20).
+// K4: a whole route (the y-route), stage 1 + middle + stage 3 and the
+// flatten, in one gather:
+//   y[e] = src[e] >= 0 ? ysp_flat[src[e]] : 0
+// where src (int32, one per output) is the composition of the stages,
+// made once at upload (spmv_routed.compose_route; -1 where a stage gives
+// 0).  The TPU gathers only inside (8, 128) VMEM tiles, so it runs a
+// 1024-tile route as lane gathers, selects and transposes (_sr1_kernel,
+// _sr2_kernel) and a longer one as K5, K2, K6, K5 (_tileperm_kernel :205,
+// _m1_fused_kernel :1203 + _chunksel_kernel :1094, _m3_fused_kernel
+// :1210, _tileperm_kernel); the H100 gathers from anywhere through its
+// L2, which still holds ysp (4 MB a 1024 tiles, just written).  So each
+// output costs one 4 B index and one 4 B store, streamed, and one
+// scattered 4 B read, at any Tp: each thread loads kSmallQuads 16 B pieces
+// of src, keeps their 4*kSmallQuads gathers in flight and stores 16 B
+// pieces of y; the thread past the last whole piece does the n % 4 tail.
+// Index arithmetic is 32-bit (the wrapper refuses 8*Tp*128 past 2^31 - 1).
 constexpr int kSmallQuads = 2;
 
 __global__ void route_small_kernel(const float* __restrict__ ysp,
@@ -340,8 +365,7 @@ __global__ void route_small_kernel(const float* __restrict__ ysp,
 #pragma unroll
   for (int u = 0; u < kSmallQuads; ++u) {
     if (q0 + u * kThreads < nq)
-      v[u] = make_float4(__ldg(ysp + s[u].x), __ldg(ysp + s[u].y),
-                         __ldg(ysp + s[u].z), __ldg(ysp + s[u].w));
+      v[u] = gather4(ysp, s[u]);
   }
 #pragma unroll
   for (int u = 0; u < kSmallQuads; ++u) {
@@ -349,7 +373,7 @@ __global__ void route_small_kernel(const float* __restrict__ ysp,
     if (q < nq) {
       reinterpret_cast<float4*>(y)[q] = v[u];
     } else if (q == nq) {
-      for (unsigned e = nq * 4; e < n; ++e) y[e] = __ldg(ysp + src[e]);
+      for (unsigned e = nq * 4; e < n; ++e) y[e] = gather1(ysp, src[e]);
     }
   }
 }
@@ -516,13 +540,13 @@ int cvr_route_middle(const void* g1, const void* m1, const void* csel,
   return static_cast<int>(cudaGetLastError());
 }
 
-int cvr_reduce_slices(const void* m, const void* idx, const void* vals,
+int cvr_reduce_slices(const void* g1, const void* idx, const void* vals,
                       const void* pieces, void* ys, void* part, int npieces,
                       int S, int nys, int npart, void* stream) {
   // one block per piece
   reduce_slices_kernel<<<static_cast<unsigned int>(npieces), kReduceThreads,
                          0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(m), static_cast<const int32_t*>(idx),
+      static_cast<const float*>(g1), static_cast<const int32_t*>(idx),
       static_cast<const float*>(vals), static_cast<const int32_t*>(pieces),
       static_cast<float*>(ys), static_cast<float*>(part), S, nys, npart);
   return static_cast<int>(cudaGetLastError());

@@ -4,11 +4,38 @@ from __future__ import annotations
 
 import warnings
 
-from cvr_tpu_torch.formats.bell import BellInfeasible, bell_pack
+from cvr_tpu_torch.formats.bell import BellInfeasible, BellMatrix, bell_pack
+from cvr_tpu_torch.formats.bsr import BsrInfeasible, BsrMatrix, bsr_pack
+from cvr_tpu_torch.formats.coo import COOMatrix
 from cvr_tpu_torch.formats.csr import CSRMatrix
-from cvr_tpu_torch.formats.dia import DiaInfeasible, dia_pack
-from cvr_tpu_torch.formats.sell import sell_pack
-from cvr_tpu_torch.formats.sell_window import WindowInfeasible, sell_pack_window
+from cvr_tpu_torch.formats.dia import DiaInfeasible, DiaMatrix, dia_pack
+from cvr_tpu_torch.formats.sell import SellMatrix, sell_pack
+from cvr_tpu_torch.formats.sell_window import (
+    SellWindow,
+    WindowInfeasible,
+    sell_pack_window,
+)
+
+# the JAX package's names but sell_unpack, which is not ported yet
+__all__ = [
+    "BellInfeasible",
+    "BellMatrix",
+    "bell_pack",
+    "BsrInfeasible",
+    "BsrMatrix",
+    "bsr_pack",
+    "DiaInfeasible",
+    "DiaMatrix",
+    "dia_pack",
+    "COOMatrix",
+    "CSRMatrix",
+    "SellMatrix",
+    "SellWindow",
+    "WindowInfeasible",
+    "sell_pack",
+    "sell_pack_window",
+    "pack_auto",
+]
 
 # The JAX package's routed path refuses a stream above this many route
 # tiles (~100M stored nnz): its chunk-select kernel's block spans all

@@ -78,6 +78,18 @@ def middle_to_stream(m: torch.Tensor) -> torch.Tensor:
     return m.reshape(K, 8, 128, 128).permute(1, 0, 3, 2).reshape(8, K * 128, 128)
 
 
+def source_index(gather, shape, device) -> torch.Tensor:
+    """For each output of ``gather``, a plain version that only moves
+    values of its one data input (of ``shape``) or writes 0: the flat
+    position in that input of the value it moves there, or -1 where it
+    writes 0 (int64, the output's shape).  ``gather`` runs once on data
+    that holds its own 1-based flat positions in float64 (exact below
+    2**53), on ``device``."""
+    n = int(np.prod(shape))
+    pos = torch.arange(1, n + 1, dtype=torch.float64, device=device)
+    return gather(pos.view(shape)).long() - 1
+
+
 def expand_x_table(x: torch.Tensor, segw: int, n_segs: int) -> torch.Tensor:
     """The TPU expand kernel's x table: per-segment row ranges of x as
     (rows, 128), each with an 8-row halo (segw*8 + 8 rows per segment)."""
@@ -316,13 +328,16 @@ route_middle.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3 reduce_slices: M3 + relayout + stage 3 + x vals + per-slice sums
+# K3 reduce_slices: route middle + M3 + relayout + stage 3 + x vals + sums,
+# one gather from g1 by the index composed at upload
 # ---------------------------------------------------------------------------
 
 
 def reduce_products_plain(m, m3, vals, p3, rows, fast):
-    """P (8, len(rows), 128): the products of plane rows ``rows`` (int64),
-    with stage 3 aligned (``fast``, bool per row) on zone-A rows.
+    """P (8, len(rows), 128): the products of plane rows ``rows`` (int64)
+    as the TPU stages them, from the mstream m (the route middle's output)
+    with stage 3 aligned (``fast``, bool per row) on zone-A rows: the
+    chain reduce_index and reduce_plan compose into K3's index.
 
     For row R: c = R>>7, fL = R&127, base = (c>>3)*1024,
     idx = p3[i,R,l], hi = i if fast else idx>>7, q = base + (hi<<7 | idx&127),
@@ -360,22 +375,19 @@ def slice_sums(P, item, out, nys: int):
     return ys
 
 
-def reduce_slices_plain(m, m3, vals, p3, row0, row1, out, fast, nys: int,
-                        plan=None):
-    """ys (8, nys, 128): ys[:, out[k], :] = sum over plane rows
-    [row0[k], row1[k]) of the products (reduce_products_plain); slices
-    no item names stay zero.  ``plan`` (the kernel's) is not read."""
-    item, rows = slice_rows(row0, row1)
-    P = reduce_products_plain(m, m3, vals, p3, rows, fast.bool()[item])
-    return slice_sums(P, item, out, nys)
+def gather_or_zero(data, idx):
+    """data's flat elements at the int index idx, 0.0 where idx < 0."""
+    ix = idx.long()
+    return torch.where(ix >= 0, data.reshape(-1)[ix.clamp(min=0)], 0.0)
 
 
 def reduce_index(m3, p3, row0, row1, fast):
-    """(8, S, 128) int32: K3's composed index.  For each element of a
-    plane row that slice k names, the flat position in the mstream m
-    (8, TM, 128) of the element it multiplies (reduce_products_plain's
-    m[i3>>7, q, i3&127]: stage 3 by p3, aligned on zone-A slices, then the
-    M3 plane m3); 0 on the rows no slice names, which are never read."""
+    """(8, S, 128) int32: the staged chain's index into the mstream.  For
+    each element of a plane row that slice k names, the flat position in
+    the mstream m (8, TM, 128) of the element it multiplies
+    (reduce_products_plain's m[i3>>7, q, i3&127]: stage 3 by p3, aligned
+    on zone-A slices, then the M3 plane m3); 0 on the rows no slice
+    names, which are never read."""
     TM = m3.shape[1]
     if 8 * TM * 128 > INT32_MAX:
         raise ValueError(f"reduce_slices: an mstream of {TM} rows exceeds "
@@ -450,74 +462,91 @@ REDUCE_PIECE_ROWS = 16
 
 @dataclass(frozen=True)
 class ReducePlan:
-    """What K3 reads in place of p3, the M3 plane and the slice table,
-    made at upload (reduce_plan): the composed index and the pieces."""
+    """What K3 reads in place of the route middle's planes, p3, the M3
+    plane and the slice table, made at upload (reduce_plan): the composed
+    index into g1 and the pieces; the table (row0, row1, out: slice k
+    sums plane rows [row0[k], row1[k]) into ys[:, out[k]]), which the
+    plain version reads."""
 
-    idx: torch.Tensor  # (8, S, 128) int32, reduce_index
+    idx: torch.Tensor  # (8, S, 128) int32 into g1, -1 where K2 gave 0
     split: Split
-    TM: int  # the mstream rows idx reaches
+    T: int  # the rows of the stream g1 that idx reaches
+    row0: torch.Tensor  # (n_items,) int32
+    row1: torch.Tensor
+    out: torch.Tensor
 
 
-def reduce_plan(m3, p3, row0, row1, out, fast) -> ReducePlan:
+def reduce_plan(src, m3, p3, row0, row1, out, fast) -> ReducePlan:
     """K3's plan for the slice table (row0, row1, out, fast) over the
-    planes p3 and m3, on their device: pieces of at most
-    REDUCE_PIECE_ROWS rows."""
-    return ReducePlan(idx=reduce_index(m3, p3, row0, row1, fast),
+    planes p3 and m3, on their device: the staged chain's index into the
+    mstream (reduce_index) pushed through ``src``, the route middle's map
+    from the mstream to g1 (source_index of route_middle_plain or of the
+    flat kind's relayout: -1 where the middle writes 0), so that K3
+    gathers from g1 itself; pieces of at most REDUCE_PIECE_ROWS rows."""
+    if src.shape != m3.shape:
+        raise ValueError("reduce_plan: the middle's map must cover the "
+                         "mstream")
+    idx = src.reshape(-1)[reduce_index(m3, p3, row0, row1, fast).long()]
+    return ReducePlan(idx=idx.int(),
                       split=make_split(row0, row1, out, REDUCE_PIECE_ROWS,
                                        p3.device),
-                      TM=m3.shape[1])
+                      T=m3.shape[1], row0=row0, row1=row1, out=out)
 
 
-def reduce_geometry(S: int, TM: int, nys: int, npart: int) -> None:
+def reduce_geometry(S: int, T: int, nys: int, npart: int) -> None:
     """Raise where K3's 32-bit index arithmetic cannot reach: planes of S
-    rows, an mstream of TM rows, ys of nys slices or npart partial rows
+    rows, a stream g1 of T rows, ys of nys slices or npart partial rows
     (8 x rows x 128 elements each)."""
-    for what, rows in (("planes", S), ("mstream", TM), ("ys", nys),
+    for what, rows in (("planes", S), ("g1", T), ("ys", nys),
                        ("partials", npart)):
         if 8 * rows * 128 > INT32_MAX:
             raise ValueError(f"reduce_slices: {what} of {rows} rows exceed "
                              "the kernel's 32-bit indices")
 
 
-def reduce_slices(m, m3, vals, p3, row0, row1, out, fast, nys: int,
-                  plan: ReducePlan | None = None):
-    """K3: per-slice lane sums ys (8, nys, 128) from the mstream m
-    (8, TM, 128) f32, its M3 plane m3 (8, TM, 128) int16, the value
-    planes vals (8, S_pad, 128) f32 and stage-3 plane p3 (8, S_pad, 128)
-    int16.  Slice k sums plane rows [row0[k], row1[k]) into ys[:, out[k]];
-    fast[k] marks zone-A slices (aligned stage 3).  Tables are int32;
-    see reduce_slices_plain.  On the card the kernel reads ``plan``
-    (reduce_plan of the same planes and table, made at upload) in place
-    of m3, p3 and the table: two launches, the second adding the split
-    slices' partials."""
-    if not _on_card("reduce_slices", m, m3, vals, p3, row0, row1, out, fast):
-        return reduce_slices_plain(m, m3, vals, p3, row0, row1, out, fast, nys)
-    if plan is None:
-        raise ValueError("reduce_slices: the kernel needs the plan made at "
-                         "upload (reduce_plan)")
+def reduce_slices_plain(g1, vals, plan: ReducePlan, nys: int):
+    """ys (8, nys, 128): ys[:, out[k], :] = sum over the plane rows
+    [row0[k], row1[k]) of the plan's table of vals times the g1 element
+    the composed index names (0 where it names none).  Bit for bit the
+    staged chain's sums (reduce_products_plain on the route middle's
+    output), since the middle only moves g1's values."""
+    item, rows = slice_rows(plan.row0, plan.row1)
+    P = vals[:, rows, :] * gather_or_zero(g1, plan.idx[:, rows, :])
+    return slice_sums(P, item, plan.out, nys)
+
+
+def reduce_slices(g1, vals, plan: ReducePlan, nys: int):
+    """K3: per-slice lane sums ys (8, nys, 128) from the expanded stream
+    g1 (8, T, 128) f32 and the value planes vals (8, S_pad, 128) f32, by
+    the plan made at upload (reduce_plan: the index composed through the
+    route middle, M3 and stage 3, the slices cut into pieces); see
+    reduce_slices_plain.  On the card: two launches, the second adding
+    the split slices' partials."""
     split = plan.split
-    for t, dt in ((m, torch.float32), (vals, torch.float32),
+    if not _on_card("reduce_slices", g1, vals, plan.idx, split.pieces,
+                    split.combine):
+        return reduce_slices_plain(g1, vals, plan, nys)
+    for t, dt in ((g1, torch.float32), (vals, torch.float32),
                   (plan.idx, torch.int32), (split.pieces, torch.int32),
                   (split.combine, torch.int32)):
         _check_dtype("reduce_slices", t, dt)
-    TM, S = m.shape[1], vals.shape[1]
-    if (m.shape != (8, TM, 128) or vals.shape != (8, S, 128)
-            or plan.idx.shape != vals.shape or plan.TM != TM):
+    T, S = g1.shape[1], vals.shape[1]
+    if (g1.shape != (8, T, 128) or vals.shape != (8, S, 128)
+            or plan.idx.shape != vals.shape or plan.T != T):
         raise ValueError("reduce_slices: plane shapes disagree with the plan")
-    _on_card("reduce_slices", m, plan.idx, split.pieces, split.combine)
-    reduce_geometry(S, TM, nys, split.npart)
+    reduce_geometry(S, T, nys, split.npart)
     _check_aligned("reduce_slices", vals, plan.idx)
-    ys = torch.zeros((8, nys, 128), dtype=torch.float32, device=m.device)
+    ys = torch.zeros((8, nys, 128), dtype=torch.float32, device=g1.device)
     part = torch.empty((8, split.npart, 128), dtype=torch.float32,
-                       device=m.device)
+                       device=g1.device)
     n = split.pieces.shape[0]
     if n:
-        _launch("cvr_reduce_slices", m.device, _p(m), _p(plan.idx),
+        _launch("cvr_reduce_slices", g1.device, _p(g1), _p(plan.idx),
                 _p(vals), _p(split.pieces), _p(ys), _p(part), n, S, nys,
                 split.npart)
         reduce_slices.launches += 1
     if split.combine.shape[0]:
-        _launch("cvr_reduce_slices_combine", m.device, _p(part),
+        _launch("cvr_reduce_slices_combine", g1.device, _p(part),
                 _p(split.combine), _p(ys), split.combine.shape[0], nys,
                 split.npart)
         reduce_slices.launches += 1
@@ -528,16 +557,16 @@ reduce_slices.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K4 route_small: a whole 1024-tile route (stage 1 + middle + stage 3)
-# in one gather by the index composed at upload
+# K4 route_small: a whole route (stage 1 + middle + stage 3) in one gather
+# by the index composed at upload
 # ---------------------------------------------------------------------------
 
 
 def route_small_chain(ysp, s1, mid, s3, n: int):
     """y (n,) = the route of the stream ysp (8, 1024, 128) by its stage
     planes s1, mid (flat middle) and s3, flattened to natural order: the
-    three-stage chain the TPU runs, and the one
-    route_planes.compose_small_route composes into K4's index."""
+    three-stage chain the TPU runs for a flat route, written as three
+    gathers."""
     r = torch.arange(1024, device=ysp.device).view(1, 1024, 1)
     s1l = s1.long()
     g = ysp[s1l >> 7, r, s1l & 127]  # stage 1, [q>>7, a, q&127]
@@ -547,24 +576,36 @@ def route_small_chain(ysp, s1, mid, s3, n: int):
 
 
 def route_small_plain(ysp, src, n: int):
-    """y (n,) = ysp's flat elements at src: route_small_chain's function
-    for src = compose_small_route of the same planes."""
-    return ysp.reshape(-1)[src.long()]
+    """y (n,) = ysp's flat elements at src, 0 where src is -1: the staged
+    route's function (stage 1, middle, stage 3) for src composed from the
+    same planes (spmv_routed.compose_route)."""
+    return gather_or_zero(ysp, src)
+
+
+def route_small_geometry(Tp: int, n: int) -> None:
+    """Raise unless K4 takes a stream of Tp tiles (8*Tp*128 elements,
+    reached by 32-bit indices) and n outputs, at most one per element."""
+    if 8 * Tp * 128 > INT32_MAX:
+        raise ValueError(f"route_small: a y stream of {Tp} tiles exceeds the "
+                         "kernel's 32-bit indices")
+    if not 0 <= n <= Tp * 1024:
+        raise ValueError(f"route_small: {n} outputs of a {Tp}-tile route")
 
 
 def route_small(ysp, src, n: int):
-    """K4: y (n,) from ysp (8, 1024, 128) f32 by the int32 index src (n,)
-    into its flat elements, 16 B aligned: a flat 1024-tile route composed
-    at upload (RouteDevice.src); see route_small_plain."""
+    """K4: y (n,) from ysp (8, Tp, 128) f32, any Tp, by the int32 index
+    src (n,) into its flat elements (-1: y is 0 there), 16 B aligned: a
+    route's stages composed at upload (RouteDevice.src); see
+    route_small_plain."""
     if not _on_card("route_small", ysp, src):
         return route_small_plain(ysp, src, n)
     _check_dtype("route_small", ysp, torch.float32)
     _check_dtype("route_small", src, torch.int32)
-    if ysp.shape != (8, 1024, 128) or src.shape != (n,) or not (
-        0 <= n <= 1024 * 1024
-    ):
-        raise ValueError("route_small: a flat route is (8, 1024, 128) with "
-                         "one index per output")
+    Tp = ysp.shape[1]
+    if ysp.shape != (8, Tp, 128) or src.shape != (n,):
+        raise ValueError("route_small: the stream is (8, Tp, 128) with one "
+                         "index per output")
+    route_small_geometry(Tp, n)
     _check_aligned("route_small", src)
     y = torch.empty(n, dtype=torch.float32, device=ysp.device)
     if n:

@@ -64,22 +64,6 @@ def _to_ss16(a: np.ndarray) -> np.ndarray:
     )
 
 
-def compose_small_route(s1, mid, s3, n: int) -> np.ndarray:
-    """The flat 1024-tile route's three stages as one gather index: (n,)
-    int32, for each output y[e] (natural order) the flat position in the
-    stream ysp (8, 1024, 128) that stage 1 (s1), the flat middle (mid) and
-    stage 3 (s3) select, composed exactly as
-    route_kernels.route_small_chain runs them, on ysp's own flat
-    positions."""
-    r = np.arange(1024).reshape(1, 1024, 1)
-    pos = np.arange(8 * 1024 * 128, dtype=np.int32).reshape(8, 1024, 128)
-    s1l = np.asarray(s1).astype(np.int64)
-    g = pos[s1l >> 7, r, s1l & 127]  # stage 1, [q>>7, a, q&127]
-    g = g[r >> 7, np.asarray(mid).astype(np.int64), r & 127]  # middle
-    y = g[r >> 7, np.asarray(s3).astype(np.int64), r & 127]  # stage 3
-    return np.ascontiguousarray(y.transpose(1, 0, 2).reshape(-1)[:n])
-
-
 def middle_planes(plan) -> dict:
     """Device-ready middle-stage planes for a RoutePlan (host NumPy)."""
     return middle_planes_from(plan.mid, plan.n_tiles)

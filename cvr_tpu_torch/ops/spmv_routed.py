@@ -4,15 +4,24 @@ and the route library's device API.
 Pipeline (cvr_tpu_torch/formats/sell_routed.py packs the planes):
 
     g1  = expand(x)                       K1  window gather + route stage 1
-    m   = route_middle(g1)                K2  M1 + chunk select (Tk >= 2)
-        | stream_to_mstream(g1)               relayout only (Tk == 1)
-    ys  = reduce_slices(m, m3, vals, p3)  K3  M3 + stage 3 + x vals + sums
+    ys  = reduce_slices(g1, vals, plan)   K3  route middle + M3 + stage 3
+                                              + x vals + slice sums
     ysp = zone-A fold, pad to the y-route's tiles
     ysp += reduce_hot(x[hot_ids], ...)    K7  hub-column hybrid (hot planes)
-    y   = route_small(ysp, src)           K4  the y-route, Tp == 1024
-        | tileperm(ysp, s1) -> middle_pass -> tileperm(s3)
-                                          K5, (K2, K6), K5  Tp > 1024
+    y   = route_small(ysp, src)           K4  the whole y-route, any Tp
     y   = y * ymask ; y[extra_row] += ysp[extra_src]
+
+The TPU stages the route because it gathers only inside VMEM windows: the
+x side's middle (M1 + chunk select, then M3 inside the reduce) and the
+y-route's stage 1, middle and stage 3 are passes of their own there.
+Every stage is a static map that the pack fixes, and the card gathers
+from anywhere through its L2, so the upload composes them: K3 reads g1
+by one int32 index per plane element composed through the route middle
+(route_middle's map, or the flat kind's relayout), M3 and stage 3
+(reduce_plan), and K4 reads ysp by one int32 index per output composed
+through the y-route's stages (compose_route).  ``middle`` and
+``staged_route`` keep the staged passes: the chains the composed indices
+are held against.
 
 The unfused reduce the JAX package's routed SpMV specifies runs the whole
 middle first and reduces from the stream (reduce_unfused):
@@ -60,10 +69,10 @@ class RouteMidDevice:
 
 @dataclass(frozen=True)
 class RouteDevice:
-    """A route's stage planes: stages 1/3 and the middle; for a flat
-    1024-tile route also ``src``, the three stages composed into one
-    (n,) int32 gather index (route_planes.compose_small_route), which K4
-    reads in their place."""
+    """A route's stage planes: stages 1/3 and the middle; where the
+    upload composed them (route_to_device), also ``src``, the stages as
+    one (n,) int32 gather index (compose_route), which K4 reads in their
+    place."""
 
     s1: torch.Tensor
     mid: RouteMidDevice
@@ -89,8 +98,9 @@ class SellRoutedDevice:
     red_row1: torch.Tensor
     red_out: torch.Tensor
     red_fast: torch.Tensor
-    # what K3 reads on the card in place of p3, the M3 plane and the
-    # table: the composed index and the slices cut into pieces
+    # what K3 reads in place of the route middle, p3, the M3 plane and the
+    # table: the index into g1 composed through them, the slices cut into
+    # pieces (reduce_plan)
     red_plan: rk.ReducePlan
     yroute: RouteDevice
     extra_src: torch.Tensor  # (n_extra,) int64 padded y-stream positions
@@ -188,25 +198,80 @@ def mid_to_device(mp: dict, device) -> RouteMidDevice:
     )
 
 
-def route_to_device(ra: dict, device) -> RouteDevice:
+def middle_pass_plain(g, planes: RouteMidDevice) -> torch.Tensor:
+    """middle_pass's function in plain torch, on a stream g of any
+    dtype."""
+    if planes.kind == "flat":
+        return rk.route_flat_plain(g, planes.mid)
+    if planes.kind == "rec":
+        return rk.route_m3_plain(
+            rk.route_middle_plain(g, planes.m1, planes.csel), planes.m3)
+    mid = rk.groupperm_plain(rk.stream_to_middle(g), planes.mid)
+    return rk.middle_to_stream(mid)
+
+
+def compose_route(s1, mid: RouteMidDevice, s3, Tp: int, n: int):
+    """A route's stages as one gather index: (n,) int32 on the planes'
+    device, for each output y[e] (natural order) the flat position in the
+    stream ysp (8, Tp, 128) of the value that stage 1 (s1), the middle
+    and stage 3 (s3) move there, or -1 where they give 0; the staged
+    route's plain versions run once on ysp's own flat positions
+    (rk.source_index), so each stage's zero case becomes that -1."""
+    rk.route_small_geometry(Tp, n)
+
+    def staged(g):
+        g = rk.tileperm_plain(middle_pass_plain(rk.tileperm_plain(g, s1),
+                                                mid), s3)
+        return rk.stream_to_flat(g)[:n]
+
+    return rk.source_index(staged, (8, Tp, 128), s1.device).int()
+
+
+def route_to_device(ra: dict, device, compose: bool = False) -> RouteDevice:
     """Upload a route's arrays (route_planes.route_arrays_from_perm) to
-    ``device``; a flat route also gets its composed K4 index, made here
-    once."""
+    ``device``, with the stages composed into K4's index (compose_route,
+    made here once) for a flat route, and for any route when
+    ``compose``; a route without it runs its stages (staged_route)."""
     put = _put(device)
-    mp = ra["mid_planes"]
+    mid = mid_to_device(ra["mid_planes"], device)
+    s1, s3 = put(ra["s1"]), put(ra["s3"])
     src = None
-    if mp["kind"] == "flat":
-        src = put(rp.compose_small_route(ra["s1"], mp["mid"], ra["s3"],
-                                         ra["n"]))
-    return RouteDevice(s1=put(ra["s1"]), mid=mid_to_device(mp, device),
-                       s3=put(ra["s3"]), T=ra["T"], Tp=ra["Tp"], n=ra["n"],
-                       src=src)
+    if compose or mid.kind == "flat":
+        src = compose_route(s1, mid, s3, ra["Tp"], ra["n"])
+    return RouteDevice(s1=s1, mid=mid, s3=s3, T=ra["T"], Tp=ra["Tp"],
+                       n=ra["n"], src=src)
+
+
+def mstream_source(mid: RouteMidDevice) -> torch.Tensor:
+    """(8, T, 128) int64 on the planes' device: for each element of the
+    mstream that the staged route middle gives the reduce (``middle``),
+    the flat position in the stream g1 (8, T, 128) of the value it holds,
+    or -1 where it holds 0 (a chunk select outside [0, Tk)): K2's map
+    (kind "rec") or the flat kind's relayout, by rk.source_index."""
+    if mid.kind == "rec":
+        return rk.source_index(
+            lambda g: rk.route_middle_plain(g, mid.m1, mid.csel),
+            mid.m1.shape, mid.m1.device)
+    return rk.source_index(lambda g: rk.stream_to_mstream(g, mid.Tk),
+                           mid.mid.shape, mid.mid.device)
+
+
+def reduce_plan(mid: RouteMidDevice, p3, row0, row1, out,
+                fast) -> rk.ReducePlan:
+    """K3's plan (rk.reduce_plan) for the slice table (row0, row1, out,
+    fast) over p3 and the route middle ``mid``, composed through the
+    middle into g1 (mstream_source)."""
+    m3 = mid.m3 if mid.kind == "rec" else mid.mid
+    return rk.reduce_plan(mstream_source(mid), m3, p3, row0, row1, out,
+                          fast)
 
 
 def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
     """Upload the routed artifact's planes to ``device`` (the card unless
-    the caller asks for another), with K3's plan (reduce_plan: the
-    composed index and the slices cut into pieces), made here once."""
+    the caller asks for another), with K3's plan (reduce_plan: the index
+    into g1 composed through the route middle, M3 and stage 3, and the
+    slices cut into pieces) and K4's index (the y-route's stages
+    composed), made here once."""
     put = _put(device)
     mid = mid_to_device(sr.mid, device)
     nrows_out = sr.y_ra["n"]
@@ -239,9 +304,8 @@ def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
         red_row1=red[1],
         red_out=red[2],
         red_fast=red[3],
-        red_plan=rk.reduce_plan(mid.m3 if mid.kind == "rec" else mid.mid,
-                                p3, *red),
-        yroute=route_to_device(sr.y_ra, device),
+        red_plan=reduce_plan(mid, p3, *red),
+        yroute=route_to_device(sr.y_ra, device, compose=True),
         extra_src=put(np.asarray(sr.extra_src, dtype=np.int64)[keep]),
         extra_row=put(np.asarray(sr.extra_row, dtype=np.int64)[keep]),
         ymask=put(sr.ymask),
@@ -271,19 +335,20 @@ def spmm_routed(sd: SellRoutedDevice, X: torch.Tensor) -> torch.Tensor:
 
 
 def middle(sd: SellRoutedDevice, g1: torch.Tensor):
-    """The route middle up to the mstream, and the M3 plane the reduce
-    applies: (m, m3)."""
+    """The route middle as the TPU stages it, up to the mstream, and the
+    M3 plane its reduce applies: (m, m3).  No SpMV runs it: K3 gathers g1
+    by an index composed through it (mstream_source); the tests and
+    chip_smoke.py hold that index against it."""
     if sd.mid.kind == "rec":
         return rk.route_middle(g1, sd.mid.m1, sd.mid.csel), sd.mid.m3
     # flat: the relayout alone; the within-slab perm IS the flat mid plane
     return rk.stream_to_mstream(g1, sd.mid.Tk).contiguous(), sd.mid.mid
 
 
-def reduce(sd: SellRoutedDevice, m: torch.Tensor, m3: torch.Tensor):
-    """Per-slice lane sums ys (8, nslices, 128)."""
-    return rk.reduce_slices(m, m3, sd.vals_ss, sd.p3, sd.red_row0,
-                            sd.red_row1, sd.red_out, sd.red_fast,
-                            sd.nslices, sd.red_plan)
+def reduce(sd: SellRoutedDevice, g1: torch.Tensor):
+    """Per-slice lane sums ys (8, nslices, 128) from the expanded stream
+    g1: K3 by the plan composed at upload."""
+    return rk.reduce_slices(g1, sd.vals_ss, sd.red_plan, sd.nslices)
 
 
 def y_stream(sd: SellRoutedDevice, ys: torch.Tensor) -> torch.Tensor:
@@ -329,7 +394,8 @@ def reduce_unfused(sd: SellRoutedDevice, gx: torch.Tensor, emit, gemit,
 def middle_pass(g1: torch.Tensor, planes: RouteMidDevice) -> torch.Tensor:
     """The route middle on the stream g1 (8, T, 128), returning a stream:
     kind "flat" (T == 1024) K16; kind "rec" (T == Tk*1024) K2 then K6;
-    kind "brute" (T == K*128) K17 between the stream<->middle relayouts."""
+    kind "brute" (T == K*128) K17 between the stream<->middle relayouts.
+    See middle_pass_plain."""
     if planes.kind == "flat":
         return rk.route_flat(g1, planes.mid)
     if planes.kind == "rec":
@@ -339,14 +405,21 @@ def middle_pass(g1: torch.Tensor, planes: RouteMidDevice) -> torch.Tensor:
     return rk.middle_to_stream(mid).contiguous()
 
 
-def apply_route_stream(ra: RouteDevice, g: torch.Tensor) -> torch.Tensor:
-    """Route the stream g (8, Tp, 128) to y (n,) in natural order: one
-    K4 gather by the composed index for a flat 1024-tile route, else
-    stage 1 (K5), middle_pass and stage 3 (K5)."""
-    if ra.mid.kind == "flat":
-        return rk.route_small(g, ra.src, ra.n)
+def staged_route(ra: RouteDevice, g: torch.Tensor) -> torch.Tensor:
+    """Route the stream g (8, Tp, 128) to y (n,) in natural order by its
+    stages, as the TPU runs them: stage 1 (K5), middle_pass and stage 3
+    (K5)."""
     g2 = middle_pass(rk.tileperm(g, ra.s1), ra.mid)
     return rk.stream_to_flat(rk.tileperm(g2, ra.s3))[: ra.n]
+
+
+def apply_route_stream(ra: RouteDevice, g: torch.Tensor) -> torch.Tensor:
+    """Route the stream g (8, Tp, 128) to y (n,) in natural order: one
+    K4 gather by the composed index where the route carries it, else
+    staged_route."""
+    if ra.src is not None:
+        return rk.route_small(g, ra.src, ra.n)
+    return staged_route(ra, g)
 
 
 def apply_route(ra, v: torch.Tensor) -> torch.Tensor:
@@ -383,7 +456,6 @@ def y_from_slices(sd: SellRoutedDevice, ys: torch.Tensor,
 
 def route_post_expand(sd: SellRoutedDevice, g1: torch.Tensor,
                       x: torch.Tensor) -> torch.Tensor:
-    """The tail of the pipeline after the expand: middle, reduce, then
+    """The tail of the pipeline after the expand: K3 on g1, then
     y_from_slices."""
-    m, m3 = middle(sd, g1)
-    return y_from_slices(sd, reduce(sd, m, m3), x)
+    return y_from_slices(sd, reduce(sd, g1), x)

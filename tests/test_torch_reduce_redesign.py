@@ -4,11 +4,13 @@ against their plain versions and the JAX package.
 On the card both kernels cut every slice (K3) or slot (K13) into pieces of
 at most P plane rows, planned on the host at upload (split_rows), sum the
 pieces side by side and add a split item's partials in piece order in a
-second pass; K3 gathers by one int32 index per plane element composed at
-upload (reduce_index) in place of the p3 -> M3 -> m chain.  Here, with no
+second pass; K3 gathers g1 by one int32 index per plane element composed
+at upload (reduce_plan: reduce_index through the route middle's map) in
+place of the route middle and the p3 -> M3 -> m chain.  Here, with no
 card: the piece tables cover every item's rows once, in order; the
-composed index followed by a plain gather-multiply is
-reduce_products_plain bit for bit; the kernels' order of summation,
+composed index followed by a plain gather-multiply of g1 is
+reduce_products_plain on the route middle's mstream bit for bit; the
+kernels' order of summation,
 emulated in torch (each piece's rows into kReduceUnroll accumulators for
 K3 and one per output for K13, the accumulators added as the kernels add
 them, the pieces' partials in piece order), stays within 1e-6 of the row
@@ -99,13 +101,12 @@ def _check_cover(row0, row1, out, split):
                                   np.arange(split.npart))
 
 
-def _k3_emulated(m, idx, vals, split, nys):
+def _k3_emulated(g1, idx, vals, split, nys):
     """ys (8, nys, 128) summed as K3 sums on the card: each piece's rows
     into K3_UNROLL accumulators (row j of the unrolled body into
     accumulator j, the last rows % K3_UNROLL into the first), added as
     (a0 + a1) + (a2 + a3); a split slice's partials added in piece
-    order."""
-    mf = m.reshape(-1)
+    order; g1 read as 0 where idx is -1."""
     ys = torch.zeros((8, nys, 128), dtype=torch.float32)
     part = torch.zeros((8, split.npart, 128), dtype=torch.float32)
     for r0, r1, dst in split.pieces.tolist():
@@ -114,7 +115,7 @@ def _k3_emulated(m, idx, vals, split, nys):
         body = r0 + (r1 - r0) // K3_UNROLL * K3_UNROLL
         for R in range(r0, r1):
             u = (R - r0) % K3_UNROLL if R < body else 0
-            acc[u] = acc[u] + vals[:, R] * mf[idx[:, R].long()]
+            acc[u] = acc[u] + vals[:, R] * rk.gather_or_zero(g1, idx[:, R])
         s = (acc[0] + acc[1]) + (acc[2] + acc[3])
         if dst >= 0:
             ys[:, dst] = s
@@ -203,7 +204,8 @@ def test_reduce_plan_covers_every_slice(case):
 def test_dist_shards_carry_split_reduce_plans():
     """Every shard of the forced 4-shard pack holds a slice wider than
     P rows; each shard's plan covers its slices, splits the wide one, and
-    its composed index is reduce_index of the shard's planes."""
+    its composed index is reduce_index of the shard's planes through the
+    shard's route middle."""
     dm = _dist_pack()
     for sd in dm.shards:
         t = (sd.red_row0, sd.red_row1, sd.red_out)
@@ -213,8 +215,9 @@ def test_dist_shards_carry_split_reduce_plans():
         _check_cover(*t, sp)
         assert sp.combine.shape[0] > 0
         m3 = sd.mid.m3 if sd.mid.kind == "rec" else sd.mid.mid
-        assert torch.equal(sd.red_plan.idx, rk.reduce_index(
-            m3, sd.p3, sd.red_row0, sd.red_row1, sd.red_fast))
+        idx = rk.reduce_index(m3, sd.p3, sd.red_row0, sd.red_row1,
+                              sd.red_fast)
+        assert torch.equal(sd.red_plan.idx, _fold(sd, idx))
 
 
 @functools.cache
@@ -255,19 +258,26 @@ def test_lane_split_covers_every_slot(case):
 # ---------------------------------------------------------------------------
 
 
-def _middle(sd, x):
-    g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, torch.from_numpy(x),
-                   sd.segw, sd.n_segs)
-    return tsp.middle(sd, g1)
+def _expand(sd, x):
+    return rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, torch.from_numpy(x),
+                     sd.segw, sd.n_segs)
+
+
+def _fold(sd, idx):
+    """The mstream index idx pushed through sd's route middle, into g1."""
+    return tsp.mstream_source(sd.mid).reshape(-1)[idx.long()].int()
 
 
 @pytest.mark.parametrize("fast", ["packed", "off"])
 @pytest.mark.parametrize("case", ["powerlaw", "uniform_w16"])
 def test_reduce_index_is_the_three_plane_chain(case, fast):
-    """m at the composed index times vals equals reduce_products_plain bit
-    for bit, with zone A's aligned stage 3 as packed and switched off."""
+    """m (the staged route middle's mstream) at the composed index times
+    vals equals reduce_products_plain bit for bit, with zone A's aligned
+    stage 3 as packed and switched off; so does g1 at that index pushed
+    through the route middle's map (K3's plan)."""
     _, sd, x = _routed(case)
-    m, m3 = _middle(sd, x)
+    g1 = _expand(sd, x)
+    m, m3 = tsp.middle(sd, g1)
     fast_t = sd.red_fast if fast == "packed" else torch.zeros_like(sd.red_fast)
     if case == "uniform_w16" and fast == "packed":
         assert bool(fast_t.any())
@@ -278,8 +288,11 @@ def test_reduce_index_is_the_three_plane_chain(case, fast):
     want = rk.reduce_products_plain(m, m3, sd.vals_ss, sd.p3, rows,
                                     fast_t.bool()[item])
     assert torch.equal(got, want)
+    folded = _fold(sd, idx)
+    got = sd.vals_ss[:, rows, :] * rk.gather_or_zero(g1, folded[:, rows, :])
+    assert torch.equal(got, want)
     if fast == "packed":
-        assert torch.equal(idx, sd.red_plan.idx)
+        assert torch.equal(folded, sd.red_plan.idx)
 
 
 # ---------------------------------------------------------------------------
@@ -313,12 +326,12 @@ def test_k3_split_sums_match_plain_and_pallas(case, rows):
     package's _reduce_m3_kernel / _reduce_m3_regular_kernel (interpret
     mode) through the zone-A fold, within 1e-6 of the row scale."""
     sr, sd, x = _routed(case)
-    m, m3 = _middle(sd, x)
+    g1 = _expand(sd, x)
     split = rk.make_split(sd.red_row0, sd.red_row1, sd.red_out, rows, "cpu")
-    ys = _k3_emulated(m, sd.red_plan.idx, sd.vals_ss, split, sd.nslices)
-    want = tsp.reduce(sd, m, m3)
+    ys = _k3_emulated(g1, sd.red_plan.idx, sd.vals_ss, split, sd.nslices)
+    want = tsp.reduce(sd, g1)
     abs_sd = dataclasses.replace(sd, vals_ss=sd.vals_ss.abs())
-    scale = tsp.reduce(abs_sd, m.abs(), m3)
+    scale = tsp.reduce(abs_sd, g1.abs())
     _within(ys, want, scale)
     _within(tsp.y_stream(sd, ys), _pallas_ysp(case),
             tsp.y_stream(abs_sd, scale))
@@ -330,11 +343,11 @@ def test_k3_split_sums_on_a_forced_shard():
     dm = _dist_pack()
     sd = dm.shards[0]
     x = np.random.default_rng(2).standard_normal(dm.shape[1]).astype(np.float32)
-    m, m3 = _middle(sd, x)
-    ys = _k3_emulated(m, sd.red_plan.idx, sd.vals_ss, sd.red_plan.split,
+    g1 = _expand(sd, x)
+    ys = _k3_emulated(g1, sd.red_plan.idx, sd.vals_ss, sd.red_plan.split,
                       sd.nslices)
     abs_sd = dataclasses.replace(sd, vals_ss=sd.vals_ss.abs())
-    _within(ys, tsp.reduce(sd, m, m3), tsp.reduce(abs_sd, m.abs(), m3))
+    _within(ys, tsp.reduce(sd, g1), tsp.reduce(abs_sd, g1.abs()))
 
 
 @pytest.mark.parametrize("K", [1, 17, 130])
@@ -380,7 +393,7 @@ def test_reduce_geometry_takes(S, TM, nys, npart):
 
 @pytest.mark.parametrize("S, TM, nys, npart, what", [
     (2**21, 1024, 8, 0, "planes"),
-    (1024, 2**21, 8, 0, "mstream"),
+    (1024, 2**21, 8, 0, "g1"),
     (1024, 1024, 2**21, 0, "ys"),
     (1024, 1024, 8, 2**21, "partials"),
 ])
@@ -427,9 +440,12 @@ def test_wrappers_take_no_plain_path_off_the_cpu(name):
 
     i32 = torch.int32
     if name == "reduce_slices":
-        args = (t((8, 1024, 128)), t((8, 1024, 128), torch.int16),
-                t((8, 8, 128)), t((8, 8, 128), torch.int16), t((1,), i32),
-                t((1,), i32), t((1,), i32), t((1,), i32), 1)
+        split = rk.Split(pieces=t((1, 3), i32), combine=t((0, 3), i32),
+                         npart=0, rows=rk.REDUCE_PIECE_ROWS)
+        plan = rk.ReducePlan(idx=t((8, 8, 128), i32), split=split, T=1024,
+                             row0=t((1,), i32), row1=t((1,), i32),
+                             out=t((1,), i32))
+        args = (t((8, 1024, 128)), t((8, 8, 128)), plan, 1)
         wrapper = rk.reduce_slices
     else:
         args = (t((1024,), i32), t((1, 1024)), t((2,), i32), t((2,), i32),

@@ -242,10 +242,9 @@ def test_reduce_stream_matches_reduce_slices(monkeypatch, case):
     kernels.reset_launches()
     ys = tsp.reduce_unfused(sd, gx, emit, gemit, sr.ycall_rows)
     assert rk.reduce_stream.launches == 0
-    m, m3 = tsp.middle(sd, g1)
-    ys_fused = tsp.reduce(sd, m, m3)
+    ys_fused = tsp.reduce(sd, g1)
     abs_sd = dataclasses.replace(sd, vals_ss=sd.vals_ss.abs())
-    scale = tsp.reduce(abs_sd, m.abs(), m3).numpy()
+    scale = tsp.reduce(abs_sd, g1.abs()).numpy()
     assert ys.shape == ys_fused.shape
     err = np.abs(ys.numpy().astype(np.float64) - ys_fused.numpy())
     assert (err <= 1e-6 + 1e-6 * scale).all(), float(err.max())

@@ -71,8 +71,10 @@ def _capture_ysp(monkeypatch, sd, x):
 @pytest.mark.parametrize("case", ["uniform_w16", "rmat_yb4"])
 def test_reduce_matches_pallas(monkeypatch, case, s3fast):
     """reduce_m3_slices + reduce_m3_regular (and the zone-A fold) against
-    K3's plain version, with stage 3 aligned where the pack says so and
-    with the aligned path switched off in both packages."""
+    K3's plain version on g1 (the route middle composed into its index),
+    with stage 3 aligned where the pack says so and with the aligned path
+    switched off in both packages (the port's plan made again without
+    it)."""
     if case == "rmat_yb4":
         monkeypatch.setattr(jpr, "YB", 4)
         monkeypatch.setattr(tpr, "YB", 4)
@@ -86,18 +88,19 @@ def test_reduce_matches_pallas(monkeypatch, case, s3fast):
     tsd = tsp.to_device_routed(from_reference(sr), "cpu")
     if s3fast == "off":
         jsd = dataclasses.replace(jsd, zone_rows=0)
-        tsd = dataclasses.replace(tsd, red_fast=torch.zeros_like(tsd.red_fast))
+        fast = torch.zeros_like(tsd.red_fast)
+        tsd = dataclasses.replace(tsd, red_fast=fast, red_plan=tsp.reduce_plan(
+            tsd.mid, tsd.p3, tsd.red_row0, tsd.red_row1, tsd.red_out, fast))
     else:
         assert bool(tsd.red_fast.any())
     want, _ = _capture_ysp(monkeypatch, jsd, x)
 
     g1 = rk.expand(tsd.w8, tsd.gcls, tsd.seg_blk, tsd.li, _t(x), tsd.segw,
                    tsd.n_segs)
-    m, m3 = tsp.middle(tsd, g1)
-    got = tsp.y_stream(tsd, tsp.reduce(tsd, m, m3)).numpy()
+    got = tsp.y_stream(tsd, tsp.reduce(tsd, g1)).numpy()
     # row scale: the same sums over |vals| * |gathered x|
     abs_sd = dataclasses.replace(tsd, vals_ss=tsd.vals_ss.abs())
-    scale = tsp.y_stream(abs_sd, tsp.reduce(abs_sd, m.abs(), m3)).numpy()
+    scale = tsp.y_stream(abs_sd, tsp.reduce(abs_sd, g1.abs())).numpy()
     assert got.shape == want.shape
     err = np.abs(got.astype(np.float64) - want)
     assert (err <= 1e-6 + 1e-6 * scale).all(), float(err.max())
@@ -111,9 +114,8 @@ def test_route_small_matches_pallas():
     want = np.asarray(jpr._route_small_call(True)(
         jnp.asarray(ysp), ya["s1"], ya["mid_planes"]["mid"], ya["s3"]
     ))[: ya["n"]]
-    src = tpr.compose_small_route(ya["s1"], ya["mid_planes"]["mid"],
-                                  ya["s3"], ya["n"])
-    got = rk.route_small(_t(ysp), _t(src), ya["n"])
+    src = tsp.route_to_device(ya, "cpu").src
+    got = rk.route_small(_t(ysp), src, ya["n"])
     np.testing.assert_array_equal(got.numpy(), want)
 
 

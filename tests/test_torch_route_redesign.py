@@ -1,10 +1,11 @@
 """The redesigned K4 and K1 of the port against the JAX package.
 
 K4 (route_small) gathers the y stream by one int32 index that
-route_planes.compose_small_route composes at upload from the flat route's
-three stage planes; the index followed by K4's plain gather must equal the
-three-plane chain (route_small_chain) and the JAX package's small route
-(_sr1_kernel + _sr2_kernel, Pallas in interpret mode) bit for bit.  K1's
+spmv_routed.compose_route composes at upload from the route's stage
+planes (route_to_device); on a flat route the index followed by K4's
+plain gather must equal the three-plane chain (route_small_chain) and the
+JAX package's small route (_sr1_kernel + _sr2_kernel, Pallas in interpret
+mode) bit for bit.  K1's
 launch geometry (expand_blocks) is a pure function and refuses what the
 kernel's 32-bit indices cannot reach.
 """
@@ -55,12 +56,19 @@ def _dist_pack():
                                 tdist.make_mesh(devices=["cpu"] * 4))
 
 
+def _shard_route(dm, p):
+    """The y-route arrays of the shard whose planes are ``p``."""
+    m = dm.meta
+    return {"s1": p["y_s1"], "s3": p["y_s3"], "n": m["y_n"], "T": m["y_T"],
+            "Tp": m["y_Tp"],
+            "mid_planes": {"kind": m["ymid_kind"], "Tk": m["ymid_Tk"],
+                           "mid": p["ymid_mid"]}}
+
+
 def _dist_shard_route():
     """Shard 0's y-route of the forced pack."""
     dm = _dist_pack()
-    p = dm.planes[0]
-    return {"s1": p["y_s1"], "s3": p["y_s3"], "n": dm.meta["y_n"],
-            "mid_planes": {"kind": dm.meta["ymid_kind"], "mid": p["ymid_mid"]}}
+    return _shard_route(dm, dm.planes[0])
 
 
 ROUTES = {"split16": _split16_route, "ragged": _ragged_route,
@@ -75,7 +83,7 @@ def test_compose_small_route_matches_pallas(case):
     n = ra["n"]
     if case == "ragged":
         assert n % 1024 and n % 4
-    src = tpr.compose_small_route(ra["s1"], mp["mid"], ra["s3"], n)
+    src = tsp.route_to_device(ra, "cpu").src.numpy()
     assert src.dtype == np.int32 and src.shape == (n,)
     ysp = np.random.default_rng(3).standard_normal((8, 1024, 128)).astype(np.float32)
     want = np.asarray(jpr._route_small_call(True)(
@@ -92,19 +100,18 @@ def test_compose_small_route_matches_pallas(case):
 def test_compose_small_route_is_a_permutation():
     """The composed index of a whole flat route (n = 2^20) names every
     element of the stream once."""
-    ra = _ragged_route()
-    src = tpr.compose_small_route(ra["s1"], ra["mid_planes"]["mid"],
-                                  ra["s3"], 1024 * 1024)
+    ra = {**_ragged_route(), "n": 1024 * 1024}
+    src = tsp.route_to_device(ra, "cpu").src.numpy()
     np.testing.assert_array_equal(np.sort(src), np.arange(1024 * 1024))
 
 
 def test_dist_shards_carry_the_composed_index():
-    """Every shard of a forced routed pack uploads its y-route's index."""
+    """Every shard of a forced routed pack uploads its y-route's index,
+    composed from its own planes."""
     dm = _dist_pack()
     for p, sd in zip(dm.planes, dm.shards):
-        want = tpr.compose_small_route(p["y_s1"], p["ymid_mid"], p["y_s3"],
-                                       dm.meta["y_n"])
-        np.testing.assert_array_equal(sd.yroute.src.numpy(), want)
+        want = tsp.route_to_device(_shard_route(dm, p), "cpu").src
+        assert torch.equal(sd.yroute.src, want)
 
 
 def _route(kind):
@@ -126,10 +133,11 @@ def test_route_to_device_carries_src_for_flat_routes(kind):
         assert rd.src is None
         return
     assert rd.src.dtype == torch.int32
-    np.testing.assert_array_equal(
-        rd.src.numpy(),
-        tpr.compose_small_route(ra["s1"], ra["mid_planes"]["mid"], ra["s3"],
-                                ra["n"]))
+    ysp = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (8, 1024, 128)).astype(np.float32))
+    assert torch.equal(
+        rk.route_small_plain(ysp, rd.src, ra["n"]),
+        rk.route_small_chain(ysp, rd.s1, rd.mid.mid, rd.s3, ra["n"]))
 
 
 @pytest.mark.parametrize("T, n, xlen", [

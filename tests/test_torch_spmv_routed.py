@@ -90,8 +90,9 @@ def test_slice_with_hot_planes_matches_reference(monkeypatch, case):
 
 
 def test_slice_over_1024_y_tiles_matches_reference():
-    """Just over 1,048,576 rows: the y-route of 2048 tiles (K5, K2, K6,
-    K5) against the JAX package's and the golden."""
+    """Just over 1,048,576 rows: the y-route of 2048 tiles (one K4 gather
+    by the index composed through its stages; the TPU runs K5, K2, K6, K5)
+    against the JAX package's and the golden."""
     tsr, _ = _check(*tall_sparse())
     assert tsr.y_ra["Tp"] == 2048 and tsr.y_ra["mid_planes"]["kind"] == "rec"
 
