@@ -104,9 +104,12 @@ Phases, each printed on its own lines:
      compile time and v[perm]'s time by torch indexing beside it; (c) the
      unfused SpMV (expand, middle_pass in full, K18 once per reduce group,
      the y-route): its ys within 1e-6 of the row scale of K3's, its y at
-     the float64 golden, its time beside spmv_routed's; each phase with
-     its launch counts, and every launch of each sub-path against its
-     plain version as in [3] (the set checked equals the set launched);
+     the float64 golden, its time beside spmv_routed's; (d) K5 on 8
+     planes of 1,001 tiles and K17 on 256 planes (192 KB of shared memory
+     a block), on planes made from a seed whose index also reaches
+     outside them; each phase with its launch counts, and every launch of
+     each sub-path against its plain version as in [3] (the set checked
+     equals the set launched);
  10. the digests: every routed y above (the SpMVs of [2], [4], [5], the
      road-usa-like of [6] and each mode of [8]) has its sha256 printed
      beside the one PARENT_Y_SHA256 records, taken with torch's
@@ -178,10 +181,11 @@ ITERS = 100
 KERNEL_ITERS = 20
 EXACT = ("expand", "route_middle", "route_small", "tileperm", "route_m3",
          "route_flat", "groupperm")
-# the pure gathers library_call computes by one torch.take: kernel -> the
-# position of its data input among its arguments
-GATHERS = {"expand": 4, "route_middle": 0, "route_small": 0, "route_m3": 0,
-           "route_flat": 0, "groupperm": 0, "expand_ring": 4}
+# the pure gathers library_call computes by one torch.take (tileperm: by
+# torch.gather where every index is in range): kernel -> the position of
+# its data input among its arguments
+GATHERS = {"expand": 4, "route_middle": 0, "route_small": 0, "tileperm": 0,
+           "route_m3": 0, "route_flat": 0, "groupperm": 0, "expand_ring": 4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, 80 GB HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
@@ -497,12 +501,11 @@ def _trace(fn, iters: int):
     return per, count
 
 
-# kernels of ours that launch an instantiation of another's template kernel:
-# kernel -> its device events' name (the profiler demangles kernel names)
+# kernels of ours that launch one instantiation of a template kernel (K5
+# and K17 share tileperm_kernel): kernel -> its device events' name (the
+# profiler demangles kernel names)
 EVENTS = {"tileperm": "tileperm_kernel<false>",
-          "groupperm": "tileperm_kernel<true>",
-          "route_m3": "route_m3_kernel<false>",
-          "route_flat": "route_m3_kernel<true>"}
+          "groupperm": "tileperm_kernel<true>"}
 
 
 # kernels of ours whose wrapper launches a second pass (adding a split
@@ -1007,7 +1010,8 @@ def library_call(name, args, want=None):
     """One PyTorch call computing the kernel's function on the same
     inputs, checked to give the kernel's output; None where no single
     call does.  tileperm: torch.gather over the flat (T, 1024) tile
-    view.  The other pure gathers (GATHERS): torch.take of the flattened
+    view where every index is in [0, 1024).  The pure gathers (GATHERS):
+    torch.take of the flattened
     data input, with one 0 appended for the outputs the kernel sets to 0,
     by the composed flat index, which the plain version gives when the
     data input holds its own flat positions (1-based, in float64: exact).
@@ -1020,9 +1024,12 @@ def library_call(name, args, want=None):
     the entries its slices sum, times g1 flattened (reduce_csr_call);
     lane_reduce: cuSPARSE's CSR SpMM of the entries its slots sum, times X
     (lane_csr_call); window_reduce: cuSPARSE's CSR SpMV of the entries
-    its slices sum, times x (window_csr_call); each within 1e-6 of the row
-    scale of the kernel's output (they sum in another order)."""
-    if name == "tileperm":
+    its slices sum, times x (window_csr_call); reduce_hot and
+    reduce_stream: cuSPARSE's CSR SpMV of the entries their slices sum,
+    times the hot table or the middle output flattened (hot_csr_call,
+    stream_csr_call); each within 1e-6 of the row scale of the kernel's
+    output (they sum in another order)."""
+    if name == "tileperm" and bool(((args[1] >= 0) & (args[1] < 1024)).all()):
         data, idx = args
         T = data.shape[1]
         src = rk.stream_to_flat(data).view(T, 1024)
@@ -1048,6 +1055,10 @@ def library_call(name, args, want=None):
         return lane_csr_call(args)
     elif name == "window_reduce":
         return window_csr_call(args)
+    elif name == "reduce_hot":
+        return hot_csr_call(args)
+    elif name == "reduce_stream":
+        return stream_csr_call(args)
     else:
         return None
     if not torch.equal(call(), want):
@@ -1088,6 +1099,15 @@ def csr_call(name, rows, cols, vals, shape, data, args, view):
     return call
 
 
+def slice_entry_rows(item, out, nys, n, device):
+    """The CSR row of each element of the n plane rows that the slice
+    items ``item`` sum: (sublane i, the item's output slice, lane), one
+    per output element of ys (8, nys, 128)."""
+    i = torch.arange(8, device=device).view(8, 1, 1)
+    lane = torch.arange(128, device=device).view(1, 1, 128)
+    return (i * nys + out.long()[item].view(1, n, 1)) * 128 + lane
+
+
 def reduce_csr_call(args):
     """K3's library call (library_call): cuSPARSE's CSR SpMV of the
     entries its slices sum, one row per (sublane i, slice, lane), each
@@ -1096,11 +1116,7 @@ def reduce_csr_call(args):
     its output is ys flattened."""
     g1, vals, plan, nys = args
     item, rows = rk.slice_rows(plan.row0, plan.row1)
-    n = rows.shape[0]
-    dev = g1.device
-    i = torch.arange(8, device=dev).view(8, 1, 1)
-    lane = torch.arange(128, device=dev).view(1, 1, 128)
-    row = ((i * nys + plan.out.long()[item].view(1, n, 1)) * 128 + lane)
+    row = slice_entry_rows(item, plan.out, nys, rows.shape[0], g1.device)
     col = plan.idx[:, rows, :].long()
     keep = col >= 0
     return csr_call("reduce_slices", row.expand_as(col)[keep], col[keep],
@@ -1131,17 +1147,52 @@ def window_csr_call(args):
     elements that gather nothing left out), times x; its output is ys."""
     li, vals, w10, seg_blk, x, row0, row1, out, nys, segw, G, wrl = args
     item, rows = rk.slice_rows(row0, row1)
-    n = rows.shape[0]
-    dev = x.device
     col, valid = wk.window_columns(li, w10, seg_blk, rows, segw, G, wrl,
                                    x.shape[0])
     v = vals[:, rows, :]
     keep = valid & (v != 0)
-    i = torch.arange(8, device=dev).view(8, 1, 1)
-    lane = torch.arange(128, device=dev).view(1, 1, 128)
-    row = ((i * nys + out.long()[item].view(1, n, 1)) * 128 + lane)
+    row = slice_entry_rows(item, out, nys, rows.shape[0], x.device)
     return csr_call("window_reduce", row.expand_as(col)[keep], col[keep],
                     v[keep], (8 * nys * 128, x.shape[0]), x, args,
+                    lambda y: y.view(8, nys, 128))
+
+
+def hot_csr_call(args):
+    """K7's library call (library_call): cuSPARSE's CSR SpMV of the
+    entries its slices sum, one row per (sublane i, slice, lane), each
+    entry a hot value at the column its rank names in the hot table xh
+    (pads' zero values and ranks past the table left out), times xh; its
+    output is ys."""
+    xh, hidx, hvals, row0, row1, out, nys = args
+    item, rows = rk.slice_rows(row0, row1)
+    col = hidx[:, rows, :].long()
+    v = hvals[:, rows, :]
+    keep = (col >= 0) & (col < xh.shape[0]) & (v != 0)
+    row = slice_entry_rows(item, out, nys, rows.shape[0], xh.device)
+    return csr_call("reduce_hot", row.expand_as(col)[keep], col[keep],
+                    v[keep], (8 * nys * 128, xh.shape[0]), xh, args,
+                    lambda y: y.view(8, nys, 128))
+
+
+def stream_csr_call(args):
+    """K18's library call (library_call): cuSPARSE's CSR SpMV of the
+    entries its slices sum (reduce_stream_table), one row per (sublane i,
+    slice, lane), each entry a plane value at the column of the gx
+    element its p3 entry names in gx flattened (made contiguous once,
+    here: K18 reads its group's rows in place), pads' zero values and
+    entries out of range left out, times gx flattened; its output is ys."""
+    emit, _gemit, vals, gx, p3, nys = args
+    row0, row1, out = rk.reduce_stream_table(emit, nys)
+    item, rows = rk.slice_rows(row0, row1)
+    S = gx.shape[1]
+    p = p3[:, rows, :].long()
+    v = vals[:, rows, :]
+    col = (((p >> 7) * S + rows.view(1, -1, 1)) * 128) + (p & 127)
+    keep = (p >= 0) & (p < 1024) & (v != 0)
+    row = slice_entry_rows(item, out, nys, rows.shape[0], gx.device)
+    return csr_call("reduce_stream", row.expand_as(col)[keep], col[keep],
+                    v[keep], (8 * nys * 128, gx.numel()),
+                    gx.contiguous().view(-1), args,
                     lambda y: y.view(8, nys, 128))
 
 
@@ -2132,15 +2183,47 @@ def unfused_reduce(device, sr, sd, csr, x, xd):
                       launches, ours, device)
 
 
+# Phase [9] (d): (kernel, planes, rows): K5 at a T no route of the phases
+# reaches (odd), K17 at the largest K its int16 index reaches (192 KB of
+# shared memory a block)
+RAGGED_PERMS = (("tileperm", 8, 1001), ("groupperm", 256, 1024))
+
+
+def ragged_perms(device):
+    """Phase [9] (d): K5 and K17 (RAGGED_PERMS) on data and an index made
+    from a seed, the index also reaching outside the staged planes
+    (negative, and past them where int16 reaches: 0 there); one run with
+    the launch counts, then each launch against its plain version, bit
+    for bit."""
+    rng = np.random.default_rng(9)
+    cases = []
+    for name, P, R in RAGGED_PERMS:
+        data = rng.standard_normal((P, R, 128), dtype=np.float32)
+        idx = rng.integers(-3, min(P * 128 + 3, 2**15), (P, R, 128),
+                           dtype=np.int32).astype(np.int16)
+        cases.append((name, f"{P} planes of {R} rows", (
+            torch.from_numpy(data).to(device),
+            torch.from_numpy(idx).to(device))))
+
+    def path():
+        return [kernels.KERNELS[name][0](*args) for name, _, args in cases]
+
+    _, launches = path_run("[9d]", path, {name: 1 for name, _, _ in cases})
+    ours = by_kernel(device_ms(path, KERNEL_ITERS, event_of("groupperm")))
+    return check_path("[9d]", "synthetic planes, ragged T and K 256", cases,
+                      launches, ours, device)
+
+
 def route_api(device, sr, sd, coo):
     """Phase [9]: the route library's device API on [2]'s matrix, pack
-    and tensors."""
+    and tensors, then K5 and K17 on synthetic planes."""
     csr = coo.to_csr()
     x = np.random.default_rng(0).standard_normal(coo.shape[1]).astype(np.float32)
     xd = torch.from_numpy(x).to(device)
     rows = flat_middle(device, sd, xd)
     rows += permutation_routes(device, csr)
     rows += unfused_reduce(device, sr, sd, csr, x, xd)
+    rows += ragged_perms(device)
     return rows
 
 

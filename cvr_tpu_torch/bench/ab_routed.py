@@ -1,7 +1,7 @@
 """Time the routed SpMV's K1 (expand), K3 (reduce_slices), K4
-(route_small) and K15 (expand_ring), the route API's K16 (route_flat),
-and whole routed SpMVs, of several checkouts of this repository on one
-card, in turns.
+(route_small) and K15 (expand_ring), the route API's K5 (tileperm), K6
+(route_m3), K16 (route_flat) and K17 (groupperm), and whole routed
+SpMVs, of several checkouts of this repository on one card, in turns.
 
     python3 -m cvr_tpu_torch.bench.ab_routed ROOT [ROOT ...] [--kernels K,..]
 
@@ -14,7 +14,12 @@ library, and takes device times from torch.profiler traces:
 
   * on web-Google-like (R-MAT scale 20, 6,162,120 nnz) packed with
     ``sell_pack_routed``: K1 and K4 per launch at the main path's tensors,
-    K16 on the y-route's flat middle, K15 in the ring SpMV of
+    K5 (stages 1 and 3) and K16 on its y stream through its flat y-route
+    (chip_smoke.py's phase [9a]), K5, K17 and K6 in ``apply_route`` of the
+    permutation that sorts its nonzeros by column, compiled at
+    ``tile_multiple`` 1 (T 6144, the brute middle: K5, K17, K5) and 1024
+    (the recursive middle: K5, K2, K6, K5; phase [9b]), K15 in the ring
+    SpMV of
     ``dist_routed_pack`` on 4 shards of the one card (K1's kernel: its
     events carry K1's name), and K3 per call (its kernels, a split
     slice's second pass included) at the main path's tensors and at each
@@ -29,8 +34,9 @@ library, and takes device times from torch.profiler traces:
     trace), and the upload's seconds (``upload``, host clock to a
     synchronize: the compositions of the route run there).
 
-It prints one JSON line per root with checksums: K1's output, K4's and
-K16's on seeded y streams, each matrix's K3 sums and y-route output, and
+It prints one JSON line per root with checksums: K1's output, K4's on a
+seeded y stream, K5's, K6's, K16's and K17's, each matrix's K3 sums and
+y-route output, and
 each SpMV's y, taken with torch's deterministic algorithms (index_add_
 adds the split-row extras by atomics otherwise).  It exits 1 if two
 roots' checksums differ or if a root's K3 is not within 1e-6 of the row
@@ -55,8 +61,14 @@ SHARDS = 4
 # K3's kernels' device event names (the second pass where a checkout has
 # one)
 K3_EVENTS = ("reduce_slices_kernel", "reduce_slices_combine_kernel")
-KERNELS = ("expand", "route_small", "route_flat", "expand_ring",
-           "reduce_slices", "spmv")
+KERNELS = ("expand", "route_small", "tileperm", "route_flat", "groupperm",
+           "route_m3", "expand_ring", "reduce_slices", "spmv")
+# the route API's kernels: their device events' names, the parent's (PR 11's
+# tree, where K16 was an instantiation of K6's kernel) and this tree's
+EVENTS = {"tileperm": ("tileperm_kernel<false>",),
+          "groupperm": ("tileperm_kernel<true>",),
+          "route_m3": ("route_m3_kernel",),
+          "route_flat": ("route_m3_kernel<true>", "route_flat_kernel")}
 MATRICES = ("web_google_like", "fsm_like", "road_usa_like")
 
 
@@ -95,12 +107,13 @@ def _trace(fn, iters: int):
     return durs
 
 
-def _device_us(fn, event: str, iters: int):
-    """(mean device us per event whose name holds ``event``, events per
-    call) over a trace of ``iters`` calls; a trace may lose some events,
-    so the mean is over those it holds."""
-    durs = [d for name, ds in _trace(fn, iters).items() if event in name
-            for d in ds]
+def _device_us(fn, event, iters: int):
+    """(mean device us per event whose name holds ``event``, or one of
+    them for a tuple, events per call) over a trace of ``iters`` calls; a
+    trace may lose some events, so the mean is over those it holds."""
+    events = (event,) if isinstance(event, str) else event
+    durs = [d for name, ds in _trace(fn, iters).items()
+            if any(e in name for e in events) for d in ds]
     if not durs:
         raise RuntimeError(f"the trace holds no {event} event")
     return sum(durs) / len(durs), len(durs) / iters
@@ -185,6 +198,56 @@ def _matrix_case(rk, sp, spmv, name, sd, xd, iters) -> dict:
     return out
 
 
+def route_api_cases(rk, sp, rp, sd, g1, csr):
+    """(name, call, its device events) of the route API's kernels at
+    chip_smoke.py's phase [9] tensors: K5 (stages 1 and 3) and K16 on the
+    y stream of web-Google-like's SpMV through its flat y-route ([9a]);
+    K5 (stages 1 and 3), K17 and K6 in apply_route of the permutation that
+    sorts its nonzeros by column (v from default_rng(1)), compiled at
+    tile_multiple 1 (brute) and 1024 (rec) ([9b]); K6 on the x side's
+    recursive middle of the unfused SpMV ([9c]).  Each kernel's input is
+    its path's: the output of the launch before it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    ra = sd.yroute
+    ysp = sp.y_stream(sd, sp.reduce(sd, g1))
+    g2 = rk.tileperm(ysp, ra.s1)
+    g3 = rk.route_flat(g2, ra.mid.mid)
+    cases = [("tileperm 9a_stage1", lambda: rk.tileperm(ysp, ra.s1)),
+             ("route_flat", lambda: rk.route_flat(g2, ra.mid.mid)),
+             ("tileperm 9a_stage3", lambda: rk.tileperm(g3, ra.s3))]
+    perm = np.argsort(csr.cols, kind="stable")
+    v = np.random.default_rng(1).standard_normal(perm.shape[0])
+    vd = torch.from_numpy(v.astype(np.float32)).to(g1.device)
+    for tm, kind in ((1, "brute"), (1024, "rec")):
+        rd = sp.route_to_device(
+            rp.route_arrays_from_perm(perm, tile_multiple=tm), g1.device)
+        if rd.mid.kind != kind:
+            raise RuntimeError(f"tile_multiple {tm}: middle {rd.mid.kind}")
+        g = rk.flat_to_stream(F.pad(vd, (0, rd.Tp * 1024 - vd.shape[0])),
+                              rd.Tp).contiguous()
+        s1 = rk.tileperm(g, rd.s1)
+        if kind == "brute":
+            m = rk.stream_to_middle(s1).contiguous()
+            cases.append(("groupperm", lambda m=m, rd=rd: rk.groupperm(
+                m, rd.mid.mid)))
+        else:
+            m = rk.route_middle(s1, rd.mid.m1, rd.mid.csel)
+            cases.append(("route_m3 9b_rec", lambda m=m, rd=rd: rk.route_m3(
+                m, rd.mid.m3)))
+        s2 = sp.middle_pass(s1, rd.mid)
+        cases += [(f"tileperm 9b_{kind}_stage1",
+                   lambda g=g, rd=rd: rk.tileperm(g, rd.s1)),
+                  (f"tileperm 9b_{kind}_stage3",
+                   lambda s2=s2, rd=rd: rk.tileperm(s2, rd.s3))]
+    if sd.mid.kind == "rec":
+        mx = rk.route_middle(g1, sd.mid.m1, sd.mid.csel)
+        cases.append(("route_m3 9c_x", lambda: rk.route_m3(mx, sd.mid.m3)))
+    return [(name, fn, EVENTS[name.split(" ")[0]]) for name, fn in cases]
+
+
 def worker(root: str, npz: str, iters: int, names) -> dict:
     """One root's measurements (run in a subprocess whose path starts at
     ``root``)."""
@@ -198,6 +261,7 @@ def worker(root: str, npz: str, iters: int, names) -> dict:
     from cvr_tpu_torch.formats.sell_routed import sell_pack_routed
     from cvr_tpu_torch.ops import _build
     from cvr_tpu_torch.ops import route_kernels as rk
+    from cvr_tpu_torch.ops import route_planes as rp
     from cvr_tpu_torch.ops import spmv_routed as sp
     from cvr_tpu_torch.ops.spmv import spmv, upload
     from cvr_tpu_torch.parallel.dist import make_mesh
@@ -237,25 +301,24 @@ def worker(root: str, npz: str, iters: int, names) -> dict:
         return rk.route_small(ysp, ra.src, ra.n)
 
     out = {"root": root, "device": torch.cuda.get_device_name(0)}
-    # K16: the y-route's flat middle on the seeded stream after stage 1
-    g2 = rk.tileperm(ysp, ra.s1)
     timed = [("expand", k1, "expand_kernel"),
-             ("route_small", k4, "route_small_kernel"),
-             ("route_flat", lambda: rk.route_flat(g2, ra.mid.mid),
-              "route_m3_kernel<true>")]
+             ("route_small", k4, "route_small_kernel")]
+    if {"tileperm", "route_flat", "groupperm", "route_m3"} & set(names):
+        timed += route_api_cases(rk, sp, rp, sd, g1, csr)
     if "expand_ring" in names:
         dm = dist_routed_pack(csr, make_mesh(devices=["cuda"] * SHARDS),
                               overlap=True)
         timed.append(("expand_ring", lambda: dist_spmv_routed(
             dm, xd, x_sharded=True, overlap=True), "expand_kernel"))
     for name, fn, event in timed:
-        if name not in names:
+        if name.split(" ")[0] not in names:
             continue
+        key = name.replace(" ", "_")
         if name != "expand_ring":  # its SpMV sums by index_add_, in any order
-            out[f"{name}_digest"] = _digest(fn())
+            out[f"{key}_digest"] = _digest(fn())
         us, per_call = _device_us(fn, event, iters)
-        out[f"{name}_ms"] = us / 1e3
-        out[f"{name}_launches"] = per_call
+        out[f"{key}_ms"] = us / 1e3
+        out[f"{key}_launches"] = per_call
     if "reduce_slices" in names:
         forced = dist_routed_pack(csr, make_mesh(devices=["cuda"] * SHARDS))
         k3 = [("reduce_slices", sd, g1)] + [

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) kernels of the routed-gather SpMV and of the route
 // library's device API.
 //
-// Eleven passes, in eight kernels (K3's with a second pass), replace the
+// Eleven passes, in nine kernels (K3's with a second pass), replace the
 // fifteen Pallas TPU kernels that the JAX package runs on these paths
 // (cvr_tpu/ops/pallas_route.py):
 //
@@ -19,8 +19,7 @@
 //   K7 reduce_hot     <- _reduce_hot_kernel + _reduce_hot_regular_kernel
 //                        with _hot_gather_groups, _emission_sweep
 //                                                      (:942, :1022, :899, :86)
-//   K16 route_flat    <- _flat_fused_kernel            (:1217): K6's kernel
-//                        on the stream, route_m3_kernel<true>
+//   K16 route_flat    <- _flat_fused_kernel            (:1217)
 //   K17 groupperm     <- _groupperm_kernel             (:267): K5's kernel
 //                        on the middle layout, tileperm_kernel<true>
 //   K18 reduce_stream <- _reduce_kernel with _emission_sweep (:537, :86)
@@ -48,18 +47,19 @@
 // element a pass reads ~2 B of int16 index and 4 B of f32 data, and
 // writes 4 B, so all are bound by device-memory bytes and by the latency
 // of the dependent loads, not by arithmetic.  The design answer of the
-// first version, kept by K2 and K5-K7: one thread per output element
-// (K7: one thread per lane of a slice), so that the index planes and the
-// outputs are read and written fully coalesced (neighbour threads,
+// first version, kept by K2, K6, K7 and K18: one thread per output element
+// (K7, K18: one thread per lane of a slice), so that the index planes and
+// the outputs are read and written fully coalesced (neighbour threads,
 // neighbour lanes) and only the data gathers are scattered; the int16
 // planes are read as they are, never widened in memory; the TPU's staging
 // through VMEM (x segment tables, mstream blocks, relayouts) is dropped,
-// because the L2 (50 MB) holds x and the gathered chunks.  K1, K3 and K4
-// are redesigned for the H100 (see each): K1 stages each tile's x window
-// in shared memory and moves 16 B per thread, K3 splits long slices into
-// pieces summed side by side and gathers g1 by one int32 index composed at
-// upload through the route middle, K4 gathers by one int32 index composed
-// at upload through the whole y-route.
+// because the L2 (50 MB) holds x and the gathered chunks.  K1, K3, K4, K5
+// and K16 are redesigned for the H100 (see each): K1, K5 and K16 stage
+// what a block gathers from (a tile's x window, a row's P plane rows, a
+// strip of g1) in shared memory and move 16 B or more per thread, K3
+// splits long slices into pieces summed side by side and gathers g1 by one
+// int32 index composed at upload through the route middle, K4 gathers by
+// one int32 index composed at upload through the whole y-route.
 //
 // Each entry point is a plain C function that launches on the stream it is
 // given and returns cudaGetLastError(); the Python wrapper raises if that
@@ -378,52 +378,153 @@ __global__ void route_small_kernel(const float* __restrict__ ysp,
   }
 }
 
-// K5 and K17: a within-tile permutation over P planes of T rows,
+// K5 and K17: a within-tile permutation over P planes of R rows,
 //   out[i,a,l] = data[v>>7, a, v&127],  v = idx[i,a,l]
 // and 0 where v is not in [0, P*128) (the TPU's select matches no sublane
 // there).  K5 (kMiddle false): route stages 1 and 3 of a y-route above
-// 1024 tiles, in stream layout (P 8, any T; the TPU pads T to its block).
-// K17 (kMiddle true): the brute route middle over T' = K*128 tiles, in the
-// middle layout (P K <= 256, since idx is int16; T 1024, a compile-time
-// row count).  The TPU selects among K static slabs after K lane-gathers
-// per output row (K*K gather-and-select pairs, because dynamic slab reads
-// were ~9x slower there); here one thread per output element reads its one
-// source directly, so the cost is one scattered 4 B read per element
-// whatever K is.  idx is read and out written coalesced.
-template <bool kMiddle>
-__global__ void tileperm_kernel(const float* __restrict__ data,
-                                const int16_t* __restrict__ idx,
-                                float* __restrict__ out, long long T,
-                                long long P) {
-  const long long rows = kMiddle ? 1024 : T;
-  long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= P * rows * 128) return;
-  long long a = (e >> 7) % rows;
-  int v = idx[e];
-  out[e] = (v >= 0 && v < P * 128)
-               ? data[((v >> 7) * rows + a) * 128 + (v & 127)]
-               : 0.f;
+// 1024 tiles, in stream layout (P 8, a compile-time count; R = T, any T;
+// the TPU pads T to its block).  K17 (kMiddle true): the brute route
+// middle over T' = K*128 tiles, in the middle layout (P K <= 256, since idx
+// is int16; R 1024).  The TPU selects among K static slabs after K
+// lane-gathers per output row (K*K gather-and-select pairs, because
+// dynamic slab reads were ~9x slower there).
+//
+// What bounds it: bytes (4 B of data, 2 B of index and 4 B of output per
+// element), and in the first design (one thread per output element, one
+// scattered 4 B gather each) the sectors: every 4 B gather fetched a 32 B
+// sector, with a 64-bit (e >> 7) % rows per element and one 2 B index load
+// in flight a thread; torch.gather beat it by 1.4x at T 1024.  But row a's
+// sources are only the P rows data[0..P-1, a, :] of 512 B (4 KB for K5, 24
+// KB for K17 at K 48).  So one block takes one row a: it copies those rows
+// and the row's index (P rows of 256 B) into shared memory by 16 B
+// cp.async, all in flight at once, then each thread takes 8 lanes of a
+// plane row (one 16 B index read from shared memory), gathers them from
+// the staged rows and stores 32 B.  Device memory is read once, in whole
+// sectors, and written once; no gather leaves the SM.  Shared memory is
+// P*768 B a block (dynamic; above 48 KB, K > 64, opted in by the launcher),
+// 192 KB at K 256.  Index arithmetic is 32-bit: the wrapper refuses
+// P*R*128 past 2^31 - 1 (tileperm_geometry); no element pays a division,
+// the block index is the row.
+constexpr int kPermThreads = 128;   // K5: 8 planes x 16 threads of 8 lanes
+constexpr int kGroupThreads = 256;  // K17: K*16 pieces of 8 lanes, in turns
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
 }
 
-// K6 and K16: the route middle's last within-slab gather plus the
-// mstream->stream relayout.  K6 (kFlat false), the recursive middle's M3
-// stage, is the composition mstream_to_stream(gather_slabs(m, m3)):
+template <bool kMiddle>
+__global__ void __launch_bounds__(kMiddle ? kGroupThreads : kPermThreads)
+    tileperm_kernel(const float* __restrict__ data,
+                    const int16_t* __restrict__ idx,
+                    float* __restrict__ out, unsigned R, unsigned P) {
+  constexpr unsigned kN = kMiddle ? kGroupThreads : kPermThreads;
+  extern __shared__ float4 smem4[];
+  const unsigned planes = kMiddle ? P : 8;
+  float* win = reinterpret_cast<float*>(smem4);  // data[p, a, l] at p*128+l
+  int16_t* six = reinterpret_cast<int16_t*>(win + planes * 128);
+  const unsigned a = blockIdx.x;
+  // 16 B pieces: 32 a plane row of data, 16 of idx
+  for (unsigned j = threadIdx.x; j < planes * 32; j += kN)
+    cp_async16(win + j * 4, data + ((j >> 5) * R + a) * 128 + (j & 31) * 4);
+  for (unsigned j = threadIdx.x; j < planes * 16; j += kN)
+    cp_async16(six + j * 8, idx + ((j >> 4) * R + a) * 128 + (j & 15) * 8);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  const unsigned lim = planes * 128;
+  for (unsigned j = threadIdx.x; j < planes * 16; j += kN) {
+    // int16 lane k of the 16 B piece: low half first (little-endian)
+    const int4 v = *reinterpret_cast<const int4*>(six + j * 8);
+    float4 lo, hi;
+    lo.x = window_at(win, static_cast<int16_t>(v.x & 0xffff), lim);
+    lo.y = window_at(win, v.x >> 16, lim);
+    lo.z = window_at(win, static_cast<int16_t>(v.y & 0xffff), lim);
+    lo.w = window_at(win, v.y >> 16, lim);
+    hi.x = window_at(win, static_cast<int16_t>(v.z & 0xffff), lim);
+    hi.y = window_at(win, v.z >> 16, lim);
+    hi.z = window_at(win, static_cast<int16_t>(v.w & 0xffff), lim);
+    hi.w = window_at(win, v.w >> 16, lim);
+    float4* o = reinterpret_cast<float4*>(
+        out + ((j >> 4) * R + a) * 128 + (j & 15) * 8);
+    o[0] = lo;
+    o[1] = hi;
+  }
+}
+
+// K16: the flat route middle (T == 1024) on the stream g1,
+//   out[qh, f, ql] = g1[qh, v, ql],  v = mid[f>>7, qh*128+ql, f&127]
+// and 0 where v is not in [0, 1024): mstream_to_stream(tileperm(
+// stream_to_mstream(g1, 1), mid)) with no mstream made (the TPU transposes
+// a stream quarter in VMEM, gathers within slabs and transposes back).
+// For fixed (qh, ql) it permutes the column g1[qh, :, ql] (1,024 values
+// 512 B apart), reading its index along the rows of mid.  What bounds it:
+// bytes (4 MB in, 2 MB of index, 4 MB out), and in the first design (K6's
+// 32x33 shared-memory transpose reading g1 in place) the sectors: every
+// 4 B gather came from another 512 B row of g1, one 32 B sector for 4 B
+// used, four in flight a thread between barriers; torch.take by the
+// composed index beat it by 1.3x.  Here one block of 1024 threads takes a
+// strip of kFlatStrip lanes of one qh: it copies the strip's 1,024 rows of
+// g1 (32 B each, a whole sector) and the 64 rows of mid that index it
+// (fH, ql: 256 B each) into shared memory by 16 B cp.async, 48 KB in all,
+// every copy in flight at once; then thread t gives the outputs
+// e = t + k*1024 (k < 8) of the strip, f = e>>3, ql = ql0 + (e&7): a warp
+// writes 4 whole 32 B sectors of 4 rows f per store.  The index rows are
+// stored with their 16 B pieces swizzled by ql (piece c at c ^ (ql&7)), so
+// the 8 lanes of one f read 8 distinct banks; the gather reads the strip
+// row v at lane ql.  Device memory is read and written once, in whole
+// sectors.  128 blocks (16 strips x 8 qh), one an SM.  32-bit indices: the
+// shape is fixed.
+constexpr int kFlatStrip = 8;      // lanes of a block's strip: 32 B a row
+constexpr int kFlatThreads = 1024;
+static_assert(kFlatStrip == 8 && kFlatThreads == 8 * kFlatStrip * 16,
+              "two 16 B pieces a g1 row, one mid piece a thread");
+
+__global__ void __launch_bounds__(kFlatThreads)
+    route_flat_kernel(const float* __restrict__ g1,
+                      const int16_t* __restrict__ mid,
+                      float* __restrict__ out) {
+  __shared__ float4 gs4[1024 * kFlatStrip / 4];  // g1[qh, v, ql0+l] at v*8+l
+  __shared__ int4 ms4[8 * kFlatStrip * 16];      // mid row (fH, l): 16 pieces
+  const float* gs = reinterpret_cast<const float*>(gs4);
+  const int16_t* ms = reinterpret_cast<const int16_t*>(ms4);
+  const unsigned ql0 = blockIdx.x * kFlatStrip, qh = blockIdx.y;
+  const unsigned t = threadIdx.x;
+  for (unsigned j = t; j < 1024 * kFlatStrip / 4; j += kFlatThreads)
+    cp_async16(gs4 + j, g1 + (qh * 1024 + (j >> 1)) * 128 + ql0 + (j & 1) * 4);
+  {  // one piece a thread: row r = (fH, l), piece c
+    const unsigned r = t >> 4, c = t & 15, l = r & 7;
+    cp_async16(ms4 + r * 16 + (c ^ l),
+               mid + ((r >> 3) * 1024 + qh * 128 + ql0 + l) * 128 + c * 8);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+#pragma unroll
+  for (unsigned k = 0; k < 8; ++k) {
+    const unsigned e = t + k * kFlatThreads;
+    const unsigned f = e >> 3, l = e & 7, fL = f & 127;
+    const int v = ms[((f >> 7) * 8 + l) * 128 + (((fL >> 3) ^ l) << 3) +
+                     (fL & 7)];
+    out[(qh * 1024 + f) * 128 + ql0 + l] =
+        static_cast<unsigned>(v) < 1024 ? gs[v * kFlatStrip + l] : 0.f;
+  }
+}
+
+// K6: the recursive middle's M3 stage and the mstream->stream relayout,
+// the composition mstream_to_stream(gather_slabs(m, m3)):
 //   g[fH, r, fL]               = m[v>>7, r, v&127],  v = m3[fH, r, fL]
 //   out[qh, cd*1024+f, ql]     = g[fH, cd*1024+q, fL]
-// with q = qh*128+ql, f = fH*128+fL.  K16 (kFlat true), the flat middle
-// (T == 1024), takes the stream g1 in place of the mstream m:
-// mstream_to_stream(tileperm(stream_to_mstream(g1, 1), mid)), whose load
-// m[v>>7, q, v&127] is g1[qh, v, ql] through the stream->mstream index map,
-// so no mstream is materialised and no relayout copy is made.  For fixed
-// (cd, qh, fH) that is a 128x128 transpose of g over (ql, fL); a block
-// moves one 32x32 tile of it through shared memory, so m3 is read and out
-// written coalesced (the TPU does the same transpose in VMEM, per chunk
-// quarter, and for the flat middle transposes a stream quarter, gathers
-// within slabs and transposes back).
+// with q = qh*128+ql, f = fH*128+fL.  For fixed (cd, qh, fH) that is a
+// 128x128 transpose of g over (ql, fL); a block moves one 32x32 tile of it
+// through shared memory, so m3 is read and out written coalesced (the TPU
+// does the same transpose in VMEM, per chunk quarter).  Its gathers read
+// within one mstream row r (8 planes x 512 B), which the L2 serves; it
+// beats torch.take by its composed index (PERF.md), so it keeps this body.
 constexpr int kTile = 32;
 constexpr int kRows = 8;
 
-template <bool kFlat>
 __global__ void route_m3_kernel(const float* __restrict__ m,
                                 const int16_t* __restrict__ m3,
                                 float* __restrict__ out, long long T) {
@@ -440,9 +541,8 @@ __global__ void route_m3_kernel(const float* __restrict__ m,
     long long r = rbase + tq + j;
     int fL = tf + threadIdx.x;
     int v = m3[(fH * T + r) * 128 + fL];
-    long long src = kFlat ? (qh * 1024LL + v) * 128 + tq + j
-                          : ((v >> 7) * T + r) * 128 + (v & 127);
-    tile[j][threadIdx.x] = (v >= 0 && v < 1024) ? m[src] : 0.f;
+    tile[j][threadIdx.x] =
+        (v >= 0 && v < 1024) ? m[((v >> 7) * T + r) * 128 + (v & 127)] : 0.f;
   }
   __syncthreads();
   long long dbase = cd * 1024 + fH * 128;  // stream tile of fL = 0
@@ -576,25 +676,45 @@ int cvr_route_small(const void* ysp, const void* src, void* y, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-int cvr_tileperm(const void* data, const void* idx, void* out, long long T,
-                 long long planes, int middle, void* stream) {
-  auto kernel = middle ? tileperm_kernel<true> : tileperm_kernel<false>;
-  kernel<<<blocks_for(planes * T * 128), kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), static_cast<const int16_t*>(idx),
-      static_cast<float*>(out), T, planes);
+int cvr_tileperm(const void* data, const void* idx, void* out, int R,
+                 int planes, int middle, void* stream) {
+  // one block per row; the row's data and index staged: P*(512 + 256) B
+  const int smem = planes * 768;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto d = static_cast<const float*>(data);
+  auto ix = static_cast<const int16_t*>(idx);
+  auto o = static_cast<float*>(out);
+  if (middle) {
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          tileperm_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    tileperm_kernel<true><<<R, kGroupThreads, smem, s>>>(d, ix, o, R, planes);
+  } else {
+    tileperm_kernel<false><<<R, kPermThreads, smem, s>>>(d, ix, o, R, 8);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 int cvr_route_m3(const void* m, const void* m3, void* out, long long T,
-                 int flat, void* stream) {
+                 void* stream) {
   // (128/32)^2 tiles per slab; Tk chunks x 8 qh x 8 fH slabs
   dim3 grid(16, static_cast<unsigned int>((T / 1024) * 64));
   dim3 block(kTile, kRows);
-  auto kernel = flat ? route_m3_kernel<true> : route_m3_kernel<false>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  route_m3_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(m), static_cast<const int16_t*>(m3),
       static_cast<float*>(out), T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_route_flat(const void* g1, const void* mid, void* out, void* stream) {
+  // 16 strips of 8 lanes x 8 qh
+  route_flat_kernel<<<dim3(128 / kFlatStrip, 8), kFlatThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g1), static_cast<const int16_t*>(mid),
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
 """Every Hopper kernel of the port, by name: K1-K7 of the routed path,
 K15, the ring step of its row-sharded overlapped expand (K1's kernel),
-and K16 flat middle (K6's kernel on the stream), K17 brute middle (K5's
-kernel on the middle layout) and K18 unfused reduce of the route
+and K16 flat middle, K17 brute middle (K5's kernel on the middle
+layout) and K18 unfused reduce of the route
 library's device API (route_kernels), K8 DIA (dia_kernels), K9 BELL
 (bell_kernels) and K10 SELL-W (window_kernels) of the SpMV; K11 DIA
 (dia_kernels), K12 BSR (bsr_kernels), K13 lane (lane_kernels) and K14

@@ -1,7 +1,7 @@
 """The routed SpMV's and the route library's device passes: eleven
-wrappers over eight Hopper kernels (K1's kernel also runs the ring steps
-of K15, K5's the brute middle K17 and K6's the flat middle K16; K3 adds a
-second pass for its split slices).
+wrappers over nine Hopper kernels (K1's kernel also runs the ring steps
+of K15 and K5's the brute middle K17; K3 adds a second pass for its split
+slices).
 
 Each pass has three parts side by side:
 
@@ -633,10 +633,31 @@ def tileperm_plain(data, idx):
     return torch.where(valid, data[v >> 7, a, v & 127], 0.0)
 
 
+# shared memory a block may take on the H100 (227 KB, dynamic, opted in)
+SMEM_MAX = 232_448
+
+
+def tileperm_geometry(P: int, R: int) -> int:
+    """K5's and K17's launch geometry (one block per row of R, over P
+    planes): the dynamic shared memory of a block, which stages its row's
+    P plane rows of data (512 B each) and of index (256 B each).  Raise
+    where the kernel's 32-bit indices cannot reach P*R*128 elements (K5:
+    T past 2,097,151) or the row exceeds a block's shared memory (P past
+    302; K17's int16 index reaches K 256, 192 KB)."""
+    if P * R * 128 > INT32_MAX:
+        raise ValueError(f"tileperm: {P} planes of {R} rows exceed the "
+                         "kernel's 32-bit indices")
+    smem = P * (128 * 4 + 128 * 2)
+    if smem > SMEM_MAX:
+        raise ValueError(f"tileperm: a row of {P} planes takes {smem} B of "
+                         f"shared memory, a block at most {SMEM_MAX}")
+    return smem
+
+
 def tileperm(data, idx):
     """K5: route stage 1 or 3 of a y-route above 1024 tiles, on data
-    (8, T, 128) f32 with the int16 plane idx (8, T, 128); see
-    tileperm_plain."""
+    (8, T, 128) f32 with the int16 plane idx (8, T, 128), both 16 B
+    aligned; see tileperm_plain."""
     if not _on_card("tileperm", data, idx):
         return tileperm_plain(data, idx)
     _check_dtype("tileperm", data, torch.float32)
@@ -644,6 +665,8 @@ def tileperm(data, idx):
     T = data.shape[1]
     if data.shape != (8, T, 128) or idx.shape != data.shape:
         raise ValueError("tileperm: data and idx must be (8, T, 128)")
+    tileperm_geometry(8, T)
+    _check_aligned("tileperm", data, idx)
     out = torch.empty_like(data)
     if T:
         _launch("cvr_tileperm", data.device, _p(data), _p(idx), _p(out), T,
@@ -680,7 +703,7 @@ def route_m3(m, m3):
         raise ValueError("route_m3: planes must be (8, Tk*1024, 128)")
     out = torch.empty_like(m)
     if T:
-        _launch("cvr_route_m3", m.device, _p(m), _p(m3), _p(out), T, 0)
+        _launch("cvr_route_m3", m.device, _p(m), _p(m3), _p(out), T)
         route_m3.launches += 1
     return out
 
@@ -733,8 +756,8 @@ reduce_hot.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K16 route_flat: the flat route middle (T == 1024) in one pass, by K6's
-# kernel reading the stream in place of the mstream
+# K16 route_flat: the flat route middle (T == 1024) in one pass on the
+# stream
 # ---------------------------------------------------------------------------
 
 
@@ -748,16 +771,17 @@ def route_flat_plain(g1, mid):
 
 def route_flat(g1, mid):
     """K16: the flat middle of a 1024-tile route on the stream g1
-    (8, 1024, 128) f32 with its int16 plane mid (8, 1024, 128); returns a
-    stream.  It launches route_m3_kernel<true>; see route_flat_plain."""
+    (8, 1024, 128) f32 with its int16 plane mid (8, 1024, 128), both 16 B
+    aligned; returns a stream.  See route_flat_plain."""
     if not _on_card("route_flat", g1, mid):
         return route_flat_plain(g1, mid)
     _check_dtype("route_flat", g1, torch.float32)
     _check_dtype("route_flat", mid, torch.int16)
     if g1.shape != (8, 1024, 128) or mid.shape != g1.shape:
         raise ValueError("route_flat: a flat middle is (8, 1024, 128)")
+    _check_aligned("route_flat", g1, mid)
     out = torch.empty_like(g1)
-    _launch("cvr_route_m3", g1.device, _p(g1), _p(mid), _p(out), 1024, 1)
+    _launch("cvr_route_flat", g1.device, _p(g1), _p(mid), _p(out))
     route_flat.launches += 1
     return out
 
@@ -778,7 +802,8 @@ groupperm_plain = tileperm_plain
 def groupperm(data, idx):
     """K17: the brute middle's within-row permutation over K*128 tiles on
     data (K, 1024, 128) f32 with the int16 plane idx (K, 1024, 128),
-    K <= 256.  It launches tileperm_kernel<true>; see tileperm_plain."""
+    K <= 256, both 16 B aligned.  It launches tileperm_kernel<true> (K5's
+    body over K planes of 1024 rows); see tileperm_plain."""
     if not _on_card("groupperm", data, idx):
         return groupperm_plain(data, idx)
     _check_dtype("groupperm", data, torch.float32)
@@ -787,6 +812,8 @@ def groupperm(data, idx):
     if data.shape != (K, 1024, 128) or idx.shape != data.shape or K > 256:
         raise ValueError("groupperm: data and idx must be (K, 1024, 128), "
                          "K <= 256")
+    tileperm_geometry(K, 1024)
+    _check_aligned("groupperm", data, idx)
     out = torch.empty_like(data)
     if K:
         _launch("cvr_tileperm", data.device, _p(data), _p(idx), _p(out),
