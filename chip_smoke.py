@@ -101,15 +101,20 @@ Phases, each printed on its own lines:
      column (CSR -> CSC value order) compiled with tile_multiple 1 (T
      6018, the brute middle: K5, K17, K5) and 1024 (T 6144, the recursive
      middle: K5, K2, K6, K5), bit for bit against v[perm], with the route
-     compile time and v[perm]'s time by torch indexing beside it; (c) the
-     unfused SpMV (expand, middle_pass in full, K18 once per reduce group,
-     the y-route): its ys within 1e-6 of the row scale of K3's, its y at
-     the float64 golden, its time beside spmv_routed's; (d) K5 on 8
-     planes of 1,001 tiles and K17 on 256 planes (192 KB of shared memory
-     a block), on planes made from a seed whose index also reaches
-     outside them; each phase with its launch counts, and every launch of
-     each sub-path against its plain version as in [3] (the set checked
-     equals the set launched);
+     compile time and v[perm]'s time by torch indexing beside it (K2 at
+     Tk 6 takes its staged body); (c) the unfused SpMV (expand,
+     middle_pass in full: K2 staged at Tk 7 and K6, then K18 once per
+     reduce group by the plan made at upload, with a second pass where a
+     slice is split, and the y-route): its ys within 1e-6 of the row
+     scale of K3's, its y at the float64 golden, its time beside
+     spmv_routed's, each K18 call without the plan bit for bit equal to
+     one with it; (d) K5 on 8 planes of 1,001 tiles, K17 on 256 planes
+     (192 KB of shared memory a block) and K2 at Tk 8 (its split body),
+     on planes made from a seed whose index also reaches outside them
+     (K2: chunk selects outside [0, Tk)); each phase with its launch
+     counts, and every launch of each sub-path against its plain version
+     as in [3] (the set checked equals the set launched; K18 also
+     against a second launch, bit for bit);
  10. the digests: every routed y above (the SpMVs of [2], [4], [5], the
      road-usa-like of [6] and each mode of [8]) has its sha256 printed
      beside the one PARENT_Y_SHA256 records, taken with torch's
@@ -436,7 +441,8 @@ def device_ms(fn, iters: int, marker: str | None,
     then one or two calls' kernels in the middle.  So ``iters`` lead calls
     open the trace, only the events inside the range of the ``iters``
     calls after them count, and a trace counts only if it holds all of
-    them: ``marker``, a kernel that one call launches ``per_call`` times,
+    them: ``marker`` (a part of an event name, or a tuple of such), a
+    kernel that one call launches ``per_call`` times,
     ``iters * per_call`` times (None where ``fn`` launches no kernel of
     ours), and every device event
     a multiple of ``iters`` times, since each call launches the same
@@ -449,7 +455,7 @@ def device_ms(fn, iters: int, marker: str | None,
     for _ in range(TRACES):
         per, count = _trace(fn, iters)
         seen = sum(c for n, c in count.items()
-                   if marker is None or marker in n)
+                   if marker is None or is_event(n, marker))
         uneven = {n: c for n, c in count.items() if c % iters}
         if count and not uneven and (marker is None
                                      or seen == iters * per_call):
@@ -501,35 +507,49 @@ def _trace(fn, iters: int):
     return per, count
 
 
-# kernels of ours that launch one instantiation of a template kernel (K5
-# and K17 share tileperm_kernel): kernel -> its device events' name (the
-# profiler demangles kernel names)
-EVENTS = {"tileperm": "tileperm_kernel<false>",
-          "groupperm": "tileperm_kernel<true>"}
+# kernels of ours whose device events are not named "<kernel>_kernel": K5
+# and K17 launch one instantiation each of tileperm_kernel, K2 one of two
+# bodies (staged, or split: route_middle_m1_kernel first): kernel -> the
+# names (a part of them) of its first pass's device events (the profiler
+# demangles kernel names)
+EVENTS = {"tileperm": ("tileperm_kernel<false>",),
+          "groupperm": ("tileperm_kernel<true>",),
+          "route_middle": ("route_middle_kernel", "route_middle_m1_kernel")}
 
 
-# kernels of ours whose wrapper launches a second pass (adding a split
-# item's partials): kernel -> the second pass's device events' name
+# kernels of ours whose wrapper may launch a second pass (adding a split
+# item's partials; K2's split body's chunk select): kernel -> the second
+# pass's device events' name
 SECOND = {"reduce_slices": "reduce_slices_combine_kernel",
           "lane_reduce": "lane_reduce_combine_kernel",
-          "pmm_spmm": "pmm_spmm_combine_kernel"}
+          "pmm_spmm": "pmm_spmm_combine_kernel",
+          "reduce_stream": "reduce_stream_combine_kernel",
+          "route_middle": "route_middle_select_kernel"}
 # kernels whose output must repeat bit for bit from launch to launch
 # (sums in a fixed order, split sums added in a fixed order, no float
 # atomics)
 REPEAT = (*SECOND, "window_reduce")
 
 
-def event_of(name: str) -> str:
-    """The name (a part of it) of kernel ``name``'s device events (its
-    first pass's, where it has two)."""
-    return EVENTS.get(name, f"{name}_kernel")
+def event_of(name: str) -> tuple[str, ...]:
+    """The names (a part of them) of kernel ``name``'s first pass's device
+    events."""
+    return EVENTS.get(name, (f"{name}_kernel",))
+
+
+def is_event(event: str, names) -> bool:
+    """Whether the device event ``event`` is one of ``names`` (a part of
+    a name, or a tuple of such)."""
+    return any(n in event for n in ((names,) if isinstance(names, str)
+                                    else names))
 
 
 def by_kernel(per) -> dict[str, float]:
     """Device ms by kernel of ours (both passes where it has two), from
     device_ms's ms by event name."""
     return {k: sum(v for n, v in per.items()
-                   if event_of(k) in n or (k in SECOND and SECOND[k] in n))
+                   if is_event(n, event_of(k))
+                   or (k in SECOND and SECOND[k] in n))
             for k in kernels.KERNELS}
 
 
@@ -913,8 +933,8 @@ def row_scale_args(name, args):
         g1, vals, *rest = args
         return (g1.abs(), vals.abs(), *rest)
     if name == "reduce_stream":
-        emit, gemit, vals, gx, p3, nys = args
-        return (emit, gemit, vals.abs(), gx.abs(), p3, nys)
+        emit, gemit, vals, gx, p3, *rest = args
+        return (emit, gemit, vals.abs(), gx.abs(), p3, *rest)
     if name in ("dia_spmv", "dia_spmm"):
         bands, offsets, x = args
         return (bands.abs(), offsets, x.abs())
@@ -951,8 +971,9 @@ def bound(name, args, out) -> tuple[float, str]:
     index (in place of the route middle's planes, p3 and the M3 plane),
     one g1 element at most per element (at most g1's size in all), and its
     piece tables; the unfused
-    reduce reads emit, and per element of those rows its value, p3 entry
-    and one gx element (its gemit is not read); K4 its index and the ysp
+    reduce reads its plan's piece tables (in place of emit), and per
+    element of those rows its value, p3 entry and one gx element (its
+    gemit is not read); K4 its index and the ysp
     elements it names (none for a -1); K14 its entries (8 B each), its work plan's tables
     (segment offsets, units, combine table: on the card they take the
     place of the row offsets, which it does not read) and X once."""
@@ -963,10 +984,11 @@ def bound(name, args, out) -> tuple[float, str]:
         ysp, src, _n = args
         nbytes = (int(torch.unique(src[src >= 0]).numel()) + src.numel()) * 4
     if name == "reduce_stream":
-        emit, _gemit, vals, gx, p3, nys = args
+        emit, _gemit, vals, gx, p3, nys, plan = args
         row0, row1, _ = rk.reduce_stream_table(emit, nys)
         used = int((row1.long() - row0.long()).sum()) * 8 * 128
-        nbytes = emit.numel() * 4 + used * (4 + 2 + 4)
+        nbytes = (4 * (plan.split.pieces.numel() + plan.split.combine.numel())
+                  + used * (4 + 2 + 4))
         ops = 2 * used
     if name == "reduce_slices":
         g1, _vals, plan, _nys = args
@@ -1181,7 +1203,7 @@ def stream_csr_call(args):
     element its p3 entry names in gx flattened (made contiguous once,
     here: K18 reads its group's rows in place), pads' zero values and
     entries out of range left out, times gx flattened; its output is ys."""
-    emit, _gemit, vals, gx, p3, nys = args
+    emit, _gemit, vals, gx, p3, nys = args[:6]
     row0, row1, out = rk.reduce_stream_table(emit, nys)
     item, rows = rk.slice_rows(row0, row1)
     S = gx.shape[1]
@@ -2059,11 +2081,19 @@ def flat_middle(device, sd, xd):
                       ours, device)
 
 
-# Phase [9] (b): (tile_multiple, middle kind, launches of one apply_route)
-PERM_ROUTES = (
-    (1, "brute", {"tileperm": 2, "groupperm": 1}),
-    (1024, "rec", {"tileperm": 2, "route_middle": 1, "route_m3": 1}),
-)
+# Phase [9] (b): (tile_multiple, middle kind); one apply_route launches K5
+# twice and its middle's kernels (middle_launches)
+PERM_ROUTES = ((1, "brute"), (1024, "rec"))
+
+
+def middle_launches(planes) -> dict[str, int]:
+    """Launches of one sp.middle_pass on the middle ``planes``."""
+    if planes.kind == "flat":
+        return {"route_flat": 1}
+    if planes.kind == "brute":
+        return {"groupperm": 1}
+    body = rk.route_middle_geometry(planes.m1.shape[1])
+    return {"route_middle": rk.ROUTE_MIDDLE_LAUNCHES[body], "route_m3": 1}
 
 
 def permutation_routes(device, csr):
@@ -2080,7 +2110,7 @@ def permutation_routes(device, csr):
     want_v = vd[permd]
     index_ms = time_iterations(lambda: vd[permd], ITERS, device) * 1e3
     rows = []
-    for tm, kind, want in PERM_ROUTES:
+    for tm, kind in PERM_ROUTES:
         tag = f"[9b] {kind}"
         t0 = time.perf_counter()
         ra = rp.route_arrays_from_perm(perm, tile_multiple=tm)
@@ -2090,6 +2120,7 @@ def permutation_routes(device, csr):
                                   and mp["Tk"] * 128 != ra["Tp"]):
             raise AssertionError(f"{tag} route has middle {mp['kind']!r}")
         rd = sp.route_to_device(ra, device)
+        want = {"tileperm": 2, **middle_launches(rd.mid)}
         out, launches = path_run(tag, lambda: sp.apply_route(rd, vd), want)
         if not torch.equal(out, want_v):
             raise AssertionError(f"{tag} apply_route differs from v[perm]")
@@ -2097,8 +2128,11 @@ def permutation_routes(device, csr):
         ms = time_iterations(fn, ITERS, device) * 1e3
         per = device_ms(fn, KERNEL_ITERS, event_of("tileperm"), per_call=2)
         ours = by_kernel(per)
+        body = ("" if kind != "rec" else
+                f" (K2 {rk.route_middle_geometry(rd.Tp)})")
         print(f"{tag}: {N} elements, tile_multiple {tm}: T {ra['T']}, Tp "
-              f"{ra['Tp']}, middle {kind!r} Tk {mp['Tk']}, route compile "
+              f"{ra['Tp']}, middle {kind!r} Tk {mp['Tk']}{body}, route "
+              "compile "
               f"{compile_s:.3f} s; apply_route bit-exact with v[perm]: "
               f"{ms:.4f} ms/iter (CUDA events), device time "
               f"{device_split(per, ours)}; v[perm] (torch indexing) "
@@ -2121,7 +2155,8 @@ def unfused_reduce(device, sr, sd, csr, x, xd):
     emit = torch.from_numpy(sr.emit).to(device)
     gemit = torch.from_numpy(rp.group_emit_encode(sr.emit)).to(device)
     groups = np.asarray(sr.ycall_rows).tolist()  # (first row, rows) each
-    ngroups = sum(1 for _, nr in groups if nr)  # K18 launches
+    ngroups = sum(1 for _, nr in groups if nr)  # K18's first passes
+    plans = sd.stream_plans  # K18's, one a group, made at upload
 
     def unfused():
         g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw,
@@ -2132,12 +2167,10 @@ def unfused_reduce(device, sr, sd, csr, x, xd):
 
     want = expected_launches(sd)
     want["reduce_slices"] = 0
-    want["reduce_stream"] = ngroups
-    if sd.mid.kind == "rec":  # middle_pass: K2 and K6
-        want["route_middle"] += 1
-        want["route_m3"] += 1
-    else:
-        want["route_flat"] += 1
+    want["reduce_stream"] = sum(1 + second_pass(plans[j].split)
+                                for j, (_, nr) in enumerate(groups) if nr)
+    for k, n in middle_launches(sd.mid).items():
+        want[k] += n
     (ys, y), launches = path_run("[9c]", unfused, want)
     g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw, sd.n_segs)
     ys3 = sp.reduce(sd, g1)
@@ -2148,7 +2181,13 @@ def unfused_reduce(device, sr, sd, csr, x, xd):
         raise AssertionError(f"[9c] K18's ys differ from K3's ({err:.3e})")
     ok, nbad, maxrel = verify(y.cpu().numpy(), spmv_golden_numpy(csr, x),
                               rtol=1e-6, row_scale=spmv_row_scale(csr, x))
-    print(f"[9c] unfused reduce on [2]'s pack ({ngroups} reduce groups): "
+    print(f"[9c] unfused reduce on [2]'s pack ({ngroups} reduce groups; "
+          "K18's plans: "
+          + ", ".join(f"{p.split.pieces.shape[0]} pieces, "
+                      f"{p.split.combine.shape[0]} split slices"
+                      for p in plans)
+          + (f"; K2 {rk.route_middle_geometry(sd.T)} at Tk {sd.mid.Tk}"
+             if sd.mid.kind == "rec" else "") + "): "
           f"ys within 1e-6 of the row scale of K3's (max abs diff "
           f"{err:.3e}); y vs float64 golden (rtol 1e-6, row-scaled): "
           f"{'PASS' if ok else 'FAIL'}, {nbad} bad rows, max rel {maxrel:.3e}")
@@ -2174,10 +2213,17 @@ def unfused_reduce(device, sr, sd, csr, x, xd):
         if not nr:  # a group of zero-width slices launches nothing
             continue
         rows = slice(r0, r0 + nr)
-        cases.append(("reduce_stream", f"group {j}", (
-            emit[rows], gemit[r0 // 8 : (r0 + nr) // 8], sd.vals_ss[:, rows],
-            gx[:, rows], sd.p3[:, rows],
-            min(rp.YB, sd.nslices - j * rp.YB))))
+        args = (emit[rows], gemit[r0 // 8 : (r0 + nr) // 8],
+                sd.vals_ss[:, rows], gx[:, rows], sd.p3[:, rows],
+                min(rp.YB, sd.nslices - j * rp.YB))
+        # a call without the upload's plan plans its group itself
+        if not torch.equal(rk.reduce_stream(*args),
+                           rk.reduce_stream(*args, plans[j])):
+            raise AssertionError(f"[9c] K18 on group {j} without its plan "
+                                 "differs from K18 with it")
+        cases.append(("reduce_stream", f"group {j}", (*args, plans[j])))
+    print("[9c] K18 on each group without the upload's plan: bit-exact "
+          "with K18 by it")
     cases += y_cases("[9c]", sd, ys, xd)
     return check_path("[9c]", "web_google_like unfused reduce", cases,
                       launches, ours, device)
@@ -2185,14 +2231,18 @@ def unfused_reduce(device, sr, sd, csr, x, xd):
 
 # Phase [9] (d): (kernel, planes, rows): K5 at a T no route of the phases
 # reaches (odd), K17 at the largest K its int16 index reaches (192 KB of
-# shared memory a block)
+# shared memory a block), K2 at a Tk past its staged body's shared memory
+# (Tk 8: the split body)
 RAGGED_PERMS = (("tileperm", 8, 1001), ("groupperm", 256, 1024))
+RAGGED_MIDDLE_TK = 8
 
 
 def ragged_perms(device):
     """Phase [9] (d): K5 and K17 (RAGGED_PERMS) on data and an index made
     from a seed, the index also reaching outside the staged planes
-    (negative, and past them where int16 reaches: 0 there); one run with
+    (negative, and past them where int16 reaches: 0 there), and K2 at Tk
+    RAGGED_MIDDLE_TK on g1, m1 (in [0, 1024)) and a chunk select in
+    [-2, Tk + 2) made from the same seed (0 outside [0, Tk)); one run with
     the launch counts, then each launch against its plain version, bit
     for bit."""
     rng = np.random.default_rng(9)
@@ -2204,14 +2254,28 @@ def ragged_perms(device):
         cases.append((name, f"{P} planes of {R} rows", (
             torch.from_numpy(data).to(device),
             torch.from_numpy(idx).to(device))))
+    tk = RAGGED_MIDDLE_TK
+    shape = (8, tk * 1024, 128)
+    body = rk.route_middle_geometry(tk * 1024)
+    if body != "split":
+        raise AssertionError(f"[9d] K2 at Tk {tk} takes its {body} body")
+    planes = (rng.standard_normal(shape, dtype=np.float32),
+              rng.integers(0, 1024, shape, dtype=np.int16),
+              rng.integers(-2, tk + 2, shape, dtype=np.int16))
+    cases.append(("route_middle", f"Tk {tk}, {body}, chunk selects out of "
+                  "range", tuple(torch.from_numpy(a).to(device)
+                                 for a in planes)))
+    del planes
 
     def path():
         return [kernels.KERNELS[name][0](*args) for name, _, args in cases]
 
-    _, launches = path_run("[9d]", path, {name: 1 for name, _, _ in cases})
+    want = {name: 1 for name, _, _ in cases}
+    want["route_middle"] = rk.ROUTE_MIDDLE_LAUNCHES[body]
+    _, launches = path_run("[9d]", path, want)
     ours = by_kernel(device_ms(path, KERNEL_ITERS, event_of("groupperm")))
-    return check_path("[9d]", "synthetic planes, ragged T and K 256", cases,
-                      launches, ours, device)
+    return check_path("[9d]", "synthetic planes, ragged T, K 256, Tk "
+                      f"{tk}", cases, launches, ours, device)
 
 
 def route_api(device, sr, sd, coo):

@@ -1,7 +1,8 @@
 """Time the routed SpMV's K1 (expand), K3 (reduce_slices), K4
-(route_small) and K15 (expand_ring), the route API's K5 (tileperm), K6
-(route_m3), K16 (route_flat) and K17 (groupperm), and whole routed
-SpMVs, of several checkouts of this repository on one card, in turns.
+(route_small) and K15 (expand_ring), the route API's K2 (route_middle),
+K5 (tileperm), K6 (route_m3), K16 (route_flat), K17 (groupperm) and K18
+(reduce_stream), and whole routed SpMVs, of several checkouts of this
+repository on one card, in turns.
 
     python3 -m cvr_tpu_torch.bench.ab_routed ROOT [ROOT ...] [--kernels K,..]
 
@@ -18,7 +19,12 @@ library, and takes device times from torch.profiler traces:
     (chip_smoke.py's phase [9a]), K5, K17 and K6 in ``apply_route`` of the
     permutation that sorts its nonzeros by column, compiled at
     ``tile_multiple`` 1 (T 6144, the brute middle: K5, K17, K5) and 1024
-    (the recursive middle: K5, K2, K6, K5; phase [9b]), K15 in the ring
+    (the recursive middle: K5, K2, K6, K5; phase [9b]), K2 per call on
+    that route's stage-1 output (Tk 6) and on the x side's middle of the
+    unfused SpMV (Tk 7, phase [9c]), each also by its "split" body where
+    a checkout has two, K18 per call on each reduce group of that SpMV
+    ([9c]: by the plan made at upload where a checkout has one, else with
+    the slice starts its wrapper derives on every call), K15 in the ring
     SpMV of
     ``dist_routed_pack`` on 4 shards of the one card (K1's kernel: its
     events carry K1's name), and K3 per call (its kernels, a split
@@ -35,12 +41,13 @@ library, and takes device times from torch.profiler traces:
     synchronize: the compositions of the route run there).
 
 It prints one JSON line per root with checksums: K1's output, K4's on a
-seeded y stream, K5's, K6's, K16's and K17's, each matrix's K3 sums and
-y-route output, and
+seeded y stream, K2's, K5's, K6's, K16's and K17's, each matrix's K3 sums
+and y-route output, and
 each SpMV's y, taken with torch's deterministic algorithms (index_add_
 adds the split-row extras by atomics otherwise).  It exits 1 if two
-roots' checksums differ or if a root's K3 is not within 1e-6 of the row
-scale of that root's plain version.  ``--kernels`` names the ones to time
+roots' checksums differ or if a root's K3 or K18 is not within 1e-6 of
+the row scale of that root's plain version (K18 sums in another order
+than its parent: no checksum) or K18 differs from a second call.  ``--kernels`` names the ones to time
 (default all).  It needs a CUDA card and imports nothing of JAX.
 """
 
@@ -62,7 +69,8 @@ SHARDS = 4
 # one)
 K3_EVENTS = ("reduce_slices_kernel", "reduce_slices_combine_kernel")
 KERNELS = ("expand", "route_small", "tileperm", "route_flat", "groupperm",
-           "route_m3", "expand_ring", "reduce_slices", "spmv")
+           "route_m3", "route_middle", "reduce_stream", "expand_ring",
+           "reduce_slices", "spmv")
 # the route API's kernels: their device events' names, the parent's (PR 11's
 # tree, where K16 was an instantiation of K6's kernel) and this tree's
 EVENTS = {"tileperm": ("tileperm_kernel<false>",),
@@ -248,6 +256,73 @@ def route_api_cases(rk, sp, rp, sd, g1, csr):
     return [(name, fn, EVENTS[name.split(" ")[0]]) for name, fn in cases]
 
 
+def route_middle_cases(rk, sp, rp, sd, g1, csr):
+    """(name, call) of K2 per call at chip_smoke.py's phase [9] tensors:
+    on the stage-1 output of apply_route's recursive route ([9b], Tk 6)
+    and on the x side's g1 ([9c], Tk 7); also by the "split" body where
+    the checkout's route_middle has a ``body``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    perm = np.argsort(csr.cols, kind="stable")
+    v = np.random.default_rng(1).standard_normal(perm.shape[0])
+    vd = torch.from_numpy(v.astype(np.float32)).to(g1.device)
+    rd = sp.route_to_device(rp.route_arrays_from_perm(perm, tile_multiple=1024),
+                            g1.device)
+    g = rk.flat_to_stream(F.pad(vd, (0, rd.Tp * 1024 - vd.shape[0])),
+                          rd.Tp).contiguous()
+    ins = {"9b_rec": (rk.tileperm(g, rd.s1), rd.mid),
+           "9c_x": (g1, sd.mid)}
+    bodies = [None]
+    if "body" in inspect.signature(rk.route_middle).parameters:
+        bodies.append("split")
+    cases = []
+    for where, (s1, mid) in ins.items():
+        for body in bodies:
+            kw = {} if body is None else {"body": body}
+            cases.append((f"route_middle {where}" + (f"_{body}" if body
+                                                     else ""),
+                          lambda s1=s1, mid=mid, kw=kw: rk.route_middle(
+                              s1, mid.m1, mid.csel, **kw)))
+    return cases
+
+
+def reduce_stream_cases(rk, sp, rp, sr, sd, g1, iters: int) -> dict:
+    """K18 on each reduce group of the unfused SpMV ([9c]): device ms per
+    call (all its device work, and its kernels alone), by the upload's
+    plan where the checkout has one, each call's largest error over 1e-6
+    of the row scale of its plain version (at most 1 when within) and
+    whether a second call repeats it bit for bit."""
+    import numpy as np
+    import torch
+
+    emit = torch.from_numpy(sr.emit).to(g1.device)
+    gemit = torch.from_numpy(rp.group_emit_encode(sr.emit)).to(g1.device)
+    gx = sp.middle_pass(g1, sd.mid)
+    plans = getattr(sd, "stream_plans", ())
+    out = {}
+    for j, (r0, nr) in enumerate(np.asarray(sr.ycall_rows).tolist()):
+        rows = slice(r0, r0 + nr)
+        args = (emit[rows], gemit[r0 // 8 : (r0 + nr) // 8],
+                sd.vals_ss[:, rows], gx[:, rows], sd.p3[:, rows],
+                min(rp.YB, sd.nslices - j * rp.YB))
+        plan = (plans[j],) if plans else ()
+        fn = lambda args=args, plan=plan: rk.reduce_stream(*args, *plan)  # noqa: E731
+        got, want = fn(), rk.reduce_stream_plain(*args)
+        scale = rk.reduce_stream_plain(args[0], args[1], args[2].abs(),
+                                       args[3].abs(), *args[4:])
+        key = f"reduce_stream_g{j}"
+        out[f"{key}_err_over_tol"] = float(
+            ((got - want).abs() / (1e-6 * scale + 1e-30)).max())
+        out[f"{key}_repeats"] = bool(torch.equal(got, fn()))
+        out[f"{key}_ms"] = _device_per_call(fn, None, iters) / 1e3
+        out[f"{key}_kernels_ms"] = _device_per_call(
+            fn, ("reduce_stream_kernel", "reduce_stream_combine_kernel"),
+            iters) / 1e3
+    return out
+
+
 def worker(root: str, npz: str, iters: int, names) -> dict:
     """One root's measurements (run in a subprocess whose path starts at
     ``root``)."""
@@ -284,7 +359,8 @@ def worker(root: str, npz: str, iters: int, names) -> dict:
         return coo.to_csr(), torch.from_numpy(x.astype(np.float32)).to("cuda")
 
     csr, xd = load("web_google_like")
-    sd = sp.to_device_routed(sell_pack_routed(csr), "cuda")
+    sr = sell_pack_routed(csr)
+    sd = sp.to_device_routed(sr, "cuda")
 
     def k1():
         return rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw,
@@ -305,6 +381,13 @@ def worker(root: str, npz: str, iters: int, names) -> dict:
              ("route_small", k4, "route_small_kernel")]
     if {"tileperm", "route_flat", "groupperm", "route_m3"} & set(names):
         timed += route_api_cases(rk, sp, rp, sd, g1, csr)
+    if "route_middle" in names:
+        for name, fn in route_middle_cases(rk, sp, rp, sd, g1, csr):
+            key = name.replace(" ", "_")
+            out[f"{key}_digest"] = _digest(fn())
+            out[f"{key}_ms"] = _device_per_call(fn, None, iters) / 1e3
+    if "reduce_stream" in names:
+        out.update(reduce_stream_cases(rk, sp, rp, sr, sd, g1, iters))
     if "expand_ring" in names:
         dm = dist_routed_pack(csr, make_mesh(devices=["cuda"] * SHARDS),
                               overlap=True)
@@ -412,14 +495,22 @@ def main(argv=None) -> int:
         rows = run_roots(__file__, args.roots, tmp, args.iters,
                          ["--kernels", args.kernels])
     digests = {k for r in rows for k in r if k.endswith("_digest")}
-    differ = [k for k in sorted(digests) if len({r.get(k) for r in rows}) > 1]
+    # a key only some roots have (a body the parent lacks) is compared
+    # among those, and a split body's output with its root's other body's
+    differ = [k for k in sorted(digests)
+              if len({r[k] for r in rows if k in r}) > 1]
+    differ += [(r["root"], k) for r in rows for k in r
+               if k.endswith("_split_digest")
+               and r[k] != r.get(k.replace("_split_digest", "_digest"))]
     if differ:
         print(f"ab_routed: the roots' outputs differ: {differ}")
         return 1
     bad = [(r["root"], k) for r in rows for k, v in r.items()
-           if k.endswith("_err_over_tol") and not v <= 1.0]
+           if (k.endswith("_err_over_tol") and not v <= 1.0)
+           or (k.endswith("_repeats") and not v)]
     if bad:
-        print(f"ab_routed: K3 disagrees with its plain version: {bad}")
+        print(f"ab_routed: K3 or K18 disagrees with its plain version or "
+              f"with itself: {bad}")
         return 1
     return 0
 

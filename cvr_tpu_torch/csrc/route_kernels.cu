@@ -1,9 +1,9 @@
 // Hopper (sm_90a) kernels of the routed-gather SpMV and of the route
 // library's device API.
 //
-// Eleven passes, in nine kernels (K3's with a second pass), replace the
-// fifteen Pallas TPU kernels that the JAX package runs on these paths
-// (cvr_tpu/ops/pallas_route.py):
+// Eleven passes (K1-K7, K15-K18), in fourteen kernels (K2's split body
+// and K3's and K18's second passes), replace the fifteen Pallas TPU kernels
+// that the JAX package runs on these paths (cvr_tpu/ops/pallas_route.py):
 //
 //   K1 expand         <- _expand_kernel                (:343)
 //   K15 expand_ring   <- _expand_kernel over a tile-block range, one ring
@@ -47,19 +47,20 @@
 // element a pass reads ~2 B of int16 index and 4 B of f32 data, and
 // writes 4 B, so all are bound by device-memory bytes and by the latency
 // of the dependent loads, not by arithmetic.  The design answer of the
-// first version, kept by K2, K6, K7 and K18: one thread per output element
-// (K7, K18: one thread per lane of a slice), so that the index planes and
-// the outputs are read and written fully coalesced (neighbour threads,
+// first version, kept by K6 and K7: one thread per output element (K7:
+// one thread per lane of a slice), so that the index planes and the
+// outputs are read and written fully coalesced (neighbour threads,
 // neighbour lanes) and only the data gathers are scattered; the int16
 // planes are read as they are, never widened in memory; the TPU's staging
 // through VMEM (x segment tables, mstream blocks, relayouts) is dropped,
-// because the L2 (50 MB) holds x and the gathered chunks.  K1, K3, K4, K5
-// and K16 are redesigned for the H100 (see each): K1, K5 and K16 stage
-// what a block gathers from (a tile's x window, a row's P plane rows, a
-// strip of g1) in shared memory and move 16 B or more per thread, K3
-// splits long slices into pieces summed side by side and gathers g1 by one
-// int32 index composed at upload through the route middle, K4 gathers by
-// one int32 index composed at upload through the whole y-route.
+// because the L2 (50 MB) holds x and the gathered chunks.  K1-K5, K16 and
+// K18 are redesigned for the H100 (see each): K1, K2, K5, K16 and K18 stage
+// what a block gathers from (a tile's x window, a strip of g1, a row's P
+// plane rows, a piece's rows of gx) in shared memory, so that device
+// memory is read once in whole sectors, K3 and K18 split long slices into
+// pieces summed side by side (K3 gathering g1 by one int32 index composed
+// at upload through the route middle), K4 gathers by one int32 index
+// composed at upload through the whole y-route.
 //
 // Each entry point is a plain C function that launches on the stream it is
 // given and returns cudaGetLastError(); the Python wrapper raises if that
@@ -71,10 +72,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-inline unsigned int blocks_for(long long n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-}
 
 // K1 and K15: windowed x gather with route stage 1 fused (the expand
 // plane li already carries the stage-1 permutation), over the n tiles
@@ -169,33 +166,168 @@ __global__ void __launch_bounds__(kExpandThreads)
   out[1] = b;
 }
 
-// K2: the recursive route middle's first two stages in one pass: the
-// stream->mstream relayout with the within-chunk permutation m1 (M1), then
-// the chunk select csel (M2).  The route library runs it; the routed SpMV
-// reads its map composed into K3's index instead.
+// K2: the recursive route middle's first two stages: the stream->mstream
+// relayout with the within-chunk permutation m1 (M1), then the chunk select
+// csel (M2).  The route library runs it; the routed SpMV reads its map
+// composed into K3's index instead.
 //   mid[i, cd*1024+Q, l] = g1[Q>>7, ca*1024 + m1[i, ca*1024+Q, l], Q&127]
-// with ca = csel[i, cd*1024+Q, l].  The TPU block spans all Tk chunks in
-// VMEM (capping Tk); here each thread reads its one source, so Tk is free.
-__global__ void route_middle_kernel(const float* __restrict__ g1,
-                                    const int16_t* __restrict__ m1,
-                                    const int16_t* __restrict__ csel,
-                                    float* __restrict__ out, long long T,
-                                    int tk) {
-  long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= 8LL * T * 128) return;
-  long long i = e / (T * 128);
-  long long R = (e >> 7) % T;
-  int l = static_cast<int>(e & 127);
-  int Q = static_cast<int>(R & 1023);
-  int ca = csel[e];
-  float v = 0.f;
-  if (ca >= 0 && ca < tk) {
-    long long src = static_cast<long long>(ca) * 1024 + Q;
-    int m = m1[(i * T + src) * 128 + l];
-    v = g1[((Q >> 7) * T + static_cast<long long>(ca) * 1024 + m) * 128 +
-           (Q & 127)];
+// with ca = csel[i, cd*1024+Q, l] (0 where ca is not in [0, Tk)); m1 holds
+// a permutation of each chunk's 1,024 rows, read as m & 1023.  The TPU
+// block spans all Tk chunks in VMEM (capping Tk).
+//
+// What bounds it: bytes (4 B of g1, 2 B each of m1 and csel, 4 B of output
+// per element), and in the first design (one thread per output, a 64-bit
+// divide and modulo each, the chain csel -> m1 -> g1 of two dependent
+// scattered loads) the sectors: the g1 read walks one lane down rows 512 B
+// apart, 4 B of each 32 B sector, so it only tied torch.take by the
+// composed index.  But for fixed (Q>>7, Q&127) every source lies in one
+// column g1[qh, :, ql] of T values.  Two bodies, chosen by the geometry
+// (route_kernels.route_middle_geometry):
+//   * staged (route_middle_kernel), where a strip fits a block's shared
+//     memory (T <= 7168: Tk <= 7): one block of 1,024 threads per (qh,
+//     strip of kMidStrip lanes), 128 blocks.  It copies the strip's T rows
+//     of g1 (32 B each, whole sectors) into shared memory by 4 B cp.async,
+//     column j of the strip at gs[j*(T+4) + r] (the pad of 4 puts the 32
+//     copies of a warp, 4 rows x 8 lanes, in 32 banks), 8*(T+4)*4 B
+//     (dynamic, opted in above 48 KB; 224 KB at Tk 7).  Then thread t
+//     takes lane l = t&127 of strip lane j = t>>7 for every (i, cd): its
+//     csel and m1 reads (2 B) and its store are coalesced along l (a
+//     warp's m1 reads fall in at most Tk rows of m1), the g1 read is a
+//     shared-memory gather (random rows: random banks), and kMidBatch
+//     outputs are in flight a thread, the first batch's loads issued
+//     before the strip's copy is waited for.  g1 is read once, in whole
+//     sectors.  On an H100 (ab_routed, PERF.md): 0.035 ms at Tk 6 and
+//     0.044-0.047 at Tk 7 with 8 outputs in flight; 0.038 / 0.049 with 4,
+//     0.037 / 0.050 with 16 (registers), 0.042 / 0.054 with two batches of
+//     4 in turns, 0.039 / 0.055 with strips of 4 lanes (two blocks an SM).
+//   * split (route_middle_m1_kernel, route_middle_select_kernel), any Tk,
+//     the JAX package's two passes: M1 per chunk, K16's shape of work (one
+//     block per (chunk, qh, strip of 8 lanes): the strip's 1,024 rows of
+//     the chunk staged as above, 32 KB, 256 threads, kM1Batch outputs in
+//     flight a thread), storing m1out (the mstream before the select)
+//     coalesced along l; then the chunk select,
+//     4 lanes a thread: one 8 B csel read, four 4 B reads of m1out (a
+//     warp's fall in at most Tk rows; m1out, just written, is in L2), one
+//     16 B store.  It reads and writes 8 B more per element.
+// Index arithmetic is 32-bit, and no element pays a division: the wrapper
+// refuses 8*T*128 past 2^31 - 1.
+constexpr int kMidStrip = 8;       // lanes of a block's strip of g1
+constexpr int kMidThreads = 1024;  // kMidStrip x 128 output lanes
+constexpr int kMidBatch = 8;       // outputs in flight a thread
+constexpr int kMidPad = 4;         // column stride of the staged strip: rows + 4
+constexpr int kM1Threads = 256;
+constexpr int kM1Batch = 16;       // the split body's M1: outputs in flight
+
+__global__ void __launch_bounds__(kMidThreads)
+    route_middle_kernel(const float* __restrict__ g1,
+                        const int16_t* __restrict__ m1,
+                        const int16_t* __restrict__ csel,
+                        float* __restrict__ out, unsigned T, unsigned tk) {
+  extern __shared__ float4 mid_smem4[];
+  float* gs = reinterpret_cast<float*>(mid_smem4);
+  const unsigned ql0 = blockIdx.x * kMidStrip, qh = blockIdx.y;
+  const unsigned t = threadIdx.x, ld = T + kMidPad;
+  // copy e = r*8 + j: g1[qh, r, ql0 + j] to column j, row r
+  for (unsigned e = t; e < T * kMidStrip; e += kMidThreads) {
+    const unsigned r = e >> 3, j = e & 7;
+    cp_async4(gs + j * ld + r, g1 + (qh * T + r) * 128 + ql0 + j, true);
   }
-  out[e] = v;
+  asm volatile("cp.async.commit_group;\n" ::);
+  const unsigned j = t >> 7, l = t & 127;
+  const unsigned Q = qh * 128 + ql0 + j;
+  const float* col = gs + j * ld;
+  const unsigned n = 8 * tk;  // (i, cd) pairs: k = i*tk + cd
+  unsigned e[kMidBatch];
+  int ca[kMidBatch], m[kMidBatch];
+  // csel, then m1 at the chunk it picks: global loads only
+  auto load = [&](unsigned k0) {
+#pragma unroll
+    for (int u = 0; u < kMidBatch; ++u) {
+      const unsigned k = k0 + u;
+      const unsigned i = k / tk, cd = k - i * tk;
+      e[u] = (i * T + cd * 1024 + Q) * 128 + l;
+      ca[u] = k < n ? static_cast<int>(__ldcs(csel + e[u])) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kMidBatch; ++u) {
+      const unsigned i = (k0 + u) / tk;
+      m[u] = static_cast<unsigned>(ca[u]) < tk
+                 ? __ldg(m1 + ((i * T + Q) + ca[u] * 1024) * 128 + l)
+                 : 0;
+    }
+  };
+  load(0);  // the first batch's loads overlap the strip's copy
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  for (unsigned k0 = 0; k0 < n; k0 += kMidBatch) {
+    if (k0) load(k0);
+#pragma unroll
+    for (int u = 0; u < kMidBatch; ++u)
+      if (k0 + u < n)
+        __stcs(out + e[u], static_cast<unsigned>(ca[u]) < tk
+                               ? col[ca[u] * 1024 + (m[u] & 1023)]
+                               : 0.f);
+  }
+}
+
+// K2's split body, pass 1 (M1 of one chunk): m1out[i, ca*1024+Q, l] =
+// g1[Q>>7, ca*1024 + m1[i, ca*1024+Q, l], Q&127] over the block's chunk
+// ca = blockIdx.z, qh and strip.
+__global__ void __launch_bounds__(kM1Threads)
+    route_middle_m1_kernel(const float* __restrict__ g1,
+                           const int16_t* __restrict__ m1,
+                           float* __restrict__ m1out, unsigned T) {
+  constexpr unsigned ld = 1024 + kMidPad;
+  __shared__ float gs[kMidStrip * ld];
+  const unsigned ql0 = blockIdx.x * kMidStrip, qh = blockIdx.y;
+  const unsigned c0 = blockIdx.z * 1024, t = threadIdx.x;
+  for (unsigned e = t; e < 1024 * kMidStrip; e += kM1Threads) {
+    const unsigned r = e >> 3, j = e & 7;
+    cp_async4(gs + j * ld + r, g1 + (qh * T + c0 + r) * 128 + ql0 + j, true);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  // 64 output rows (i, j) of 128 lanes: row 2*k + (t>>7), lane t&127
+  const unsigned l = t & 127, h = t >> 7;
+  for (unsigned k0 = 0; k0 < 32; k0 += kM1Batch) {
+    unsigned e[kM1Batch], j[kM1Batch];
+    int m[kM1Batch];
+#pragma unroll
+    for (int u = 0; u < kM1Batch; ++u) {
+      const unsigned rr = (k0 + u) * 2 + h, i = rr >> 3;
+      j[u] = rr & 7;
+      e[u] = (i * T + c0 + qh * 128 + ql0 + j[u]) * 128 + l;
+      m[u] = __ldcs(m1 + e[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kM1Batch; ++u)
+      m1out[e[u]] = gs[j[u] * ld + (m[u] & 1023)];
+  }
+}
+
+// K2's split body, pass 2 (the chunk select): out[i, cd*1024+Q, l] =
+// m1out[i, ca*1024+Q, l], ca = csel[i, cd*1024+Q, l], 0 where ca is not a
+// chunk; 4 lanes a thread, blockIdx.y the plane i.
+__global__ void route_middle_select_kernel(const float* __restrict__ m1out,
+                                           const int16_t* __restrict__ csel,
+                                           float* __restrict__ out,
+                                           unsigned T, unsigned tk) {
+  const unsigned i = blockIdx.y;
+  const unsigned q = blockIdx.x * kThreads + threadIdx.x;  // 16 B piece
+  const unsigned R = q >> 5, l = (q & 31) * 4, Q = R & 1023;
+  const unsigned e = (i * T + R) * 128 + l;
+  const int2 c = __ldcs(reinterpret_cast<const int2*>(csel + e));
+  const int ca[4] = {static_cast<int16_t>(c.x & 0xffff), c.x >> 16,
+                     static_cast<int16_t>(c.y & 0xffff), c.y >> 16};
+  const unsigned row = (i * T + Q) * 128 + l;  // + ca*1024*128
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    v[k] = static_cast<unsigned>(ca[k]) < tk
+               ? __ldg(m1out + row + ca[k] * (1024 * 128) + k)
+               : 0.f;
+  __stcs(reinterpret_cast<float4*>(out + e), make_float4(v[0], v[1], v[2], v[3]));
 }
 
 // K3: the x side's route middle + stage M3 + the mstream->stream relayout
@@ -310,13 +442,12 @@ __global__ void __launch_bounds__(kReduceThreads)
   *reinterpret_cast<float4*>(o) = s;
 }
 
-// K3's second pass: each split slice's partial rows [c0, c1), added in
-// piece order, into its ys row out; one block of 256 threads a slice.
-__global__ void __launch_bounds__(kReduceThreads)
-    reduce_slices_combine_kernel(const float* __restrict__ part,
-                                 const int32_t* __restrict__ combine,
-                                 float* __restrict__ ys, unsigned nys,
-                                 unsigned npart) {
+// K3's and K18's second pass: each split slice's partial rows [c0, c1),
+// added in piece order, into its ys row out; one block of 256 threads a
+// slice.  Each kernel has its own entry, so that a trace tells them apart.
+__device__ __forceinline__ void combine_partials(
+    const float* __restrict__ part, const int32_t* __restrict__ combine,
+    float* __restrict__ ys, unsigned nys, unsigned npart) {
   const int c0 = __ldg(combine + 3 * blockIdx.x);
   const int c1 = __ldg(combine + 3 * blockIdx.x + 1);
   const int out = __ldg(combine + 3 * blockIdx.x + 2);
@@ -330,6 +461,14 @@ __global__ void __launch_bounds__(kReduceThreads)
                     p + static_cast<unsigned>(c) * 128));
   *reinterpret_cast<float4*>(
       ys + (i * nys + static_cast<unsigned>(out)) * 128 + lq) = s;
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_slices_combine_kernel(const float* __restrict__ part,
+                                 const int32_t* __restrict__ combine,
+                                 float* __restrict__ ys, unsigned nys,
+                                 unsigned npart) {
+  combine_partials(part, combine, ys, nys, npart);
 }
 
 // K4: a whole route (the y-route), stage 1 + middle + stage 3 and the
@@ -582,36 +721,103 @@ __global__ void reduce_hot_kernel(
 }
 
 // K18: the unfused reduce (the JAX package's reduce_slices) over one reduce
-// group's plane rows, from the stream-layout middle output gx: for plane
-// row R of the slice that emission row r closes (rows [start[r], r]),
+// group's plane rows, from the stream-layout middle output gx: slice s sums
+// over its plane rows R (the emission sweep: the rows after the previous
+// emission up to the row that emits s)
 //   P[i,R,l] = gx[v>>7, R, v&127] * vals[i,R,l],  v = p3[i,R,l]
-// (0 where v is not in [0, 1024)), summed into ys[i, emit[r], l].  The
-// planes are the group's rows of larger planes, read in place: sv, sg and
-// sp are the row counts between two planes of vals, gx and p3.  The TPU
-// walks the rows in one sequential grid with the emission sweep; here the
-// wrapper derives every row's slice start on the device (a running max of
-// the emission rows, no host sync), one block per (plane row, sublane)
-// returns at once unless its row is an emission with an id below nys, and
-// its threads (one per lane) loop over the slice's rows, reading gx in
-// place where K3 reads the mstream through M3.
-__global__ void reduce_stream_kernel(
-    const float* __restrict__ vals, const float* __restrict__ gx,
-    const int16_t* __restrict__ p3, const int32_t* __restrict__ emit,
-    const int32_t* __restrict__ start, float* __restrict__ ys, long long sv,
-    long long sg, long long sp, long long nys) {
-  long long r = blockIdx.x;
-  int slice = emit[r];
-  if (slice < 0 || slice >= nys) return;
-  long long i = blockIdx.y;
-  int l = threadIdx.x;
-  float acc = 0.f;
-  for (long long R = start[r]; R <= r; ++R) {
-    int v = p3[(i * sp + R) * 128 + l];
-    if (v >= 0 && v < 1024)
-      acc += gx[((v >> 7) * sg + R) * 128 + (v & 127)] *
-             vals[(i * sv + R) * 128 + l];
+// (0 where v is not in [0, 1024)) into ys[i, s, l].  The planes are the
+// group's rows of larger planes, read in place: sv, sg and sp are the row
+// counts between two planes of vals, gx and p3.  The TPU walks the rows in
+// one sequential grid with the emission sweep.
+//
+// What bounds it: bytes (4 B of value, 2 B of index and one 4 B gx element
+// per plane element), and in the first design (one block per plane row and
+// sublane, all but the ~1,100 whose row ends a slice returning at once;
+// 128 threads walking a slice's rows in series, one dependent chain of 2 B
+// p3 load, scattered 4 B gx gather and 4 B vals load a row; the slice
+// starts rebuilt by torch ops on every call) the serial walk of the
+// longest slice: 17% of its bound, 1.5x behind cuSPARSE's SpMV of the
+// same entries.  But every gather of row R reads only gx's row R over the
+// 8 planes: 4 KB.  The design, K3's split with the row staged:
+//   * the host cuts the slice table into pieces of at most kStreamRows
+//     plane rows, once (reduce_stream_plan, made at upload): one block of
+//     256 threads takes one piece, warp i its plane i, each thread 4 lanes;
+//   * the block copies the piece's rows of gx into shared memory by 16 B
+//     cp.async, one piece a thread a row (4 KB a row, all rows in flight
+//     at once, kStreamRows*4 KB a block), and loads its p3 (8 B) and vals
+//     (16 B) of every row meanwhile; then each thread gathers its 4 lanes
+//     of each row from the staged row and sums the products in row order;
+//   * a slice of one piece writes its ys row directly; the pieces of a
+//     longer slice write partial rows, and a second pass
+//     (reduce_stream_combine_kernel, K3's combine_partials) adds them in
+//     piece order.  No float atomics: the output's bits repeat run to run.
+// Index arithmetic is 32-bit: the wrapper refuses planes, ys or the
+// partials past 2^31 - 1 elements.
+constexpr int kStreamRows = 8;  // plane rows a piece holds at most
+
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_stream_kernel(const float* __restrict__ vals,
+                         const float* __restrict__ gx,
+                         const int16_t* __restrict__ p3,
+                         const int32_t* __restrict__ pieces,
+                         float* __restrict__ ys, float* __restrict__ part,
+                         unsigned sv, unsigned sg, unsigned sp, unsigned nys,
+                         unsigned npart) {
+  // row u of the piece: gx[p, r0+u, l] at rows[u*1024 + p*128 + l]
+  __shared__ float4 rows4[kStreamRows * kReduceThreads];
+  const float* rows = reinterpret_cast<const float*>(rows4);
+  const int r0 = __ldg(pieces + 3 * blockIdx.x);
+  const int n = __ldg(pieces + 3 * blockIdx.x + 1) - r0;
+  const int dst = __ldg(pieces + 3 * blockIdx.x + 2);
+  const unsigned t = threadIdx.x;
+  const unsigned i = t >> 5;
+  const unsigned lq = (t & 31) * 4;
+  // thread t copies plane i, lanes lq..lq+3 of each row: 16 B
+  const float* g = gx + (i * sg + static_cast<unsigned>(r0)) * 128 + lq;
+  for (int u = 0; u < n; ++u)
+    cp_async16(rows4 + u * kReduceThreads + t, g + u * 128);
+  asm volatile("cp.async.commit_group;\n" ::);
+  const int16_t* px = p3 + (i * sp + static_cast<unsigned>(r0)) * 128 + lq;
+  const float* pv = vals + (i * sv + static_cast<unsigned>(r0)) * 128 + lq;
+  int2 ix[kStreamRows];
+  float4 v[kStreamRows];
+#pragma unroll
+  for (int u = 0; u < kStreamRows; ++u) {
+    if (u < n) {
+      ix[u] = __ldcs(reinterpret_cast<const int2*>(px + u * 128));
+      v[u] = __ldcs(reinterpret_cast<const float4*>(pv + u * 128));
+    }
   }
-  ys[(i * nys + slice) * 128 + l] = acc;
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  float4 acc = make_float4(0, 0, 0, 0);
+#pragma unroll
+  for (int u = 0; u < kStreamRows; ++u) {
+    if (u < n) {
+      const float* row = rows + u * 1024;
+      // int16 lane k of the 8 B piece: low half first (little-endian)
+      const float4 gv = make_float4(
+          window_at(row, static_cast<int16_t>(ix[u].x & 0xffff), 1024),
+          window_at(row, ix[u].x >> 16, 1024),
+          window_at(row, static_cast<int16_t>(ix[u].y & 0xffff), 1024),
+          window_at(row, ix[u].y >> 16, 1024));
+      fma4(acc, v[u], gv);
+    }
+  }
+  float* o = dst >= 0
+                 ? ys + (i * nys + static_cast<unsigned>(dst)) * 128 + lq
+                 : part + (i * npart + static_cast<unsigned>(-1 - dst)) * 128 +
+                       lq;
+  *reinterpret_cast<float4*>(o) = acc;
+}
+
+// K18's second pass: K3's (combine_partials) on K18's partials.
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_stream_combine_kernel(const float* __restrict__ part,
+                                 const int32_t* __restrict__ combine,
+                                 float* __restrict__ ys, unsigned nys,
+                                 unsigned npart) {
+  combine_partials(part, combine, ys, nys, npart);
 }
 
 }  // namespace
@@ -632,11 +838,39 @@ int cvr_expand(const void* li, const void* w8, const void* gcls,
 }
 
 int cvr_route_middle(const void* g1, const void* m1, const void* csel,
-                     void* out, long long T, int tk, void* stream) {
-  route_middle_kernel<<<blocks_for(8LL * T * 128), kThreads, 0,
+                     void* out, int T, int tk, void* stream) {
+  // K2 staged: 16 strips of 8 lanes x 8 qh, the strip's T rows staged
+  const int smem = kMidStrip * (T + kMidPad) * 4;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        route_middle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  route_middle_kernel<<<dim3(128 / kMidStrip, 8), kMidThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g1), static_cast<const int16_t*>(m1),
       static_cast<const int16_t*>(csel), static_cast<float*>(out), T, tk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_route_middle_m1(const void* g1, const void* m1, void* m1out, int T,
+                        void* stream) {
+  // K2 split, pass 1: 16 strips x 8 qh x Tk chunks
+  route_middle_m1_kernel<<<dim3(128 / kMidStrip, 8, T / 1024), kM1Threads,
+                           0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g1), static_cast<const int16_t*>(m1),
+      static_cast<float*>(m1out), T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_route_middle_select(const void* m1out, const void* csel, void* out,
+                            int T, int tk, void* stream) {
+  // K2 split, pass 2: a 16 B piece a thread, T*32 pieces a plane
+  route_middle_select_kernel<<<dim3(T * 32 / kThreads, 8), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(m1out), static_cast<const int16_t*>(csel),
+      static_cast<float*>(out), T, tk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -732,15 +966,28 @@ int cvr_reduce_hot(const void* xh, const void* hidx, const void* hvals,
 }
 
 int cvr_reduce_stream(const void* vals, const void* gx, const void* p3,
-                      const void* emit, const void* start, void* ys,
-                      long long S, long long sv, long long sg, long long sp,
-                      long long nys, void* stream) {
-  dim3 grid(static_cast<unsigned int>(S), 8);
-  reduce_stream_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+                      const void* pieces, void* ys, void* part, int npieces,
+                      int sv, int sg, int sp, int nys, int npart,
+                      void* stream) {
+  // one block per piece
+  reduce_stream_kernel<<<static_cast<unsigned int>(npieces), kReduceThreads,
+                         0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vals), static_cast<const float*>(gx),
-      static_cast<const int16_t*>(p3), static_cast<const int32_t*>(emit),
-      static_cast<const int32_t*>(start), static_cast<float*>(ys), sv, sg,
-      sp, nys);
+      static_cast<const int16_t*>(p3), static_cast<const int32_t*>(pieces),
+      static_cast<float*>(ys), static_cast<float*>(part), sv, sg, sp, nys,
+      npart);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_reduce_stream_combine(const void* part, const void* combine,
+                              void* ys, int ncombine, int nys, int npart,
+                              void* stream) {
+  // one block per split slice
+  reduce_stream_combine_kernel<<<static_cast<unsigned int>(ncombine),
+                                 kReduceThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<const int32_t*>(combine),
+      static_cast<float*>(ys), nys, npart);
   return static_cast<int>(cudaGetLastError());
 }
 

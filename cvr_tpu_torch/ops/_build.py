@@ -111,7 +111,9 @@ def load():
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.cvr_expand.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32, i32,
                                i32, i32, p]
-    lib.cvr_route_middle.argtypes = [p, p, p, p, i64, i32, p]
+    lib.cvr_route_middle.argtypes = [p, p, p, p, i32, i32, p]
+    lib.cvr_route_middle_m1.argtypes = [p, p, p, i32, p]
+    lib.cvr_route_middle_select.argtypes = [p, p, p, i32, i32, p]
     lib.cvr_reduce_slices.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32,
                                       p]
     lib.cvr_reduce_slices_combine.argtypes = [p, p, p, i32, i32, i32, p]
@@ -120,8 +122,9 @@ def load():
     lib.cvr_route_m3.argtypes = [p, p, p, i64, p]
     lib.cvr_route_flat.argtypes = [p, p, p, p]
     lib.cvr_reduce_hot.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, p]
-    lib.cvr_reduce_stream.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64,
-                                      i64, p]
+    lib.cvr_reduce_stream.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32,
+                                      i32, i32, p]
+    lib.cvr_reduce_stream_combine.argtypes = [p, p, p, i32, i32, i32, p]
     lib.cvr_dia_spmv.argtypes = [p, p, p, p, i32, i64, i64, p]
     lib.cvr_bell_gather_mac.argtypes = [p, p, p, p, i32, i64, i32, i32, i64, p]
     lib.cvr_window_reduce.argtypes = [
@@ -136,11 +139,13 @@ def load():
     lib.cvr_pmm_spmm.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, p]
     lib.cvr_pmm_spmm_combine.argtypes = [p, p, p, i32, i32, p]
     for fn in (
-        lib.cvr_expand, lib.cvr_route_middle, lib.cvr_reduce_slices,
+        lib.cvr_expand, lib.cvr_route_middle, lib.cvr_route_middle_m1,
+        lib.cvr_route_middle_select, lib.cvr_reduce_slices,
         lib.cvr_reduce_slices_combine, lib.cvr_lane_reduce_combine,
         lib.cvr_route_small, lib.cvr_tileperm, lib.cvr_route_m3,
         lib.cvr_route_flat,
-        lib.cvr_reduce_hot, lib.cvr_reduce_stream, lib.cvr_dia_spmv,
+        lib.cvr_reduce_hot, lib.cvr_reduce_stream,
+        lib.cvr_reduce_stream_combine, lib.cvr_dia_spmv,
         lib.cvr_bell_gather_mac, lib.cvr_window_reduce, lib.cvr_dia_spmm,
         lib.cvr_bsr_spmm, lib.cvr_bsr_spmm_smem, lib.cvr_lane_reduce,
         lib.cvr_pmm_spmm, lib.cvr_pmm_spmm_combine,

@@ -1,7 +1,8 @@
 """The routed SpMV's and the route library's device passes: eleven
-wrappers over nine Hopper kernels (K1's kernel also runs the ring steps
-of K15 and K5's the brute middle K17; K3 adds a second pass for its split
-slices).
+wrappers over the Hopper kernels of route_kernels.cu (K1's kernel also
+runs the ring steps of K15 and K5's the brute middle K17; K2 has two
+bodies, its split one of two passes; K3 and K18 add a second pass for
+their split slices).
 
 Each pass has three parts side by side:
 
@@ -141,6 +142,8 @@ def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
 
 
 INT32_MAX = 2**31 - 1
+# shared memory a block may take on the H100 (227 KB, dynamic, opted in)
+SMEM_MAX = 232_448
 
 
 def expand_blocks(T: int, n: int, xlen: int) -> int:
@@ -303,10 +306,39 @@ def route_middle_plain(g1, m1, csel):
     return torch.where(valid, g1[Q >> 7, ca * 1024 + m, Q & 127], 0.0)
 
 
-def route_middle(g1, m1, csel):
+# K2's bodies (route_kernels.cu) and the launches each takes
+ROUTE_MIDDLE_LAUNCHES = {"staged": 1, "split": 2}
+
+
+def route_middle_geometry(T: int, body: str | None = None) -> str:
+    """K2's body for a middle of T = Tk*1024 rows: "staged" (one launch)
+    where the strip of g1 it stages, 8 lanes of T rows in columns padded
+    by 4 rows (8*(T+4)*4 B), fits a block's shared memory (SMEM_MAX: T up
+    to 7168, Tk 7), else "split" (M1 per chunk, then the chunk select: two
+    launches, any Tk).  ``body`` names one instead (the benchmarks time
+    both).  Raise where the kernels' 32-bit indices cannot reach 8*T*128
+    elements (T past 2,097,151) or a staged strip does not fit."""
+    if 8 * T * 128 > INT32_MAX:
+        raise ValueError(f"route_middle: planes of {T} rows exceed the "
+                         "kernel's 32-bit indices")
+    smem = 8 * (T + 4) * 4
+    if body is None:
+        body = "staged" if smem <= SMEM_MAX else "split"
+    if body not in ROUTE_MIDDLE_LAUNCHES:
+        raise ValueError(f"route_middle: no body {body!r}")
+    if body == "staged" and smem > SMEM_MAX:
+        raise ValueError(f"route_middle: a strip of {T} rows takes {smem} B "
+                         f"of shared memory, a block at most {SMEM_MAX}")
+    return body
+
+
+def route_middle(g1, m1, csel, body: str | None = None):
     """K2: the recursive route middle's M1 and chunk-select stages on
-    g1 (8, Tk*1024, 128) f32 with planes m1, csel (8, Tk*1024, 128) int16;
-    see route_middle_plain.  M3 is fused into reduce_slices."""
+    g1 (8, Tk*1024, 128) f32 with planes m1, csel (8, Tk*1024, 128) int16,
+    16 B aligned, any Tk; see route_middle_plain (m1 holds a permutation
+    of each chunk's rows: the kernels read m & 1023).  The body is
+    route_middle_geometry's (``body`` forces one): one launch staged, two
+    split.  M3 is fused into reduce_slices."""
     if not _on_card("route_middle", g1, m1, csel):
         return route_middle_plain(g1, m1, csel)
     _check_dtype("route_middle", g1, torch.float32)
@@ -317,8 +349,20 @@ def route_middle(g1, m1, csel):
         csel.shape != g1.shape
     ):
         raise ValueError("route_middle: planes must be (8, Tk*1024, 128)")
+    body = route_middle_geometry(T, body)
+    _check_aligned("route_middle", g1, m1, csel)
     out = torch.empty_like(g1)
-    _launch("cvr_route_middle", g1.device, _p(g1), _p(m1), _p(csel),
+    if not T:
+        return out
+    if body == "staged":
+        _launch("cvr_route_middle", g1.device, _p(g1), _p(m1), _p(csel),
+                _p(out), T, T // 1024)
+        route_middle.launches += 1
+        return out
+    m1out = torch.empty_like(g1)
+    _launch("cvr_route_middle_m1", g1.device, _p(g1), _p(m1), _p(m1out), T)
+    route_middle.launches += 1
+    _launch("cvr_route_middle_select", g1.device, _p(m1out), _p(csel),
             _p(out), T, T // 1024)
     route_middle.launches += 1
     return out
@@ -633,10 +677,6 @@ def tileperm_plain(data, idx):
     return torch.where(valid, data[v >> 7, a, v & 127], 0.0)
 
 
-# shared memory a block may take on the H100 (227 KB, dynamic, opted in)
-SMEM_MAX = 232_448
-
-
 def tileperm_geometry(P: int, R: int) -> int:
     """K5's and K17's launch geometry (one block per row of R, over P
     planes): the dynamic shared memory of a block, which stages its row's
@@ -848,11 +888,54 @@ def reduce_stream_table(emit, nslices: int):
     return emit_starts(emit)[e], (e + 1).int(), emit[e].int()
 
 
-def reduce_stream_plain(emit, gemit, vals, gx, p3, nslices: int):
+# plane rows a K18 piece sums at most (a slice of more rows is split)
+STREAM_PIECE_ROWS = 8
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """What K18 reads in place of a reduce group's emissions, made once
+    (reduce_stream_plan; spmv_routed.to_device_routed makes one per
+    reduce group at upload): the slice table cut into pieces of at most
+    STREAM_PIECE_ROWS plane rows, for S plane rows and nslices slices."""
+
+    split: Split
+    S: int
+    nslices: int
+
+
+def reduce_stream_plan(emit, nslices: int, device=None) -> StreamPlan:
+    """K18's plan for the emissions ``emit`` (S,) (a tensor or an array)
+    of one reduce group and its ``nslices`` slices: reduce_stream_table
+    cut by make_split, on ``device`` (emit's where it is a tensor and
+    ``device`` is None).  It reads emit on the host once."""
+    if not isinstance(emit, torch.Tensor):
+        emit = torch.from_numpy(np.ascontiguousarray(emit, dtype=np.int32))
+    device = emit.device if device is None else device
+    row0, row1, out = reduce_stream_table(emit.cpu(), nslices)
+    return StreamPlan(split=make_split(row0, row1, out, STREAM_PIECE_ROWS,
+                                       device),
+                      S=emit.shape[0], nslices=nslices)
+
+
+def reduce_stream_geometry(rows: tuple[int, ...], nys: int,
+                           npart: int) -> None:
+    """Raise where K18's 32-bit index arithmetic cannot reach: the whole
+    planes a group's rows are read from (vals, gx, p3, of ``rows`` rows
+    each), ys of nys slices or npart partial rows (8 x rows x 128
+    elements each)."""
+    for what, n in (*(("planes", r) for r in rows), ("ys", nys),
+                    ("partials", npart)):
+        if 8 * n * 128 > INT32_MAX:
+            raise ValueError(f"reduce_stream: {what} of {n} rows exceed "
+                             "the kernel's 32-bit indices")
+
+
+def reduce_stream_plain(emit, gemit, vals, gx, p3, nslices: int, plan=None):
     """ys (8, nslices, 128): ys[:, s, :] sums, over the plane rows R of
     slice s (reduce_stream_table), P[i,R,l] = gx[v>>7, R, v&127] *
     vals[i,R,l] for v = p3[i,R,l] (0 where v is not in [0, 1024)); slices
-    no emission names stay zero.  gemit is not read."""
+    no emission names stay zero.  Neither gemit nor the plan is read."""
     row0, row1, out = reduce_stream_table(emit, nslices)
     item, rows = slice_rows(row0, row1)
     v = p3[:, rows, :].long()
@@ -862,7 +945,8 @@ def reduce_stream_plain(emit, gemit, vals, gx, p3, nslices: int):
     return slice_sums(g * vals[:, rows, :], item, out, nslices)
 
 
-def reduce_stream(emit, gemit, vals, gx, p3, nslices: int):
+def reduce_stream(emit, gemit, vals, gx, p3, nslices: int,
+                  plan: StreamPlan | None = None):
     """K18: the unfused reduce of one reduce group, the counterpart of
     cvr_tpu/ops/pallas_route.py:604 reduce_slices.  emit (S,) int32 group
     -local slice ids on the rows that end a slice, else -1; gemit (S//8,)
@@ -870,11 +954,12 @@ def reduce_stream(emit, gemit, vals, gx, p3, nslices: int):
     read); vals (8, S, 128) f32, the stream-layout middle output gx
     (8, S, 128) f32 and the stage-3 plane p3 (8, S, 128) int16 over the
     group's rows, which may be row slices of the whole planes (read in
-    place).  Returns ys (8, nslices, 128); the wrapper derives each
-    row's slice start from emit on its device (emit_starts, no host
-    sync), and the kernel sums the slice each emission row closes.  The
-    emission ids must be distinct, as the pack makes them.  See
-    reduce_stream_plain."""
+    place, 16 B aligned).  Returns ys (8, nslices, 128).  On the card the
+    kernel reads the plan (reduce_stream_plan of the same emit and
+    nslices) in place of emit; without one the wrapper makes it, which
+    reads emit on the host.  Two launches where a slice is split, the
+    second adding its pieces' partials.  The emission ids must be
+    distinct, as the pack makes them.  See reduce_stream_plain."""
     S = emit.shape[0]
     if (vals.shape != (8, S, 128) or gx.shape != vals.shape
             or p3.shape != vals.shape or gemit.shape != (S // 8,)
@@ -887,12 +972,28 @@ def reduce_stream(emit, gemit, vals, gx, p3, nslices: int):
                   (vals, torch.float32), (gx, torch.float32),
                   (p3, torch.int16)):
         _check_dtype("reduce_stream", t, dt)
+    if plan is None:
+        plan = reduce_stream_plan(emit, nslices)
+    split = plan.split
+    if plan.S != S or plan.nslices != nslices:
+        raise ValueError("reduce_stream: the plan is not this group's")
+    _on_card("reduce_stream", emit, split.pieces, split.combine)
+    strides = tuple(t.stride(0) // 128 for t in (vals, gx, p3))
+    reduce_stream_geometry(strides, nslices, split.npart)
+    _check_aligned("reduce_stream", vals, gx, p3)
     ys = torch.zeros((8, nslices, 128), dtype=torch.float32, device=gx.device)
-    if S:
-        start = emit_starts(emit)
+    part = torch.empty((8, split.npart, 128), dtype=torch.float32,
+                       device=gx.device)
+    n = split.pieces.shape[0]
+    if S and n:
         _launch("cvr_reduce_stream", gx.device, _p(vals), _p(gx), _p(p3),
-                _p(emit), _p(start), _p(ys), S, vals.stride(0) // 128,
-                gx.stride(0) // 128, p3.stride(0) // 128, nslices)
+                _p(split.pieces), _p(ys), _p(part), n, *strides, nslices,
+                split.npart)
+        reduce_stream.launches += 1
+    if S and split.combine.shape[0]:
+        _launch("cvr_reduce_stream_combine", gx.device, _p(part),
+                _p(split.combine), _p(ys), split.combine.shape[0], nslices,
+                split.npart)
         reduce_stream.launches += 1
     return ys
 

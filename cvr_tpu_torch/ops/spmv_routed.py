@@ -27,7 +27,9 @@ The unfused reduce the JAX package's routed SpMV specifies runs the whole
 middle first and reduces from the stream (reduce_unfused):
 
     gx  = middle_pass(g1)                 K2 + K6 (rec) | K16 (flat)
-    ys  = reduce_stream(emit, gemit, vals, gx, p3)   K18, per reduce group
+    ys  = reduce_stream(emit, gemit, vals, gx, p3, plan)
+                                          K18, per reduce group, by its
+                                          plan made at upload
 
 The route library: ``apply_route(ra, v)`` computes v[perm] for any
 compiled permutation (route_planes.route_arrays_from_perm or
@@ -123,6 +125,9 @@ class SellRoutedDevice:
     hot_row1: torch.Tensor | None = None
     hot_out: torch.Tensor | None = None
     hot_nslices: int = 0
+    # the unfused reduce's plans (rk.reduce_stream_plan), one per reduce
+    # group, made from the pack's emissions at upload
+    stream_plans: tuple[rk.StreamPlan, ...] = ()
 
 
 def reduce_table(emit, ycall_rows, regions, nslices: int,
@@ -266,12 +271,21 @@ def reduce_plan(mid: RouteMidDevice, p3, row0, row1, out,
                           fast)
 
 
+def stream_plans(sr: SellRouted, device) -> tuple[rk.StreamPlan, ...]:
+    """K18's plan of each reduce group of the pack (reduce_unfused's
+    launches), on ``device``."""
+    return tuple(
+        rk.reduce_stream_plan(sr.emit[r0 : r0 + nr],
+                              min(rp.YB, sr.nslices - j * rp.YB), device)
+        for j, (r0, nr) in enumerate(np.asarray(sr.ycall_rows).tolist()))
+
+
 def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
     """Upload the routed artifact's planes to ``device`` (the card unless
     the caller asks for another), with K3's plan (reduce_plan: the index
     into g1 composed through the route middle, M3 and stage 3, and the
-    slices cut into pieces) and K4's index (the y-route's stages
-    composed), made here once."""
+    slices cut into pieces), K4's index (the y-route's stages composed)
+    and K18's plans (stream_plans), made here once."""
     put = _put(device)
     mid = mid_to_device(sr.mid, device)
     nrows_out = sr.y_ra["n"]
@@ -316,6 +330,7 @@ def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
         n_segs=sr.n_segs,
         nslA=sr.nslA,
         yslices=sr.yslices or sr.nslices,
+        stream_plans=stream_plans(sr, device),
         **hot,
     )
 
@@ -380,13 +395,15 @@ def reduce_unfused(sd: SellRoutedDevice, gx: torch.Tensor, emit, gemit,
     and gemit (S_pad // 8,) int32 on sd's device are the pack's emissions
     and their group codes (route_planes.group_emit_encode), ycall_rows
     its reduce groups' (first row, rows); K18 reads each group's rows of
-    the planes in place."""
+    the planes in place, by the group's plan made at upload from the same
+    emissions (sd.stream_plans)."""
     parts = []
     for j, (r0, nr) in enumerate(np.asarray(ycall_rows).tolist()):
         rows = slice(r0, r0 + nr)
         parts.append(rk.reduce_stream(
             emit[rows], gemit[r0 // 8 : (r0 + nr) // 8], sd.vals_ss[:, rows],
             gx[:, rows], sd.p3[:, rows], min(rp.YB, sd.nslices - j * rp.YB),
+            sd.stream_plans[j] if sd.stream_plans else None,
         ))
     return torch.cat(parts, 1)
 

@@ -1,0 +1,55 @@
+"""Record the JAX package's outputs that the port's tests read from
+tests/fixtures/ in place of its slowest interpret-mode calls.
+
+    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py
+
+It imports the JAX package on an 8-device CPU mesh, as tests/conftest.py
+sets it up for the tests, and writes:
+
+  * torch_ref_dist_routed_ring.npz: the routed SpMV of
+    test_torch_dist_routed.py's ring pack (powerlaw n 6000, avg 8 nnz a
+    row, seed 11, on 4 shards, overlap=True; x from default_rng(0)) in
+    each mode, y (6000,) float32 under the mode's name (each interpret-mode
+    call takes 11-17 s).
+
+The tests keep one mode live (test_torch_dist_routed.LIVE_MODE) and hold
+its recorded y against the JAX package's live one, so that the records
+stay tied to the package.  Rerun this after a change to the JAX package's
+routed SpMV or to the test's matrix.
+"""
+
+import os
+import sys
+from pathlib import Path
+
+os.environ["JAX_PLATFORMS"] = "cpu"
+flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in flags:
+    os.environ["XLA_FLAGS"] = (
+        flags + " --xla_force_host_platform_device_count=8").strip()
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+HERE = Path(__file__).resolve().parent
+sys.path[:0] = [str(HERE), str(HERE.parent)]
+
+import numpy as np  # noqa: E402
+
+import cvr_tpu.parallel.dist_routed as jdr  # noqa: E402
+from cvr_tpu.parallel.dist import make_mesh as j_make_mesh  # noqa: E402
+from test_torch_dist_routed import D, MODES, RING_FIXTURE, ring_matrix  # noqa: E402
+
+
+def dist_routed_ring() -> None:
+    jcoo, _, x = ring_matrix()
+    jdm = jdr.dist_routed_pack(jcoo.to_csr(), j_make_mesh(D), overlap=True)
+    ys = {name: np.asarray(jdr.dist_spmv_routed(jdm, x, **mode))
+          for name, mode in MODES.items()}
+    np.savez_compressed(RING_FIXTURE, **ys)
+    print(f"{RING_FIXTURE}: {sorted(ys)}, {ys['replicated'].shape}")
+
+
+if __name__ == "__main__":
+    dist_routed_ring()

@@ -4,6 +4,11 @@ float64 golden, at the row-scaled 1e-6 contract: the routed SpMV with x
 replicated, all-gathered and moved round the ring (K15 per step), the
 SELL SpMV, a JAX artifact carried across, and K15's plain version
 against the JAX package's ring-step expand, bit for bit.
+
+The JAX package's routed SpMV of the ring pack in the modes other than
+LIVE_MODE is read from RING_FIXTURE, which tests/make_torch_fixtures.py
+records (each interpret-mode call takes 11-17 s); LIVE_MODE runs live and
+holds the recorded y against the package's.
 """
 
 import dataclasses
@@ -37,6 +42,8 @@ from cvr_tpu_torch.parallel import dist as tdist
 from torch_cases import multisegment_tail, powerlaw, random_rect
 
 REPO = Path(__file__).resolve().parent.parent
+RING_FIXTURE = REPO / "tests" / "fixtures" / "torch_ref_dist_routed_ring.npz"
+LIVE_MODE = "replicated"
 MODES = {
     "replicated": {},
     "x_sharded": {"x_sharded": True},
@@ -79,29 +86,49 @@ def _port_y(dm, x, **mode):
     return y
 
 
+def ring_matrix():
+    """The ring pack's matrix (JAX COO, port COO) and x."""
+    jcoo, tcoo = powerlaw(n=6000, avg_nnz=8, seed=11)
+    return jcoo, tcoo, _x(6000)
+
+
 @pytest.fixture(scope="module")
 def ring_pair():
     """One ring pack of a power-law matrix on 4 shards in each package,
-    and the JAX package's y in each mode (interpret mode: ~15 s each)."""
-    jcoo, tcoo = powerlaw(n=6000, avg_nnz=8, seed=11)
-    x = _x(6000)
+    and the JAX package's y in each mode: LIVE_MODE's by the package
+    (interpret mode, ~15 s), the others' from RING_FIXTURE; with the
+    recorded LIVE_MODE y."""
+    jcoo, tcoo, x = ring_matrix()
     jdm = jdr.dist_routed_pack(jcoo.to_csr(), j_make_mesh(D), overlap=True)
-    y_jax = {name: np.asarray(jdr.dist_spmv_routed(jdm, x, **mode))
-             for name, mode in MODES.items()}
+    recorded = dict(np.load(RING_FIXTURE))
+    y_jax = {**recorded, LIVE_MODE: np.asarray(
+        jdr.dist_spmv_routed(jdm, x, **MODES[LIVE_MODE]))}
     tdm = tdr.dist_routed_pack(tcoo.to_csr(), _cpu_mesh(D), overlap=True)
-    return tcoo.to_csr(), x, jdm, tdm, y_jax
+    return tcoo.to_csr(), x, jdm, tdm, y_jax, recorded
+
+
+def test_recorded_reference_is_the_jax_package(ring_pair):
+    """RING_FIXTURE holds every mode, and its LIVE_MODE y is the JAX
+    package's live one within the contract (the modes differ only in how
+    x reaches the shards)."""
+    csr, x, _, _, y_jax, recorded = ring_pair
+    assert set(recorded) == set(MODES)
+    for name in MODES:
+        assert recorded[name].shape == (csr.shape[0],)
+        assert recorded[name].dtype == np.float32
+        _check(recorded[name], csr, x, y_jax[LIVE_MODE])
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_dist_spmv_routed_matches_reference(ring_pair, mode):
-    csr, x, _, tdm, y_jax = ring_pair
+    csr, x, _, tdm, y_jax, _ = ring_pair
     _check(_port_y(tdm, x, **MODES[mode]), csr, x, y_jax[mode])
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_reference_artifact_carried_across(ring_pair, mode):
     """from_reference: the JAX package's own planes drive the port."""
-    csr, x, jdm, tdm, y_jax = ring_pair
+    csr, x, jdm, tdm, y_jax, _ = ring_pair
     rdm = tdr.from_reference(jdm, _cpu_mesh(D))
     assert rdm.meta == tdm.meta
     for pr, pt in zip(rdm.planes, tdm.planes, strict=True):

@@ -2,17 +2,27 @@
 
 Each builder returns (cvr_tpu COO, cvr_tpu_torch COO) holding the same
 arrays.
+
+Importing this module keeps torch to one intra-op thread in the process:
+the suite runs one test process per worker (pytest-xdist, ``-n 6`` on an
+8-core host), and torch's default of one thread per core in each of them
+oversubscribes the cores (on such a host the port's test files took 479 s
+with the default against 158 s with one thread each, single cases up to
+75x longer than alone).
 """
 
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from cvr_tpu.bench import synthetic as jsyn
 from cvr_tpu.formats.coo import COOMatrix as JCOO
 
 from cvr_tpu_torch.bench import synthetic as tsyn
 from cvr_tpu_torch.formats.coo import COOMatrix as TCOO
+
+torch.set_num_threads(1)
 
 FIXTURES = sorted((Path(__file__).parent / "fixtures").glob("*.mtx*"))
 
