@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's SpMV and SpMM paths once on one NVIDIA H100.
+"""Drive the port's SpMV and SpMM paths and its payloads once on one
+NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -121,7 +122,22 @@ Phases, each printed on its own lines:
      deterministic algorithms (index_add_ adds the split-row extras by
      atomics otherwise); they must be equal (``--y-digests`` prints the
      digests of a checkout's package alone);
- 11. a JSON line of the kernels of every path, then the last line
+ 11. the payloads (cvr_tpu_torch.models), each through the entry point a
+     user calls, with its launch counts, its answer against float64 and
+     every kernel it launched against its plain version at its last
+     operator input (as in [3]; rows under paths models_*), and its time
+     beside the same loop over cuSPARSE: (a) PageRank on [2]'s matrix's
+     links transposed, through bench.models (pagerank_routed, 50
+     iterations at tol 0, then to tol 1e-8); (b) CG to 1e-6 on the SPD
+     banded system of 1,048,576 rows through bench.models (SELL-W: K10;
+     cg_shaped's time); (c) a GCN 64 -> 64 -> 16 on gcn_normalize of [2]'s
+     links through the artifact cli.spmm_pick("auto", K 64) picks, under a
+     process-wide float32 matmul precision of "high" (TF32); (d) BiCGSTAB,
+     Jacobi (K8), Lanczos, power iteration, subspace iteration (spmm),
+     a GraphSAGE layer and pagerank_sell at tests/test_models.py's sizes
+     and checks (a payload's kernels held only where it launched one
+     that [11] has not held yet);
+ 12. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero.  It needs a CUDA card
@@ -143,16 +159,24 @@ import time
 
 import numpy as np
 import scipy.sparse as sps
+from scipy.sparse.linalg import spsolve
 import torch
 
 from cvr_tpu_torch import _native, cli
+from cvr_tpu_torch.bench import models as bench_models
 from cvr_tpu_torch.bench import synthetic as syn
-from cvr_tpu_torch.bench.harness import run_spmv_benchmark, time_iterations
+from cvr_tpu_torch.bench.harness import (
+    device_ms,
+    is_event,
+    run_spmv_benchmark,
+    time_iterations,
+)
 from cvr_tpu_torch.formats import pack_auto
 from cvr_tpu_torch.formats.bell import BellMatrix
 from cvr_tpu_torch.formats.bsr import bsr_pack
 from cvr_tpu_torch.formats.coo import COOMatrix
 from cvr_tpu_torch.formats.dia import DiaMatrix, dia_pack
+from cvr_tpu_torch.formats.sell import sell_pack
 from cvr_tpu_torch.formats.sell_routed import (
     RingSpec,
     SellRouted,
@@ -161,6 +185,20 @@ from cvr_tpu_torch.formats.sell_routed import (
 )
 from cvr_tpu_torch.formats.sell_window import SellWindow
 from cvr_tpu_torch.io.mmio import write_matrix_market
+from cvr_tpu_torch.models import (
+    bicgstab,
+    conjugate_gradient,
+    gcn_forward,
+    gcn_normalize,
+    graphsage_layer,
+    jacobi,
+    lanczos,
+    pagerank,
+    power_iteration,
+    subspace_iteration,
+)
+from cvr_tpu_torch.models.gnn import params_from_reference
+from cvr_tpu_torch.models.pagerank import pagerank_routed, pagerank_sell
 from cvr_tpu_torch.ops import _build, kernels
 from cvr_tpu_torch.ops import dia_kernels as dk
 from cvr_tpu_torch.ops import route_kernels as rk
@@ -171,7 +209,7 @@ from cvr_tpu_torch.ops import spmm_bsr, spmm_lane, spmm_pmm
 from cvr_tpu_torch.ops.spmm_bsr import BsrDevice
 from cvr_tpu_torch.ops.spmm_lane import LaneDevice
 from cvr_tpu_torch.ops.spmm_pmm import PmmDevice
-from cvr_tpu_torch.ops.spmv import spmm, spmv, upload
+from cvr_tpu_torch.ops.spmv import SellDevice, spmm, spmv, upload
 from cvr_tpu_torch.ops.spmv_bell import BellDevice, gather_args
 from cvr_tpu_torch.ops.spmv_dia import DiaDevice
 from cvr_tpu_torch.ops.spmv_ref import spmv_golden_numpy, spmv_row_scale, verify
@@ -426,87 +464,6 @@ def record_y(label, fn) -> str:
     return got
 
 
-TRACES = 5  # traces device_ms takes at most to find one that holds every call
-MARGIN_S = 0.02  # idle time around the kept calls of a trace
-
-
-def device_ms(fn, iters: int, marker: str | None,
-              per_call: int = 1) -> dict[str, float]:
-    """Device time per call of ``fn``, by kernel name: the durations of the
-    device events in a torch.profiler trace over ``iters`` calls (CUDA
-    events around back-to-back calls also count the host, when enqueueing
-    is the slower side).
-
-    A trace can lose device events: those of its first calls, and now and
-    then one or two calls' kernels in the middle.  So ``iters`` lead calls
-    open the trace, only the events inside the range of the ``iters``
-    calls after them count, and a trace counts only if it holds all of
-    them: ``marker`` (a part of an event name, or a tuple of such), a
-    kernel that one call launches ``per_call`` times,
-    ``iters * per_call`` times (None where ``fn`` launches no kernel of
-    ours), and every device event
-    a multiple of ``iters`` times, since each call launches the same
-    kernels.  The range opens and closes with MARGIN_S of idle time: the
-    device's timestamps may stand off the host's by a fraction of a
-    millisecond, and the kept calls of a short kernel take little more.
-    Up to TRACES traces are taken; it raises when none holds every
-    call."""
-    faults = []
-    for _ in range(TRACES):
-        per, count = _trace(fn, iters)
-        seen = sum(c for n, c in count.items()
-                   if marker is None or is_event(n, marker))
-        uneven = {n: c for n, c in count.items() if c % iters}
-        if count and not uneven and (marker is None
-                                     or seen == iters * per_call):
-            if faults:
-                print(f"    (trace {len(faults) + 1} holds every call; "
-                      f"the earlier lost device events: {faults})")
-            return per
-        faults.append(f"{marker} seen {seen} times of {iters * per_call}, "
-                      f"{len(uneven)} kernels seen a count not a multiple "
-                      f"of {iters}")
-    raise AssertionError(f"{TRACES} traces of {iters} calls each lost "
-                         f"device events: {faults}")
-
-
-def _trace(fn, iters: int):
-    """One trace of ``iters`` lead calls, then ``iters`` kept calls: (ms
-    per kept call by device event name, the count of each name)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    kept = "chip_smoke.kept_calls"
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(MARGIN_S)
-        with record_function(kept):
-            time.sleep(MARGIN_S)
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(MARGIN_S)
-    events = prof.events()
-    dt = torch.autograd.DeviceType
-    window = [e.time_range for e in events
-              if e.name == kept and e.device_type == dt.CPU]
-    if len(window) != 1:
-        raise AssertionError(f"the trace holds {len(window)} ranges {kept}")
-    t0, t1 = window[0].start, window[0].end
-    per, count = {}, {}
-    for e in events:
-        # the range itself is also laid over the device timeline
-        if (e.device_type == dt.CUDA and e.name != kept
-                and t0 <= e.time_range.start <= t1):
-            per[e.name] = per.get(e.name, 0.0) + e.device_time / iters / 1e3
-            count[e.name] = count.get(e.name, 0) + 1
-    return per, count
-
-
 # kernels of ours whose device events are not named "<kernel>_kernel": K5
 # and K17 launch one instantiation each of tileperm_kernel, K2 one of two
 # bodies (staged, or split: route_middle_m1_kernel first): kernel -> the
@@ -535,13 +492,6 @@ def event_of(name: str) -> tuple[str, ...]:
     """The names (a part of them) of kernel ``name``'s first pass's device
     events."""
     return EVENTS.get(name, (f"{name}_kernel",))
-
-
-def is_event(event: str, names) -> bool:
-    """Whether the device event ``event`` is one of ``names`` (a part of
-    a name, or a tuple of such)."""
-    return any(n in event for n in ((names,) if isinstance(names, str)
-                                    else names))
 
 
 def by_kernel(per) -> dict[str, float]:
@@ -605,7 +555,9 @@ def expected_launches(sd) -> dict[str, int]:
     """Launches of each kernel in one SpMV of the device artifact ``sd``
     on the card (K3's second pass counted as a launch)."""
     want = dict.fromkeys(kernels.KERNELS, 0)
-    if isinstance(sd, DiaDevice):
+    if isinstance(sd, SellDevice):  # the plain SELL planes: torch ops
+        pass
+    elif isinstance(sd, DiaDevice):
         want["dia_spmv"] = 1
     elif isinstance(sd, SellWindowDevice):
         want["window_reduce"] = 1
@@ -683,17 +635,22 @@ def build() -> None:
           "of dynamic shared memory a block")
 
 
+def cusparse_csr(csr, device):
+    """csr as torch.sparse_csr_tensor on ``device``: cuSPARSE's operand,
+    the yardstick, never on the port's path."""
+    dev = torch.device(device)
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(csr.rowptr).to(dev),
+        torch.from_numpy(csr.cols.astype(np.int64)).to(dev),
+        torch.from_numpy(csr.vals.astype(np.float32)).to(dev),
+        size=csr.shape, check_invariants=False)
+
+
 def cusparse_ms(tag, csr, xd, golden, scale, device) -> float:
     """cuSPARSE's CSR SpMV of the matrix (torch.sparse_csr_tensor @ x):
     the whole-SpMV yardstick, never on the port's path.  Checked against
     the golden, then timed by CUDA events."""
-    dev = torch.device(device)
-    A = torch.sparse_csr_tensor(
-        torch.from_numpy(csr.rowptr).to(dev),
-        torch.from_numpy(csr.cols.astype(np.int64)).to(dev),
-        torch.from_numpy(csr.vals.astype(np.float32)).to(dev),
-        size=csr.shape, check_invariants=False,
-    )
+    A = cusparse_csr(csr, device)
     ok, _, maxrel = verify((A @ xd).cpu().numpy(), golden, rtol=1e-6,
                            row_scale=scale)
     if not ok:
@@ -1493,14 +1450,8 @@ def library_spmm(tag, csr, Xd, golden, scale, device, sd=None):
     (torch.sparse_csr_tensor @ X), and for a BSR artifact torch's BSR
     matmul on the same bricks (torch.sparse_bsr_tensor @ X, where torch
     takes it).  Returns {"csr": ms, "bsr": ms or None}."""
-    dev = torch.device(device)
     c = SPMM_CHECK_COLS
-    A = torch.sparse_csr_tensor(
-        torch.from_numpy(csr.rowptr).to(dev),
-        torch.from_numpy(csr.cols.astype(np.int64)).to(dev),
-        torch.from_numpy(csr.vals.astype(np.float32)).to(dev),
-        size=csr.shape, check_invariants=False,
-    )
+    A = cusparse_csr(csr, device)
     check_columns(tag, "cuSPARSE CSR SpMM", (A @ Xd)[:, :c].cpu().numpy(),
                   golden, scale)
     out = {"csr": time_iterations(lambda: A @ Xd, KERNEL_ITERS, device) * 1e3,
@@ -2338,6 +2289,514 @@ def y_digests(device) -> dict[str, str]:
     return out
 
 
+# Phase [11]: the payloads of cvr_tpu_torch.models over the port's SpMVs
+# and SpMMs.
+PAGERANK_ITERS = 50
+# PageRank's ranks are positive sums of positive terms: each float32 sum of
+# a row's in-links (up to thousands) is within ~1e-5 of its float64 value,
+# and 0.85 damps what earlier iterations carried in; 1e-4 elementwise,
+# relative, leaves a margin of ~100 over the 1.1e-6 that R-MAT scale 16
+# shows on the CPU (2.5e-7 on web-Google-like on the H100)
+PAGERANK_RTOL = 1e-4
+CG_ITERS = 100
+CG_N = 1 << 20
+GCN_WIDTHS = (64, 64, 16)
+# the GCN against float64, row-scaled (|A| @ (|H| @ |W|)) at 1e-4, and
+# at float32's grade, 1e-5: float32 sums of 64 products, then of a row's
+# entries, err by a few ulp (4.4e-8 measured on the H100); the same
+# products with TF32's 10-bit operands err by 6.2e-5 there, inside 1e-4
+# but not 1e-5, so the float32 grade shows the precision guard at work
+GCN_RTOL = 1e-4
+GCN_F32 = 1e-5
+
+
+class Counted:
+    """A payload's operator ``op(sd, v)`` (an SpMV or SpMM of the device
+    artifact ``sd``) that adds up the launches its calls need and keeps
+    its last input, at which the payload's kernels are then checked."""
+
+    def __init__(self, sd, op):
+        self.sd, self.op = sd, op
+        self.calls, self.last = 0, None
+        self.want = dict.fromkeys(kernels.KERNELS, 0)
+
+    def __call__(self, v):
+        self.calls += 1
+        self.last = v
+        need = (expected_launches(self.sd) if v.dim() == 1
+                else expected_spmm_launches(self.sd, v.shape[1]))
+        for k, n in need.items():
+            self.want[k] += n
+        return self.op(self.sd, v)
+
+
+def payload_run(tag, fn, want):
+    """fn() once, with the launch counts set to 0 just before it and read
+    just after; they must be ``want``.  Returns (fn's result, launches)."""
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    print(f"{tag} launches in this path's run: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, want {want}")
+    return out, launches
+
+
+def payload_kernels(tag, path, sd, x, fn, launches, device, per=None,
+                    library=None):
+    """Every kernel the payload's run launched against its plain version
+    at the payload's own last operator input ``x`` (check_kernels, on x
+    made contiguous as the SpMV and SpMM wrappers make it; a looped SpMM
+    at x's column 0), with device ms per run of ``fn`` by kernel (``per``
+    by event name where the caller traced fn, else from a trace here);
+    ``library`` as check_kernels takes it."""
+    launched = [k for k, n in launches.items() if n]
+    if not launched:
+        print(f"{tag} launched no kernel of ours")
+        return []
+    if per is None:
+        # the marker: a kernel without a second pass
+        single = [k for k in launched if k not in SECOND]
+        per = device_ms(fn, KERNEL_ITERS,
+                        event_of(single[0]) if single else None,
+                        per_call=launches[single[0]] if single else 1)
+        print(f"{tag} device time a run: "
+              + device_split(per, by_kernel(per)))
+    if x.dim() == 2 and spmm_kernel(sd) is None:
+        x = x[:, 0]
+    return check_kernels(tag, f"models_{path}", sd, x.contiguous(),
+                         launches, by_kernel(per), device, library)
+
+
+def pagerank_float64(csr_t, out_degree, iters, damping=0.85):
+    """``iters`` PageRank iterations in float64 on the host: the same
+    dangling-mass rule and L1 normalization as models.pagerank."""
+    A = sps.csr_matrix((csr_t.vals.astype(np.float64), csr_t.cols,
+                        csr_t.rowptr), shape=csr_t.shape)
+    n = csr_t.shape[0]
+    deg = out_degree.astype(np.float64)
+    dangles = deg == 0
+    p = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        spread = A @ np.where(dangles, 0.0, p / np.maximum(deg, 1.0))
+        p_new = (1.0 - damping) / n + damping * (spread + p[dangles].sum() / n)
+        p = p_new / np.abs(p_new).sum()
+    return p
+
+
+def pagerank_unread(sd, odeg, iters, damping=0.85):
+    """``iters`` of models.pagerank's iterations on the routed ``sd``
+    without the stopping test's read back to the host each iteration:
+    what that read costs (a measurement, never on the path).  Returns
+    (ranks, the last delta)."""
+    n = sd.shape[0]
+    contributes, deg, dangles = odeg > 0, torch.clamp(odeg, min=1), odeg == 0
+    p = torch.full((n,), 1.0 / n, dtype=torch.float32, device=odeg.device)
+    for _ in range(iters):
+        spread = sp.spmv_routed(sd, torch.where(contributes, p / deg, 0.0))
+        dangling = torch.sum(torch.where(dangles, p, 0.0))
+        p_new = (1.0 - damping) / n + damping * (spread + dangling / n)
+        p_new = p_new / torch.sum(torch.abs(p_new))
+        delta = torch.sum(torch.abs(p_new - p))
+        p = p_new
+    return p, delta
+
+
+def operator_library_ms(csr, x, want, device) -> float:
+    """cuSPARSE's product of the whole CSR matrix with x
+    (torch.sparse_csr_tensor @ x), the library call of a kernel that is
+    the whole SpMV or SpMM (K8, K11): checked within 1e-6 of the row
+    scale against the kernel's output ``want``, then its ms by CUDA
+    events."""
+    A = cusparse_csr(csr, device)
+    absA = cusparse_csr(dataclasses.replace(csr, vals=np.abs(csr.vals)),
+                        device)
+    scale = absA @ x.abs()
+    if not bool(((A @ x - want).abs() <= 1e-6 * scale + 1e-30).all()):
+        raise AssertionError("cuSPARSE's product is not the kernel's")
+    return time_iterations(lambda: A @ x, KERNEL_ITERS, device) * 1e3
+
+
+def times_line(tag, what, t, lib) -> None:
+    """A payload's time per iteration (or forward) beside the same loop
+    over cuSPARSE, both per_iteration's."""
+    def one(t):
+        if t["device_ms"] is None:
+            return f"{t['ms']:.4f} ms (host clock)"
+        return (f"{t['ms']:.4f} ms by CUDA events, device {t['device_ms']:.4f}"
+                f" ms (busy {100 * t['device_ms'] / t['ms']:.1f}%)")
+
+    print(f"{tag} {what}: {one(t)}; the same loop over cuSPARSE "
+          f"(yardstick): {one(lib)}")
+    if t["by_event"]:
+        ours = by_kernel(t["by_event"])
+        print(f"{tag} {what}, device ms by kernel: "
+              + device_split(t["by_event"], ours))
+
+
+def pagerank_payload(device, coo):
+    """[11a]: PageRank on web-Google-like through bench.models."""
+    tag = "[11a]"
+    r = bench_models.bench_pagerank(PAGERANK_ITERS, device, coo=coo)
+    sr, sd, csr_t = r["packed"], r["sd"], r["csr_t"]
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in sr.convert_phases.items())
+    print(f"{tag} A^T {csr_t.shape[0]}x{csr_t.shape[1]}, {csr_t.nnz} nnz: "
+          f"pack {r['pack_s']:.3f} s ({phases}): {describe(sr)}")
+    odeg = torch.from_numpy(r["out_degree"]).to(device)
+    per = expected_launches(sd)
+    print(f"{tag} launches per iteration: "
+          f"{ {k: n for k, n in per.items() if n} }")
+
+    def run():
+        return pagerank_routed(sd, out_degree=odeg, tol=0.0,
+                               max_iters=PAGERANK_ITERS)
+
+    want = {k: n * PAGERANK_ITERS for k, n in per.items()}
+    (p, its, delta), launches = payload_run(tag, run, want)
+    p = p.cpu().numpy()
+    p64 = pagerank_float64(csr_t, r["out_degree"], PAGERANK_ITERS)
+    rel = float(np.max(np.abs(p - p64) / p64))
+    l1 = float(np.abs(p - p64).sum())
+    ok = (its == PAGERANK_ITERS and rel <= PAGERANK_RTOL
+          and np.isfinite(p).all())
+    print(f"{tag} {its} iterations at tol 0 vs the float64 PageRank: max "
+          f"rel {rel:.3e} (tolerance {PAGERANK_RTOL:g}), L1 {l1:.3e}, sum "
+          f"{p.sum():.7f}: {'PASS' if ok else 'FAIL'}")
+    if not ok or not abs(p.sum() - 1.0) < 1e-3:
+        raise AssertionError(f"{tag} PageRank disagrees with float64")
+    _, its_c, delta_c = pagerank_routed(sd, out_degree=odeg, tol=1e-8,
+                                        max_iters=1000)
+    print(f"{tag} to tol 1e-8: {its_c} iterations, final delta "
+          f"{float(delta_c):.3e}")
+    A = cusparse_csr(csr_t, device)
+    lib = bench_models.per_iteration(
+        lambda: pagerank(lambda v: A @ v, csr_t.shape[0], tol=0.0,
+                         max_iters=PAGERANK_ITERS, out_degree=odeg,
+                         device=device),
+        PAGERANK_ITERS, device, None)
+    times_line(tag, "PageRank per iteration", r["times"], lib)
+    p_u, _ = pagerank_unread(sd, odeg, PAGERANK_ITERS)
+    err_u = float(np.max(np.abs(p_u.cpu().numpy() - p64) / p64))
+    unread = bench_models.per_iteration(
+        lambda: pagerank_unread(sd, odeg, PAGERANK_ITERS), PAGERANK_ITERS,
+        device, "expand_kernel")
+    print(f"{tag} the same iterations without the stopping test's read "
+          f"(a measurement; ranks max rel {err_u:.3e} from float64): "
+          f"{unread['ms']:.4f} ms by CUDA events"
+          + ("" if unread["device_ms"] is None else
+             f", device {unread['device_ms']:.4f} ms (busy "
+             f"{100 * unread['device_ms'] / unread['ms']:.1f}%)"))
+    if not err_u <= PAGERANK_RTOL:
+        raise AssertionError(f"{tag} the unread loop is not PageRank")
+    x = torch.where(odeg > 0, torch.from_numpy(p).to(device)
+                    / torch.clamp(odeg, min=1), 0.0)
+    per = r["times"]["by_event"]
+    return payload_kernels(
+        tag, "pagerank", sd, x, run, launches, device,
+        per and {k: v * PAGERANK_ITERS for k, v in per.items()})
+
+
+def cg_payload(device):
+    """[11b]: CG on the SPD banded system of CG_N rows through
+    bench.models (SELL-W: K10)."""
+    tag = "[11b]"
+    r = bench_models.bench_cg(CG_ITERS, device, n=CG_N)
+    sw, sd, csr = r["packed"], r["sd"], r["csr"]
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in sw.convert_phases.items())
+    print(f"{tag} {csr.shape[0]}x{csr.shape[1]}, {csr.nnz} nnz: pack "
+          f"{r['pack_s']:.3f} s ({phases}): {describe(sw)}")
+    op = Counted(sd, spmv)
+    (x, its, res), launches = payload_run(
+        tag, lambda: conjugate_gradient(op, r["b"], tol=1e-6,
+                                        max_iters=1000, device=device),
+        op.want)
+    b64 = r["b"].cpu().numpy().astype(np.float64)
+    rel = float(np.linalg.norm(b64 - spmv_golden_numpy(csr, x.cpu().numpy()))
+                / np.linalg.norm(b64))
+    print(f"{tag} CG to 1e-6: {its} iterations, {op.calls} SpMVs, reported "
+          f"residual {float(res):.3e}, true float64 relative residual "
+          f"{rel:.3e} (< 1e-4: {'PASS' if rel < 1e-4 else 'FAIL'})")
+    if not rel < 1e-4:
+        raise AssertionError(f"{tag} CG did not converge")
+    A = cusparse_csr(csr, device)
+    lib = bench_models.per_iteration(
+        lambda: bench_models.cg_shaped(lambda v: A @ v, r["b"], 1.0,
+                                       CG_ITERS), CG_ITERS, device, None)
+    times_line(tag, "cg_shaped per iteration", r["times"], lib)
+    return payload_kernels(
+        tag, "cg", sd, op.last,
+        lambda: conjugate_gradient(lambda v: spmv(sd, v), r["b"], tol=1e-6,
+                                   max_iters=1000, device=device),
+        launches, device)
+
+
+def gcn_float64(csr, X, weights):
+    """The GCN forward in float64 on the host, and its row scale (the
+    same products in absolute values)."""
+    A = sps.csr_matrix((csr.vals.astype(np.float64), csr.cols, csr.rowptr),
+                       shape=csr.shape)
+    H = X.astype(np.float64)
+    S = np.abs(H)
+    for i, W in enumerate(weights):
+        W = W.astype(np.float64)
+        H, S = A @ (H @ W), abs(A) @ (S @ np.abs(W))
+        if i < len(weights) - 1:
+            H = np.maximum(H, 0.0)
+    return H, S
+
+
+def gcn_payload(device, coo):
+    """[11c]: a 2-layer GCN at widths GCN_WIDTHS on gcn_normalize of
+    web-Google-like's links, through the artifact spmm_pick("auto", K 64)
+    gives, with torch's float32 matmul precision set to "high" (TF32)."""
+    tag = "[11c]"
+    n = coo.shape[0]
+    t0 = time.perf_counter()
+    nr, nc, nv = gcn_normalize(coo.rows, coo.cols, np.ones_like(coo.vals), n)
+    gcoo = COOMatrix(nr, nc, nv, (n, n)).sum_duplicates()
+    csr = gcoo.to_csr()
+    norm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fmt, packed = cli.spmm_pick("auto", gcoo, GCN_WIDTHS[0])
+    pick_s = time.perf_counter() - t0
+    geom = describe(packed) if isinstance(
+        packed, (SellRouted, DiaMatrix, BellMatrix, SellWindow)) else ""
+    print(f"{tag} Â = gcn_normalize(A): {n}x{n}, {gcoo.nnz} nnz in "
+          f"{norm_s:.2f} s; spmm_pick('auto', K {GCN_WIDTHS[0]}) -> {fmt} "
+          f"in {pick_s:.2f} s {geom}")
+    sd = upload(packed, device)
+    del packed
+    rng = np.random.default_rng(64)
+    X = rng.standard_normal((n, GCN_WIDTHS[0])).astype(np.float32)
+    Ws = [(rng.standard_normal((a, b)) * 0.3).astype(np.float32)
+          for a, b in zip(GCN_WIDTHS[:-1], GCN_WIDTHS[1:])]
+    weights, _ = params_from_reference(Ws, device=device)
+    Xd = torch.from_numpy(X).to(device)
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        op = Counted(sd, spmm)
+        out, launches = payload_run(
+            tag, lambda: gcn_forward(op, Xd, weights, device=device),
+            op.want)
+        ref, scale = gcn_float64(csr, X, Ws)
+        out = out.cpu().numpy()
+        err = float(np.max(np.abs(out - ref) / (scale + 1e-30)))
+        ok = out.shape == ref.shape and err <= min(GCN_RTOL, GCN_F32)
+        # the same products with TF32 allowed, as a plain torch.matmul
+        # under "high" runs them
+        H = torch.relu(spmm(sd, Xd @ weights[0]))
+        tf32 = spmm(sd, H @ weights[1]).cpu().numpy()
+        err_tf32 = float(np.max(np.abs(tf32 - ref) / (scale + 1e-30)))
+        print(f"{tag} GCN {GCN_WIDTHS} under float32 matmul precision "
+              f"'{torch.get_float32_matmul_precision()}', {op.calls} SpMMs: "
+              f"max row-scaled error vs float64 {err:.3e} (tolerance "
+              f"{GCN_RTOL:g}, float32 grade {GCN_F32:g}): "
+              f"{'PASS' if ok else 'FAIL'}; the same products by plain "
+              f"torch.matmul under it: {err_tf32:.3e}")
+        if not ok:
+            raise AssertionError(f"{tag} the GCN disagrees with float64")
+        t = bench_models.per_iteration(
+            lambda: gcn_forward(lambda M: spmm(sd, M), Xd, weights,
+                                device=device), 1, device, None)
+        A = cusparse_csr(csr, device)
+        lib = bench_models.per_iteration(
+            lambda: gcn_forward(lambda M: A @ M, Xd, weights, device=device),
+            1, device, None)
+        times_line(tag, "GCN forward", t, lib)
+        return payload_kernels(
+            tag, "gcn", sd, op.last,
+            lambda: gcn_forward(lambda M: spmm(sd, M), Xd, weights,
+                                device=device), launches, device,
+            t["by_event"])
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
+def small_payloads(device, held):
+    """[11d]: the other payloads at tests/test_models.py's sizes, each
+    against its float64 or dense answer as those tests check it; the
+    kernels of a payload that launched one not in ``held`` (the kernels
+    [11] has held against their plain versions so far) are held against
+    theirs."""
+    rows = []
+
+    def case(name, csr, op_kind, fn, check, pack=pack_auto):
+        tag = f"[11d] {name}"
+        A = pack(csr)
+        sd = upload(A, device)
+        op = Counted(sd, op_kind)
+        out, launches = payload_run(tag, lambda: fn(op), op.want)
+        verdict = check(out)
+        print(f"{tag} ({type(A).__name__}, {op.calls} operator calls): "
+              f"{verdict}")
+        launched = {k for k, n in launches.items() if n}
+        if launched <= held:
+            print(f"{tag} {sorted(launched)} held against their plain "
+                  "versions in [11] already")
+            return
+        # K8 and K11 are the whole product: cuSPARSE's is their library
+        # call
+        x = op.last.contiguous()
+        library = {k: operator_library_ms(csr, x, op_kind(sd, x), device)
+                   for k in launched & {"dia_spmv", "dia_spmm"}}
+        got = payload_kernels(tag, name, sd, op.last,
+                              lambda: fn(lambda v: op_kind(sd, v)),
+                              launches, device, library=library)
+        held.update(r["name"] for r in got)
+        rows.extend(got)
+
+    def close(got, want, rtol, atol, what):
+        got = np.asarray(got)
+        if not np.allclose(got, want, rtol=rtol, atol=atol):
+            raise AssertionError(f"[11d] {what}: not within rtol {rtol}, "
+                                 f"atol {atol} of float64")
+        return (f"{what} within rtol {rtol:g}, atol {atol:g} of float64 "
+                f"(max abs err {np.max(np.abs(got - want)):.3e})")
+
+    def below(value, limit, what):
+        if not value < limit:
+            raise AssertionError(f"[11d] {what} {value:.3e} >= {limit:g}")
+        return f"{what} {value:.3e} < {limit:g}"
+
+    # BiCGSTAB on a nonsymmetric diagonally dominant band
+    n = 3000
+    rng = np.random.default_rng(0)
+    m = sps.diags([rng.standard_normal(n - 1) * 0.2, np.full(n, 4.0),
+                   rng.standard_normal(n - 1) * 0.3], offsets=[-1, 0, 1],
+                  format="coo")
+    b = rng.standard_normal(n).astype(np.float32)
+    gold = spsolve(m.tocsr().astype(np.float64), b)
+    case("bicgstab", COOMatrix.from_scipy(m).to_csr(), spmv,
+         lambda op: bicgstab(op, b, device=device),
+         lambda o: below(float(o[2]), 1e-5, f"{o[1]} iterations, residual")
+         + "; " + close(o[0].cpu(), gold, 1e-3, 1e-4, "x"))
+
+    # Jacobi on a diagonally dominant band, DIA (K8)
+    n = 2000
+    lil = syn.banded_matrix(n=n, bandwidth=5, seed=3).to_scipy().tolil()
+    lil.setdiag(np.abs(lil).sum(axis=1).A1 + 1.0)
+    mj = lil.tocsr()
+    diag = np.asarray(mj.diagonal(), dtype=np.float32)
+    b = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    case("jacobi", COOMatrix.from_scipy(mj.tocoo()).to_csr(), spmv,
+         lambda op: jacobi(op, diag, b, tol=1e-6, max_iters=3000,
+                           device=device),
+         lambda o: below(float(o[2]), 1e-5, f"{o[1]} sweeps, residual")
+         + "; " + below(float(np.linalg.norm(b - mj @ o[0].cpu().numpy())
+                              / np.linalg.norm(b)), 1e-4,
+                        "true relative residual"), pack=dia_pack)
+
+    # Lanczos on a random-diagonal tridiagonal matrix
+    n = 500
+    rng = np.random.default_rng(11)
+    d = sps.diags([np.full(n - 1, -1.0), rng.uniform(2.1, 6.0, n),
+                   np.full(n - 1, -1.0)], [-1, 0, 1]).tocoo()
+    true = np.linalg.eigvalsh(d.toarray())
+
+    def ritz(o):
+        alpha, beta, V = (t.cpu().numpy() for t in o)
+        r = np.linalg.eigvalsh(np.diag(alpha) + np.diag(beta, 1)
+                               + np.diag(beta, -1))
+        G = V.T @ V
+        return (below(abs(r[-1] - true[-1]) / abs(true[-1]), 1e-3,
+                      "top Ritz value's relative error")
+                + "; " + below(abs(r[0] - true[0]) / abs(true[0]), 2e-2,
+                               "bottom one's")
+                + "; " + close(G, np.eye(G.shape[0]), 0, 1e-4, "V^T V"))
+
+    case("lanczos", COOMatrix.from_scipy(d).to_csr(), spmv,
+         lambda op: lanczos(op, n, k=40, seed=1, device=device), ritz)
+
+    # power iteration on a random symmetric matrix
+    n = 150
+    m = sps.random(n, n, density=0.1, random_state=np.random.default_rng(2))
+    ms = ((m + m.T) * 0.5).tocoo()
+    ev = np.linalg.eigvalsh(ms.toarray())
+    lam_ref = abs(ev[np.argmax(np.abs(ev))])
+    case("power_iteration", COOMatrix.from_scipy(ms).to_csr(),
+         spmv, lambda op: power_iteration(op, n, tol=1e-10, max_iters=2000,
+                                          device=device),
+         lambda o: below(abs(abs(float(o[0])) - lam_ref) / lam_ref, 1e-3,
+                         f"{o[2]} iterations, |eigenvalue|'s relative error"))
+
+    # subspace iteration through spmm on a symmetrized band
+    n = 1200
+    m = syn.banded_matrix(n=n, bandwidth=7, seed=5).to_scipy()
+    ms = ((m + m.T) / 2).tocoo()
+    top = np.sort(np.abs(np.linalg.eigvalsh(ms.toarray())))[-1]
+    case("subspace_iteration", COOMatrix.from_scipy(ms).to_csr(),
+         spmm, lambda op: subspace_iteration(op, n, k=4, iters=60,
+                                             device=device),
+         lambda o: below(abs(abs(float(o[0][0])) - top) / top, 5e-2,
+                         "top eigenvalue's relative error"))
+
+    # a GraphSAGE-mean layer
+    n, fin, fout = 300, 12, 12
+    rng = np.random.default_rng(7)
+    coo = COOMatrix(np.repeat(np.arange(n, dtype=np.int32), 5),
+                    rng.integers(0, n, size=5 * n).astype(np.int32),
+                    np.ones(5 * n, dtype=np.float32), (n, n)).sum_duplicates()
+    deg = np.zeros(n)
+    np.add.at(deg, coo.rows, coo.vals)
+    mean = COOMatrix(coo.rows, coo.cols, (coo.vals / np.maximum(
+        deg[coo.rows], 1)).astype(np.float32), (n, n))
+    X = rng.standard_normal((n, fin)).astype(np.float32)
+    Ws = (rng.standard_normal((fin, fout)) * 0.3).astype(np.float32)
+    Wn = (rng.standard_normal((fin, fout)) * 0.3).astype(np.float32)
+    ref = np.maximum(X @ Ws + (mean.to_dense().astype(np.float64) @ X) @ Wn,
+                     0.0)
+    case("graphsage_layer", mean.to_csr(), spmm,
+         lambda op: graphsage_layer(op, X, Ws, Wn, device=device),
+         lambda o: close(o.cpu(), ref, 1e-4, 1e-5, "output"))
+
+    # PageRank on the plain SELL planes (torch ops: no kernel of ours)
+    n = 300
+    rng = np.random.default_rng(0)
+    adj = COOMatrix(np.repeat(np.arange(n, dtype=np.int32), 8),
+                    rng.integers(0, n, size=8 * n).astype(np.int32),
+                    np.ones(8 * n, dtype=np.float32), (n, n)).sum_duplicates()
+    deg = np.zeros(n)
+    np.add.at(deg, adj.rows, adj.vals)
+    P = np.divide(adj.to_dense().astype(np.float64).T, np.maximum(deg, 1),
+                  where=deg > 0)
+    P[:, deg == 0] = 1.0 / n
+    pr = np.full(n, 1.0 / n)
+    for _ in range(200):
+        pr_new = (1 - 0.85) / n + 0.85 * (P @ pr)
+        pr_new /= np.abs(pr_new).sum()
+        if np.abs(pr_new - pr).sum() < 1e-12:
+            break
+        pr = pr_new
+    sd = upload(sell_pack(adj.transpose().to_csr(), C=128), device)
+    (p, its, _), _ = payload_run(
+        "[11d] pagerank_sell",
+        lambda: pagerank_sell(sd, out_degree=deg, tol=1e-10, max_iters=200),
+        dict.fromkeys(kernels.KERNELS, 0))
+    print(f"[11d] pagerank_sell ({its} iterations; the SELL planes run as "
+          f"torch ops, no kernel of ours): "
+          + close(p.cpu(), pr, 2e-3, 1e-6, "ranks"))
+    return rows
+
+
+def model_paths(device, coo):
+    """Phase [11]: the payloads, each through the entry point a user
+    calls, held against float64 and its kernels against their plain
+    versions."""
+    rows = []
+    for part, run in (("a", lambda: pagerank_payload(device, coo)),
+                      ("b", lambda: cg_payload(device)),
+                      ("c", lambda: gcn_payload(device, coo)),
+                      ("d", lambda: small_payloads(
+                          device, {r["name"] for r in rows}))):
+        t0 = time.perf_counter()
+        rows += run()
+        print(f"[11{part}] took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--y-digests", action="store_true",
@@ -2376,6 +2835,9 @@ def main(argv=None) -> int:
                              f"not the recorded {sorted(PARENT_Y_SHA256)}")
     print(f"[10] all {len(Y_SHA256)} routed y's equal the parent's bit for "
           "bit (sha256)")
+    t0 = time.perf_counter()
+    rows += model_paths("cuda", coo)
+    print(f"[11] the payloads took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

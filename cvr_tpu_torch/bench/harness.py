@@ -7,10 +7,12 @@ verification line.  GFLOPS is reported both ways, over true nnz: 2*nnz
 (the CSR5 convention) and nnz/s.
 
 On a CUDA device the SpMV time comes from CUDA events around the whole
-run of iterations; on the CPU (``device="cpu"``, for smoke runs) from the
-host clock, and the report then names the CPU.  The roofline share is
-the nnz*8 bytes of the value and column streams over the device's HBM
-bandwidth.
+run of iterations (``time_iterations``); on the CPU (``device="cpu"``, for
+smoke runs) from the host clock, and the report then names the CPU.  The
+roofline share is the nnz*8 bytes of the value and column streams over
+the device's HBM bandwidth.  ``device_ms`` gives a call's device time by
+kernel from a torch.profiler trace (CUDA events also count the host
+whenever it is the slower side).
 """
 
 from __future__ import annotations
@@ -114,6 +116,94 @@ def time_iterations(fn, iters: int, device, warmup: int = 3) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) / iters
+
+
+TRACES = 5  # traces device_ms takes at most to find one that holds every call
+MARGIN_S = 0.02  # idle time around the kept calls of a trace
+
+
+def device_ms(fn, iters: int, marker: str | None,
+              per_call: int = 1) -> dict[str, float]:
+    """Device time per call of ``fn``, by kernel name: the durations of the
+    device events in a torch.profiler trace over ``iters`` calls (CUDA
+    events around back-to-back calls also count the host, when enqueueing
+    is the slower side).
+
+    A trace can lose device events: those of its first calls, and now and
+    then one or two calls' kernels in the middle.  So ``iters`` lead calls
+    open the trace, only the events inside the range of the ``iters``
+    calls after them count, and a trace counts only if it holds all of
+    them: ``marker`` (a part of an event name, or a tuple of such), a
+    kernel that one call launches ``per_call`` times,
+    ``iters * per_call`` times (None where ``fn`` launches no kernel of
+    ours), and every device event
+    a multiple of ``iters`` times, since each call launches the same
+    kernels.  The range opens and closes with MARGIN_S of idle time: the
+    device's timestamps may stand off the host's by a fraction of a
+    millisecond, and the kept calls of a short kernel take little more.
+    Up to TRACES traces are taken; it raises when none holds every
+    call."""
+    faults = []
+    for _ in range(TRACES):
+        per, count = _trace(fn, iters)
+        seen = sum(c for n, c in count.items()
+                   if marker is None or is_event(n, marker))
+        uneven = {n: c for n, c in count.items() if c % iters}
+        if count and not uneven and (marker is None
+                                     or seen == iters * per_call):
+            if faults:
+                print(f"    (trace {len(faults) + 1} holds every call; "
+                      f"the earlier lost device events: {faults})")
+            return per
+        faults.append(f"{marker} seen {seen} times of {iters * per_call}, "
+                      f"{len(uneven)} kernels seen a count not a multiple "
+                      f"of {iters}")
+    raise AssertionError(f"{TRACES} traces of {iters} calls each lost "
+                         f"device events: {faults}")
+
+
+def _trace(fn, iters: int):
+    """One trace of ``iters`` lead calls, then ``iters`` kept calls: (ms
+    per kept call by device event name, the count of each name)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    kept = "harness.kept_calls"
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(MARGIN_S)
+        with record_function(kept):
+            time.sleep(MARGIN_S)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(MARGIN_S)
+    events = prof.events()
+    dt = torch.autograd.DeviceType
+    window = [e.time_range for e in events
+              if e.name == kept and e.device_type == dt.CPU]
+    if len(window) != 1:
+        raise AssertionError(f"the trace holds {len(window)} ranges {kept}")
+    t0, t1 = window[0].start, window[0].end
+    per, count = {}, {}
+    for e in events:
+        # the range itself is also laid over the device timeline
+        if (e.device_type == dt.CUDA and e.name != kept
+                and t0 <= e.time_range.start <= t1):
+            per[e.name] = per.get(e.name, 0.0) + e.device_time / iters / 1e3
+            count[e.name] = count.get(e.name, 0) + 1
+    return per, count
+
+
+def is_event(event: str, names) -> bool:
+    """Whether the device event ``event`` is one of ``names`` (a part of
+    a name, or a tuple of such)."""
+    return any(n in event for n in ((names,) if isinstance(names, str)
+                                    else names))
 
 
 def _pack(csr, impl: str):

@@ -27,6 +27,25 @@ class COOMatrix:
     def nnz(self) -> int:
         return int(self.rows.shape[0])
 
+    def transpose(self) -> "COOMatrix":
+        """A^T (swap row/col ids) — e.g. PageRank follows in-links."""
+        return COOMatrix(
+            rows=self.cols,
+            cols=self.rows,
+            vals=self.vals,
+            shape=(self.shape[1], self.shape[0]),
+        )
+
+    def sorted_by_row(self) -> "COOMatrix":
+        """Stable (row, col) sort, the order CSR assembly puts entries in."""
+        order = np.lexsort((self.cols, self.rows))
+        return COOMatrix(
+            rows=self.rows[order],
+            cols=self.cols[order],
+            vals=self.vals[order],
+            shape=self.shape,
+        )
+
     def sum_duplicates(self) -> "COOMatrix":
         """Coalesce duplicate (row, col) entries by summation."""
         order = np.lexsort((self.cols, self.rows))
@@ -77,3 +96,20 @@ class COOMatrix:
         dense = np.zeros(self.shape, dtype=np.float64)
         np.add.at(dense, (self.rows, self.cols), self.vals.astype(np.float64))
         return dense.astype(self.vals.dtype)
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        return sp.coo_matrix(
+            (self.vals, (self.rows, self.cols)), shape=self.shape
+        )
+
+    @staticmethod
+    def from_scipy(m) -> "COOMatrix":
+        m = m.tocoo()
+        return COOMatrix(
+            rows=m.row.astype(np.int32),
+            cols=m.col.astype(np.int32),
+            vals=m.data,
+            shape=m.shape,
+        )

@@ -38,3 +38,30 @@ class CSRMatrix:
         return np.repeat(
             np.arange(self.shape[0], dtype=np.int32), self.row_lengths
         )
+
+    def to_coo(self):
+        from cvr_tpu_torch.formats.coo import COOMatrix
+
+        return COOMatrix(
+            rows=self.row_ids(),
+            cols=self.cols.copy(),
+            vals=self.vals.copy(),
+            shape=self.shape,
+        )
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        return sp.csr_matrix(
+            (self.vals, self.cols, self.rowptr), shape=self.shape
+        )
+
+    @staticmethod
+    def from_scipy(m) -> "CSRMatrix":
+        m = m.tocsr()
+        return CSRMatrix(
+            rowptr=m.indptr.astype(np.int64),
+            cols=m.indices.astype(np.int32),
+            vals=m.data,
+            shape=m.shape,
+        )
