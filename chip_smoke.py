@@ -137,25 +137,50 @@ Phases, each printed on its own lines:
      a GraphSAGE layer and pagerank_sell at tests/test_models.py's sizes
      and checks (a payload's kernels held only where it launched one
      that [11] has not held yet);
- 12. a JSON line of the kernels of every path, then the last line
+ 12. the packed artifacts, saved in the JAX package's .npz layout, loaded
+     and run on the card: (a) the main path's matrix as a MatrixMarket
+     file through ``cli spmv --format routed --save-packed`` and ``cli spmv
+     --load-packed`` (the kind sniffed from the keys; both verified), then
+     loaded and uploaded here: its y's sha256 against [2]'s recorded one,
+     its launches, golden and kernels (path loaded_web_google_like); (b)
+     each other kind (LOADED: DIA, also through spmm at K 64; BELL with a
+     routed spill; SELL-W, also with a y-route, K10 then K4; BSR, PMM and
+     lane plans; the plain SELL planes; [4]'s pack with hot planes, its y
+     against [4]'s digest) packed, saved, loaded and uploaded, each step
+     timed: its y or Y against the packed artifact's bit for bit (torch's
+     deterministic algorithms), at the golden, its launches, and each
+     kernel launch against its plain version (paths loaded_*); (c) the
+     artifacts the JAX package's savers wrote (tests/fixtures/jax_*.npz),
+     each against the port's own pack of its matrix, bit for bit; (d)
+     ``cli compare`` (six reports or refusals, then Best:), ``compare
+     --rhs 8``, ``info --iters 2 --threads 68``, ``spmv --format window``
+     and ``spmv --format sell --c 128 --sigma 64``, each exiting 0;
+ 13. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
-Any failure raises, and the script exits non-zero.  It needs a CUDA card
-and the repository around it; it imports nothing of JAX.
+``--phases 1,2,12`` runs the build, the main path and [12] alone (the
+default runs every phase; [0], [1] and [13] always run, [3] with [2], [8]
+and [9] need [2], and [10]'s check runs when [2], [4], [5], [6] and [8]
+all ran).  Any failure raises, and the script exits non-zero.  It needs a
+CUDA card and the repository around it; it imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import hashlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sps
@@ -172,18 +197,19 @@ from cvr_tpu_torch.bench.harness import (
     time_iterations,
 )
 from cvr_tpu_torch.formats import pack_auto
-from cvr_tpu_torch.formats.bell import BellMatrix
-from cvr_tpu_torch.formats.bsr import bsr_pack
+from cvr_tpu_torch.formats.bell import BellMatrix, bell_pack
+from cvr_tpu_torch.formats.bsr import BsrMatrix, bsr_pack
 from cvr_tpu_torch.formats.coo import COOMatrix
 from cvr_tpu_torch.formats.dia import DiaMatrix, dia_pack
-from cvr_tpu_torch.formats.sell import sell_pack
+from cvr_tpu_torch.formats.sell import SellMatrix, sell_pack
 from cvr_tpu_torch.formats.sell_routed import (
     RingSpec,
     SellRouted,
+    load_routed,
     ring_table_base,
     sell_pack_routed,
 )
-from cvr_tpu_torch.formats.sell_window import SellWindow
+from cvr_tpu_torch.formats.sell_window import SellWindow, sell_pack_window
 from cvr_tpu_torch.io.mmio import write_matrix_market
 from cvr_tpu_torch.models import (
     bicgstab,
@@ -207,13 +233,17 @@ from cvr_tpu_torch.ops import window_kernels as wk
 from cvr_tpu_torch.ops import spmv_routed as sp
 from cvr_tpu_torch.ops import spmm_bsr, spmm_lane, spmm_pmm
 from cvr_tpu_torch.ops.spmm_bsr import BsrDevice
-from cvr_tpu_torch.ops.spmm_lane import LaneDevice
-from cvr_tpu_torch.ops.spmm_pmm import PmmDevice
+from cvr_tpu_torch.ops.spmm_lane import LaneDevice, LanePlan, spmm_lane_pack
+from cvr_tpu_torch.ops.spmm_pmm import PmmDevice, PmmPlan, pmm_plan
 from cvr_tpu_torch.ops.spmv import SellDevice, spmm, spmv, upload
 from cvr_tpu_torch.ops.spmv_bell import BellDevice, gather_args
 from cvr_tpu_torch.ops.spmv_dia import DiaDevice
 from cvr_tpu_torch.ops.spmv_ref import spmv_golden_numpy, spmv_row_scale, verify
-from cvr_tpu_torch.ops.spmv_window import SellWindowDevice, reduce_args
+from cvr_tpu_torch.ops.spmv_window import (
+    SellWindowDevice,
+    reduce_args,
+    window_rows,
+)
 from cvr_tpu_torch.parallel.dist import make_mesh
 from cvr_tpu_torch.parallel.dist_routed import (
     dist_routed_pack,
@@ -561,6 +591,7 @@ def expected_launches(sd) -> dict[str, int]:
         want["dia_spmv"] = 1
     elif isinstance(sd, SellWindowDevice):
         want["window_reduce"] = 1
+        want["route_small"] = int(sd.yroute is not None)
     elif isinstance(sd, BellDevice):
         want["bell_gather_mac"] = 1
         if sd.spill is not None:
@@ -611,9 +642,24 @@ def describe(A) -> str:
         return (f"BELL: k {A.k}, reach {A.reach}, ncand {A.ncand}, TBb "
                 f"{A.TBb}, R_sub {A.R_sub}, d {A.d}, pre {A.pre}, {A.nnz} "
                 f"nnz; routed spill: {spill}")
+    if isinstance(A, BsrMatrix):
+        return f"BSR: {A.nbricks} bricks, fill {A.fill:.4f}, {A.nnz} nnz"
+    if isinstance(A, LanePlan):
+        return (f"lane plan: {A.vals_l.shape[0]} plane rows, {A.nslices} "
+                f"slices, {A.extra_pos.shape[0]} split-row extras, "
+                f"{A.nnz} nnz")
+    if isinstance(A, PmmPlan):
+        return (f"PMM plan: {A.nchunks} chunks, {A.npairs} pairs, "
+                f"{A.nrt} row tiles, {A.nnz} nnz")
+    if isinstance(A, SellMatrix):
+        return (f"SELL: C {A.C}, sigma {A.sigma}, {A.nslices} slices, "
+                f"{A.n_slots} slots, {A.n_splits} splits, {A.nnz} nnz")
+    y_route = "none" if A.y_ra is None else (
+        f"Tp {A.y_ra['Tp']} {A.y_ra['mid_planes']['kind']!r}")
     return (f"SELL-W: D {A.D}, W {A.W}, wrl {A.wrl}, G {A.G}, {A.n_segs} x "
             f"segments, {A.nslices} slices in {len(A.ycall_rows)} reduce "
-            f"groups, S {A.S}, S_pad {A.S_pad}, {A.nnz} nnz")
+            f"groups, S {A.S}, S_pad {A.S_pad}, {A.nnz} nnz, y-route "
+            f"{y_route}")
 
 
 def build() -> None:
@@ -746,8 +792,15 @@ def kernel_cases(tag, sd, xd):
         return [("lane_reduce", "", spmm_lane.kernel_args(sd, xd))]
     if isinstance(sd, PmmDevice):
         return [("pmm_spmm", "", spmm_pmm.kernel_args(sd, xd))]
+    if isinstance(sd, SellDevice):  # the plain SELL planes: torch ops
+        return []
     if isinstance(sd, SellWindowDevice):
-        return [("window_reduce", "", reduce_args(sd, xd))]
+        cases = [("window_reduce", "", reduce_args(sd, xd))]
+        if sd.yroute is not None:  # K4 to natural rows
+            g = sp.route_stream(sd.yroute, window_rows(sd, xd))
+            check_small_route(tag, sd.yroute, g)
+            cases += route_cases(sd.yroute, g, "y side")
+        return cases
     if isinstance(sd, BellDevice):
         cases = [("bell_gather_mac", "", gather_args(sd, xd))]
         if sd.spill is not None:
@@ -1275,18 +1328,25 @@ def check_case(tag, path, name, which, args, launches, path_dms, device,
     }
 
 
-def pack_with(csr, split_len, hot, env):
-    """sell_pack_routed under the environment switches ``env``."""
+@contextlib.contextmanager
+def environment(env):
+    """The environment switches ``env`` set inside the block."""
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        return sell_pack_routed(csr, split_len=split_len, hot=hot)
+        yield
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def pack_with(csr, split_len, hot, env):
+    """sell_pack_routed under the environment switches ``env``."""
+    with environment(env):
+        return sell_pack_routed(csr, split_len=split_len, hot=hot)
 
 
 def check_geometries(device) -> set[str]:
@@ -1340,7 +1400,8 @@ def check_geometries(device) -> set[str]:
 
 def fsm_path(device, walks):
     """Phase [5]: fsm-like at full size through the hybrid and the
-    2048-tile y-route, its kernels K5-K7, and the hot="off" comparison."""
+    2048-tile y-route, its kernels K5-K7, and the hot="off" comparison;
+    ``walks``: the K7 row walks of [4] (None where [4] did not run)."""
     t0 = time.perf_counter()
     coo = syn.fsm_like()
     print(f"[5] fsm_like: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} nnz, "
@@ -1357,9 +1418,11 @@ def fsm_path(device, walks):
             "reduce_slices": 1 + second_pass(sd.red_plan.split)}
     if launches != want:
         raise AssertionError(f"[5] launches {launches}, want {want}")
-    walks |= hot_branches(sr.hot)
-    if walks != {"regular", "swept"}:
-        raise AssertionError(f"K7 walked only {sorted(walks)} in [4] and [5]")
+    if walks is not None:  # [4] ran: both walks in [4] and [5]
+        walks |= hot_branches(sr.hot)
+        if walks != {"regular", "swept"}:
+            raise AssertionError(f"K7 walked only {sorted(walks)} in [4] "
+                                 "and [5]")
     rows = check_kernels("[5]", "fsm_like", sd, xd, launches, spmv_dms,
                          device)
     # the same matrix without the hybrid: data for the gate's constants
@@ -2797,11 +2860,393 @@ def model_paths(device, coo):
     return rows
 
 
+# Phase [12]: packed artifacts saved, loaded and run.  (b): name, matrix,
+# the artifact's kind (port_pack), the environment of its pack, the widths
+# it runs at (0: the SpMV, K: the SpMM of K columns).
+LOADED = (
+    ("dia", lambda: syn.banded_matrix(1 << 16, 27), "dia", {}, (0, 64)),
+    ("bell_spill", lambda: syn.road_usa_like(n=1 << 18), "bell", {}, (0,)),
+    ("window", lambda: syn.fem_like(n=1 << 15), "sell-window", {}, (0,)),
+    ("window_y_route", lambda: syn.fem_like(n=1 << 15), "window_y_route", {},
+     (0,)),
+    ("bsr", lambda: syn.fem_like(n=1 << 15), "bsr", {}, (64,)),
+    ("pmm", lambda: syn.fsm_like(n=1 << 17), "pmm", {}, (32,)),
+    ("lane", lambda: syn.rmat_matrix(14, 6, seed=42), "lane", {}, (128,)),
+    ("sell", lambda: syn.rmat_matrix(14, 6, seed=42), "sell", {}, (0,)),
+    # [4]'s pack with hot planes: its y digest is recorded
+    ("rmat15_hot512", lambda: syn.rmat_matrix(15, 8, seed=5), "sell-routed",
+     {**FORCE_HOT, "CVR_HOT_NH": "512"}, (0,)),
+)
+# (c): artifacts that the JAX package's savers wrote
+# (tests/make_torch_fixtures.py writes tests/fixtures/jax_<name>.npz from
+# this table): name -> (the matrix by the port's generator, the kind, the
+# environment of the pack, the width it runs at).
+JAX_FIXTURES = {
+    "routed_hot": (lambda: syn.rmat_matrix(11, 8, seed=5), "sell-routed",
+                   {**FORCE_HOT, "CVR_HOT_NH": "128"}, 0),
+    "bell_spill": (lambda: syn.road_usa_like(n=1 << 14, reach=48), "bell",
+                   {}, 0),
+    "window_y_route": (lambda: syn.fem_like(n=1 << 12, deg=10, bw=100),
+                       "window_y_route", {}, 0),
+    "dia": (lambda: syn.banded_matrix(4096, 9), "dia", {}, 0),
+    "bsr": (lambda: syn.banded_matrix(4096, 9), "bsr", {}, 8),
+    "lane": (lambda: syn.rmat_matrix(10, 8, seed=3), "lane", {}, 8),
+    "pmm": (lambda: syn.fsm_like(n=1 << 12), "pmm", {}, 8),
+}
+FIXTURE_DIR = Path(__file__).resolve().parent / "tests" / "fixtures"
+
+
+def block_sorted(coo, block=128):
+    """coo with the rows of each block of ``block`` rows sorted by
+    descending length (stably), and for each row of coo its row there."""
+    n = coo.shape[0]
+    lengths = np.bincount(coo.rows, minlength=n)
+    order = np.concatenate([
+        s + np.argsort(-lengths[s : s + block], kind="stable")
+        for s in range(0, n, block)]) if n else np.zeros(0, np.int64)
+    inv = np.empty(n, dtype=np.int64)
+    inv[order] = np.arange(n)
+    return COOMatrix(rows=inv[coo.rows].astype(np.int32), cols=coo.cols,
+                     vals=coo.vals, shape=coo.shape), inv
+
+
+def window_with_y_route(coo, block=128) -> SellWindow:
+    """A SELL-W artifact with a y-route: the pack of coo's rows in
+    block_sorted's order, and the route that takes its rows back to
+    natural order (row i of y is row inv[i] of the planes)."""
+    rows, inv = block_sorted(coo, block)
+    return dataclasses.replace(
+        sell_pack_window(rows.to_csr()),
+        y_ra=rp.route_arrays_from_perm(inv, n=coo.shape[0]))
+
+
+def port_pack(kind, coo, env=None):
+    """The port's own pack of ``coo`` as an artifact of ``kind``, under
+    the environment switches ``env``."""
+    packs = {
+        "sell-routed": sell_pack_routed, "bell": bell_pack,
+        "sell-window": sell_pack_window,
+        "window_y_route": lambda csr: window_with_y_route(coo),
+        "dia": dia_pack, "bsr": bsr_pack, "lane": spmm_lane_pack,
+        "pmm": lambda csr: pmm_plan(coo.rows, coo.cols, coo.vals, coo.shape),
+        "sell": lambda csr: sell_pack(csr, C=128),
+    }
+    with environment(env or {}):
+        return packs[kind](coo.to_csr())
+
+
+def saved_kind(kind) -> str:
+    """The kind cli.sniff_packed reads from a file of artifact ``kind``."""
+    return {"window_y_route": "sell-window"}.get(kind, kind)
+
+
+def same_outputs(tag, packed, loaded, coo, K, device):
+    """The loaded device artifact's y (K 0, x from default_rng(7)) or Y (K
+    columns from default_rng(K)) against the packed one's, bit for bit,
+    both under torch's deterministic algorithms (index_add_ adds the
+    split-row extras by atomics otherwise); the launches of the loaded
+    one's run against what it needs; y (Y's first columns) at the float64
+    golden.  Returns (x or X on the device, the launches)."""
+    rng = np.random.default_rng(K or 7)
+    X = rng.standard_normal(
+        (coo.shape[1], K) if K else coo.shape[1]).astype(np.float32)
+    Xd = torch.from_numpy(X).to(device)
+    fn = spmm if K else spmv
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want = fn(packed, Xd)
+        kernels.reset_launches()
+        got = fn(loaded, Xd)
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = torch.equal(got, want)
+    csr = coo.to_csr()
+    if K:
+        c = SPMM_CHECK_COLS
+        golden, scale = spmm_golden(csr, X[:, :c])
+        got = got[:, :c]
+    else:
+        golden, scale = spmv_golden_numpy(csr, X), spmv_row_scale(csr, X)
+    ok, nbad, maxrel = verify(got.cpu().numpy(), golden, rtol=1e-6,
+                              row_scale=scale)
+    need = expected_spmm_launches(loaded, K) if K else expected_launches(
+        loaded)
+    print(f"{tag} loaded artifact's {'Y' if K else 'y'} "
+          f"{'bit-exact with' if same else 'DIFFERS from'} the packed one's; "
+          f"float64 golden {'PASS' if ok else 'FAIL'} ({nbad} bad, max rel "
+          f"{maxrel:.2e}); launches "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    if not (same and ok) or launches != need:
+        raise AssertionError(f"{tag} the loaded artifact differs, fails the "
+                             f"golden, or launched {launches} for {need}")
+    return Xd, launches
+
+
+def library_whole(name, csr, Xd, device) -> dict:
+    """The library call of a kernel that is the whole SpMV or SpMM
+    (library_call has none for it): cuSPARSE's CSR SpMV or SpMM of the
+    matrix, by CUDA events, checked against the golden."""
+    if name not in ("dia_spmv", "dia_spmm", "bsr_spmm", "pmm_spmm"):
+        return {}
+    A = cusparse_csr(csr, device)
+    X = Xd.cpu().numpy()
+    if Xd.dim() == 1:
+        golden, scale = spmv_golden_numpy(csr, X), spmv_row_scale(csr, X)
+        got = (A @ Xd).cpu().numpy()
+    else:
+        c = SPMM_CHECK_COLS
+        golden, scale = spmm_golden(csr, X[:, :c])
+        got = (A @ Xd)[:, :c].cpu().numpy()
+    if not verify(got, golden, rtol=1e-6, row_scale=scale)[0]:
+        raise AssertionError(f"cuSPARSE is not {name}'s function")
+    return {name: time_iterations(lambda: A @ Xd, KERNEL_ITERS, device) * 1e3}
+
+
+def loaded_kernels(tag, path, sd, Xd, launches, csr, device):
+    """The timed run of the loaded artifact ``sd`` and each kernel launch
+    of it against its plain version (check_kernels, on ``path``)."""
+    fn = spmm if Xd.dim() == 2 else spmv
+    ms = time_iterations(lambda: fn(sd, Xd), ITERS, device) * 1e3
+    name = spmm_kernel(sd) if Xd.dim() == 2 else None
+    per = device_ms(lambda: fn(sd, Xd), KERNEL_ITERS,
+                    None if name is None else event_of(name))
+    ours = by_kernel(per)
+    print(f"{tag} {'SpMM' if Xd.dim() == 2 else 'SpMV'} of the loaded "
+          f"artifact: {ms:.4f} ms/iter over {ITERS} iters (CUDA events), "
+          f"device time {device_split(per, ours)}")
+    library = {}
+    for k, n in launches.items():
+        if n:
+            library.update(library_whole(k, csr, Xd, device))
+    rows = check_kernels(tag, path, sd, Xd, launches, ours, device, library)
+    for r in rows:
+        r["loaded_ms"] = ms
+    return rows, ms
+
+
+def cli_run(tag, argv) -> str:
+    """cli.main(argv) with its standard output printed under ``tag``;
+    raises unless it exits 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"{tag} | {line}")
+    if rc != 0:
+        raise AssertionError(f"{tag} cli {' '.join(argv)} exited {rc}")
+    return out
+
+
+def loaded_main_path(device, coo):
+    """[12a]: the main path's matrix through the CLI, packed and saved
+    (--save-packed), then run from the file (--load-packed), then loaded
+    and uploaded here: its y against [2]'s recorded digest, its kernels
+    against their plain versions."""
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        f = os.path.join(tmp, "web_google_like.mtx")
+        p = os.path.join(tmp, "web_google_like.npz")
+        t0 = time.perf_counter()
+        write_matrix_market(f, coo)
+        print(f"[12a] {f}: {os.path.getsize(f) / 1e6:.1f} MB written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        out = cli_run("[12a] save", ["spmv", f, "--format", "routed",
+                                     "--save-packed", p])
+        saved = re.search(r"\(pack ([\d.]+) s, save ([\d.]+) s, ([\d.]+) MB",
+                          out)
+        passed = out.count("Verification: PASS")
+        out = cli_run("[12a] load", ["spmv", f, "--load-packed", p])
+        loaded = re.search(r"\[format: sell-routed\] load ([\d.]+) s, upload "
+                           r"([\d.]+) s", out)
+        spmv_ms = re.search(r"SpMV Execution Time: ([\d.]+) ms", out)
+        if not (saved and loaded and spmv_ms) or passed + out.count(
+                "Verification: PASS") != 2:
+            raise AssertionError("[12a] the CLI's save or load did not "
+                                 "report, sniff routed or verify")
+        t0 = time.perf_counter()
+        sr = load_routed(p)
+        load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = upload(sr, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    print(f"[12a] cli: pack {saved[1]} s, savez_compressed {saved[2]} s, "
+          f"file {saved[3]} MB, load {loaded[1]} s, upload {loaded[2]} s, "
+          f"SpMV {spmv_ms[1]} ms (x all ones); here: load_routed "
+          f"{load_s:.3f} s, upload {upload_s:.3f} s: {geometry(sr)}")
+    x = np.random.default_rng(0).standard_normal(coo.shape[1]).astype(
+        np.float32)
+    xd = torch.from_numpy(x).to(device)
+    got = y_digest(lambda: spmv(sd, xd))
+    want = PARENT_Y_SHA256["[2] web_google_like"]
+    print(f"[12a] loaded y sha256 {got}, [2]'s recorded {want}: "
+          f"{'equal' if got == want else 'DIFFERENT'}")
+    if got != want:
+        raise AssertionError("[12a] the loaded artifact's y is not [2]'s")
+    kernels.reset_launches()
+    y = spmv(sd, xd)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    csr = coo.to_csr()
+    ok, nbad, maxrel = verify(y.cpu().numpy(), spmv_golden_numpy(csr, x),
+                              rtol=1e-6, row_scale=spmv_row_scale(csr, x))
+    print(f"[12a] golden {'PASS' if ok else 'FAIL'} ({nbad} bad, max rel "
+          f"{maxrel:.2e}); launches "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    if not ok or launches != expected_launches(sd):
+        raise AssertionError(f"[12a] golden or launches {launches}, the "
+                             f"artifact needs {expected_launches(sd)}")
+    rows, _ = loaded_kernels("[12a]", "loaded_web_google_like", sd, xd,
+                             launches, csr, device)
+    return rows
+
+
+def loaded_artifacts(device):
+    """[12b]: each of LOADED packed, saved (cli.save_packed), loaded
+    (cli.load_packed, the kind sniffed) and uploaded, with each step's
+    time; its outputs against the packed artifact's (same_outputs), and
+    each of its kernel launches against its plain version."""
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, make, kind, env, widths in LOADED:
+            tag = f"[12b] {name}"
+            coo = make()
+            t0 = time.perf_counter()
+            A = port_pack(kind, coo, env)
+            pack_s = time.perf_counter() - t0
+            path = os.path.join(tmp, f"{name}.npz")
+            t0 = time.perf_counter()
+            cli.save_packed(A, path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got_kind, B = cli.load_packed(path)
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sd = upload(B, device)
+            torch.cuda.synchronize()
+            upload_s = time.perf_counter() - t0
+            print(f"{tag}: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} nnz; "
+                  f"{describe(B)}; pack {pack_s:.3f} s, save {save_s:.3f} s, "
+                  f"file {os.path.getsize(path) / 1e6:.3f} MB, load "
+                  f"{load_s:.3f} s, upload {upload_s:.3f} s")
+            if got_kind != saved_kind(kind):
+                raise AssertionError(f"{tag} sniffed as {got_kind}")
+            if name == "bell_spill" and B.spill is None:
+                raise AssertionError(f"{tag} has no routed spill")
+            packed = upload(A, device)
+            del A
+            if name == "rmat15_hot512":
+                xd = torch.from_numpy(np.random.default_rng(7).standard_normal(
+                    coo.shape[1]).astype(np.float32)).to(device)
+                got = y_digest(lambda: spmv(sd, xd))
+                want = PARENT_Y_SHA256[f"[4] {name}"]
+                print(f"{tag} loaded y sha256 {got}, [4]'s recorded {want}: "
+                      f"{'equal' if got == want else 'DIFFERENT'}")
+                if got != want:
+                    raise AssertionError(f"{tag} y is not [4]'s")
+            for K in widths:
+                at = f"{tag} K {K}" if K else tag
+                Xd, launches = same_outputs(at, packed, sd, coo, K, device)
+                got_rows, _ = loaded_kernels(
+                    at, f"loaded_{name}" + (f" K {K}" if K else ""), sd, Xd,
+                    launches, coo.to_csr(), device)
+                rows += got_rows
+            del packed, sd, B
+    return rows
+
+
+def jax_fixtures(device) -> None:
+    """[12c]: each artifact of JAX_FIXTURES, as the JAX package saved it,
+    loaded and uploaded by the port: its y or Y against the port's own
+    pack of the same matrix, bit for bit, and at the golden."""
+    for name, (make, kind, env, K) in JAX_FIXTURES.items():
+        tag = f"[12c] jax_{name}"
+        got_kind, B = cli.load_packed(FIXTURE_DIR / f"jax_{name}.npz")
+        if got_kind != saved_kind(kind):
+            raise AssertionError(f"{tag} sniffed as {got_kind}")
+        coo = make()
+        print(f"{tag}: {describe(B)}")
+        same_outputs(tag, upload(port_pack(kind, coo, env), device),
+                     upload(B, device), coo, K, device)
+
+
+def cli_rest(device) -> None:
+    """[12d]: the rest of the CLI on small files, each exiting 0: compare
+    (six reports or refusals, then Best:), compare --rhs 8 (eight), info
+    with the reference's --iters and --threads, spmv --format window and
+    spmv --format sell --c 128 --sigma 64."""
+    with tempfile.TemporaryDirectory() as tmp:
+        road = os.path.join(tmp, "road_usa_like_small.mtx")
+        fem = os.path.join(tmp, "fem_like_small.mtx")
+        write_matrix_market(road, syn.road_usa_like(n=1 << 18))
+        write_matrix_market(fem, syn.fem_like(n=1 << 15))
+        out = cli_run("[12d] compare", ["compare", road])
+        told = out.count("SpMV Execution Time") + out.count("] failed: ")
+        if told != 6 or "Best:" not in out:
+            raise AssertionError(f"[12d] compare told {told} of 6 impls")
+        out = cli_run("[12d] compare --rhs 8", ["compare", road, "--rhs", "8"])
+        told = out.count("SpMM Execution Time") + out.count("] failed: ")
+        if told != 8 or out.count("Verification: PASS") + out.count(
+                "] failed: ") != 8:
+            raise AssertionError(f"[12d] compare --rhs 8 told {told} of 8")
+        cli_run("[12d] info", ["info", road, "--iters", "2", "--threads",
+                               "68"])
+        for argv in (["spmv", fem, "--format", "window"],
+                     ["spmv", road, "--format", "sell", "--c", "128",
+                      "--sigma", "64"]):
+            out = cli_run(f"[12d] {' '.join(argv[2:])}", argv)
+            if "Verification: PASS" not in out:
+                raise AssertionError(f"[12d] {argv} did not verify")
+
+
+def loaded_paths(device, coo, card):
+    """Phase [12]: the packed artifacts saved, loaded and run; ``card``
+    names the card (torch's name and nvidia-smi's line)."""
+    print(f"[12] card: {card}")
+    rows = []
+    for part, run in (("a", lambda: loaded_main_path(device, coo)),
+                      ("b", lambda: loaded_artifacts(device)),
+                      ("c", lambda: jax_fixtures(device)),
+                      ("d", lambda: cli_rest(device))):
+        t0 = time.perf_counter()
+        rows += run() or []
+        print(f"[12{part}] took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+PHASES = (2, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+# phases that run on [2]'s pack and tensors, and [10]'s, whose digests
+# they record
+NEEDS_2 = (8, 9)
+DIGEST_PHASES = (2, 4, 5, 6, 8)
+
+
+def phase_set(text) -> set[int]:
+    """--phases: the phases to run ([0] and [1] always run, [3] runs
+    with [2], [13]'s line closes every run)."""
+    if text is None:
+        return set(PHASES)
+    got = {int(p) for p in text.split(",") if p.strip()} - {0, 1, 3, 13}
+    if not got <= set(PHASES):
+        raise SystemExit(f"chip_smoke: no phase {sorted(got - set(PHASES))}")
+    if any(p in got for p in NEEDS_2) and 2 not in got:
+        raise SystemExit(f"chip_smoke: phases {NEEDS_2} run on [2]'s pack: "
+                         "add 2")
+    return got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--y-digests", action="store_true",
                     help="print y_digests (a JSON object) and stop")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run, e.g. 1,2,12 "
+                    "(default: all)")
     args = ap.parse_args(argv)
+    phases = phase_set(args.phases)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     kind = torch.cuda.get_device_name(0)
@@ -2812,6 +3257,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"[0] device: {kind}")
     print(f"[0] nvidia-smi: {smi}")
+    print(f"[0] phases: {sorted(phases)}")
     build()
     if args.y_digests:
         print(json.dumps(y_digests("cuda")))
@@ -2820,24 +3266,35 @@ def main(argv=None) -> int:
     coo = syn.web_google_like()
     print(f"[2] web_google_like: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} "
           f"nnz, generated in {time.perf_counter() - t0:.2f} s")
-    sr, sd, xd, launches, _ms, spmv_dms, _lib = main_path(coo, "cuda")
-    rows = check_kernels("[3]", "web_google_like", sd, xd, launches,
-                         spmv_dms, "cuda")
-    del xd
-    walks = check_geometries("cuda")
-    rows += fsm_path("cuda", walks)
-    rows += format_paths("cuda")
-    rows += spmm_paths("cuda")
-    rows += dist_paths("cuda", sd, coo)
-    rows += route_api("cuda", sr, sd, coo)
-    if set(Y_SHA256) != set(PARENT_Y_SHA256):
-        raise AssertionError(f"[10] the routed y's {sorted(Y_SHA256)} are "
-                             f"not the recorded {sorted(PARENT_Y_SHA256)}")
-    print(f"[10] all {len(Y_SHA256)} routed y's equal the parent's bit for "
-          "bit (sha256)")
-    t0 = time.perf_counter()
-    rows += model_paths("cuda", coo)
-    print(f"[11] the payloads took {time.perf_counter() - t0:.1f} s")
+    rows = []
+    if 2 in phases:
+        sr, sd, xd, launches, _ms, spmv_dms, _lib = main_path(coo, "cuda")
+        rows += check_kernels("[3]", "web_google_like", sd, xd, launches,
+                              spmv_dms, "cuda")
+        del xd
+    if 4 in phases or 5 in phases:
+        walks = check_geometries("cuda") if 4 in phases else None
+        if 5 in phases:
+            rows += fsm_path("cuda", walks)
+    for p, run in ((6, lambda: format_paths("cuda")),
+                   (7, lambda: spmm_paths("cuda")),
+                   (8, lambda: dist_paths("cuda", sd, coo)),
+                   (9, lambda: route_api("cuda", sr, sd, coo))):
+        if p in phases:
+            rows += run()
+    if set(DIGEST_PHASES) <= phases:
+        if set(Y_SHA256) != set(PARENT_Y_SHA256):
+            raise AssertionError(f"[10] the routed y's {sorted(Y_SHA256)} "
+                                 f"are not the recorded "
+                                 f"{sorted(PARENT_Y_SHA256)}")
+        print(f"[10] all {len(Y_SHA256)} routed y's equal the parent's bit "
+              "for bit (sha256)")
+    for p, run in ((11, lambda: model_paths("cuda", coo)),
+                   (12, lambda: loaded_paths("cuda", coo, f"{kind}; nvidia-smi: {smi}"))):
+        if p in phases:
+            t0 = time.perf_counter()
+            rows += run()
+            print(f"[{p}] took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -64,8 +64,11 @@ class BenchResult:
     ncols: int = 0
     device: str = ""
 
-    def print_report(self) -> None:
-        label = self.device
+    def print_report(self, threads_label: str | None = None) -> None:
+        """The greppable report; its ``[threads: ...]`` tag names the
+        device unless ``threads_label`` is given (``cli compare`` gives
+        the impl)."""
+        label = self.device if threads_label is None else threads_label
         print(
             f"[file: {self.name}] [threads: {label}] "
             f"Pre-processing Time: {self.preproc_s * 1e3:.3f} ms"
@@ -206,19 +209,24 @@ def is_event(event: str, names) -> bool:
                                     else names))
 
 
-def _pack(csr, impl: str):
-    """(packed artifact, padded nnz) of ``impl``'s format.  As in the JAX
+# the impls' other names, as the JAX harness takes them
+IMPL_ALIASES = {"routed": "sell-routed", "window": "sell-window"}
+
+
+def pack_impl(csr, impl: str, C: int | None = None, sigma: int = 0):
+    """(packed artifact, padded nnz) of ``impl``'s format; C and sigma
+    reach the plain SELL pack of impl "sell-xla".  As in the JAX
     harness, a BELL artifact counts its routed spill's stream under
     impl="bell" but not under impl="auto"."""
     from cvr_tpu_torch.formats import pack_auto
     from cvr_tpu_torch.formats.bell import BellMatrix, bell_pack
     from cvr_tpu_torch.formats.dia import dia_pack
-    from cvr_tpu_torch.formats.sell import sell_pack
+    from cvr_tpu_torch.formats.sell import DEFAULT_C, sell_pack
     from cvr_tpu_torch.formats.sell_routed import SellRouted, sell_pack_routed
     from cvr_tpu_torch.formats.sell_window import sell_pack_window
 
     packed = {
-        "sell-xla": sell_pack,
+        "sell-xla": lambda a: sell_pack(a, C=C or DEFAULT_C, sigma=sigma),
         "auto": pack_auto,
         "sell-routed": sell_pack_routed,
         "dia": dia_pack,
@@ -237,6 +245,8 @@ def run_spmv_benchmark(
     name: str = "matrix",
     impl: str = "sell-xla",
     iters: int = 100,
+    C: int | None = None,
+    sigma: int = 0,
     device="cuda",
     verify_result: bool = True,
     x: np.ndarray | None = None,
@@ -248,7 +258,9 @@ def run_spmv_benchmark(
     ``pack_auto``'s format (DIA, BELL, SELL-W, the routed path, or above
     its cap the plain SELL planes); "sell-routed", "dia", "bell",
     "sell-window": that format's pack and SpMV ("sell-routed" with the
-    hub-column hybrid where its gate fires); "csr": plain torch CSR.
+    hub-column hybrid where its gate fires; "routed" and "window" name
+    them too); "csr": plain torch CSR.  C (None: 1024) and sigma reach
+    the SELL pack of "sell-xla".
     """
     from cvr_tpu_torch.ops.spmv import spmv, upload
     from cvr_tpu_torch.ops.spmv_ref import (
@@ -281,10 +293,11 @@ def run_spmv_benchmark(
 
         def fn():
             return spmv_csr_torch(rowptr, cols, vals, xd, nrows)
-    elif impl in ("sell-xla", "auto", "sell-routed", "dia", "bell",
-                  "sell-window"):
+    elif IMPL_ALIASES.get(impl, impl) in ("sell-xla", "auto", "sell-routed",
+                                          "dia", "bell", "sell-window"):
         t0 = time.perf_counter()
-        packed, padded = _pack(csr, impl)
+        packed, padded = pack_impl(csr, IMPL_ALIASES.get(impl, impl), C,
+                                   sigma)
         preproc = time.perf_counter() - t0
         sd = upload(packed, dev)
 

@@ -9,14 +9,14 @@ from cvr_tpu_torch.formats.bsr import BsrInfeasible, BsrMatrix, bsr_pack
 from cvr_tpu_torch.formats.coo import COOMatrix
 from cvr_tpu_torch.formats.csr import CSRMatrix
 from cvr_tpu_torch.formats.dia import DiaInfeasible, DiaMatrix, dia_pack
-from cvr_tpu_torch.formats.sell import SellMatrix, sell_pack
+from cvr_tpu_torch.formats.sell import SellMatrix, sell_pack, sell_unpack
 from cvr_tpu_torch.formats.sell_window import (
     SellWindow,
     WindowInfeasible,
     sell_pack_window,
 )
 
-# the JAX package's names but sell_unpack, which is not ported yet
+# the JAX package's names
 __all__ = [
     "BellInfeasible",
     "BellMatrix",
@@ -34,6 +34,7 @@ __all__ = [
     "WindowInfeasible",
     "sell_pack",
     "sell_pack_window",
+    "sell_unpack",
     "pack_auto",
 ]
 

@@ -199,3 +199,47 @@ def bell_pack(
         convert_time=dt,
         convert_phases=phases,
     )
+
+
+def save_bell(bm: BellMatrix, path) -> None:
+    """Write the BELL artifact as the JAX package's ``.npz`` layout, the
+    routed spill embedded as the bytes of its own save_routed file."""
+    import io
+
+    from cvr_tpu_torch.formats.sell_routed import save_routed
+
+    spill = b""
+    if bm.spill is not None:
+        buf = io.BytesIO()
+        save_routed(bm.spill, buf)
+        spill = buf.getvalue()
+    np.savez_compressed(
+        path,
+        bell_li=bm.li,
+        bell_vals=bm.vals,
+        bell_meta=np.asarray([bm.shape[0], bm.shape[1], bm.nnz, bm.reach,
+                              bm.k, bm.d, bm.pre, bm.ncand, bm.TBb],
+                             dtype=np.int64),
+        bell_spill=np.frombuffer(spill, dtype=np.uint8),
+        bell_spill_map=(bm.spill_map if bm.spill_map is not None
+                        else np.zeros(0, dtype=np.int64)),
+    )
+
+
+def load_bell(path) -> BellMatrix:
+    """Read a BELL artifact that either package saved."""
+    import io
+
+    from cvr_tpu_torch.formats.sell_routed import load_routed
+
+    z = np.load(path)
+    m = [int(v) for v in z["bell_meta"]]
+    raw = z["bell_spill"]
+    smap = z["bell_spill_map"]
+    return BellMatrix(
+        li=z["bell_li"], vals=z["bell_vals"],
+        spill=load_routed(io.BytesIO(raw.tobytes())) if raw.size else None,
+        spill_map=smap if smap.size else None,
+        shape=(m[0], m[1]), nnz=m[2], reach=m[3], k=m[4], d=m[5], pre=m[6],
+        ncand=m[7], TBb=m[8],
+    )

@@ -57,6 +57,25 @@ class BsrMatrix:
     def padded_nnz(self) -> int:
         return self.nbricks * B * B
 
+    def save(self, path) -> None:
+        """Write the artifact as the JAX package's ``.npz`` layout."""
+        np.savez_compressed(
+            path,
+            vals=self.vals, brick_row=self.brick_row,
+            brick_col=self.brick_col,
+            shape=np.asarray(self.shape, dtype=np.int64),
+            nnz=np.int64(self.nnz),
+        )
+
+    @staticmethod
+    def load(path) -> "BsrMatrix":
+        z = np.load(path)
+        return BsrMatrix(
+            vals=z["vals"], brick_row=z["brick_row"],
+            brick_col=z["brick_col"],
+            shape=tuple(int(v) for v in z["shape"]), nnz=int(z["nnz"]),
+        )
+
 
 def from_reference(bm) -> BsrMatrix:
     """The port's artifact from the JAX package's ``BsrMatrix`` (its numpy

@@ -45,6 +45,23 @@ class DiaMatrix:
     def padded_nnz(self) -> int:
         return self.nd * self.shape[0]
 
+    def save(self, path) -> None:
+        """Write the artifact as the JAX package's ``.npz`` layout."""
+        np.savez_compressed(
+            path,
+            offsets=self.offsets, bands=self.bands,
+            shape=np.asarray(self.shape, dtype=np.int64),
+            nnz=np.int64(self.nnz),
+        )
+
+    @staticmethod
+    def load(path) -> "DiaMatrix":
+        z = np.load(path)
+        return DiaMatrix(
+            offsets=z["offsets"], bands=z["bands"],
+            shape=tuple(int(v) for v in z["shape"]), nnz=int(z["nnz"]),
+        )
+
 
 def dia_pack(
     csr: CSRMatrix, max_diags: int = 64, min_fill: float = 0.25

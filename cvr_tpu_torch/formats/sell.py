@@ -69,6 +69,39 @@ class SellMatrix:
     def fill_ratio(self) -> float:
         return self.padded_nnz / max(self.nnz, 1)
 
+    def save(self, path) -> None:
+        """Write the artifact as the JAX package's ``.npz`` layout, so
+        that a later run loads it in place of the conversion."""
+        np.savez_compressed(
+            path,
+            vals_plane=self.vals_plane,
+            cols_plane=self.cols_plane,
+            slice_offsets=self.slice_offsets,
+            slot_slice=self.slot_slice,
+            perm=self.perm,
+            seg_offset=self.seg_offset,
+            row_rank=self.row_rank,
+            lane_lengths=self.lane_lengths,
+            shape=np.asarray(self.shape, dtype=np.int64),
+            nnz=np.int64(self.nnz),
+            C=np.int64(self.C),
+            sigma=np.int64(self.sigma),
+            split_len=np.int64(self.split_len),
+            n_splits=np.int64(self.n_splits),
+        )
+
+    @staticmethod
+    def load(path) -> "SellMatrix":
+        z = np.load(path)
+        return SellMatrix(
+            **{k: z[k] for k in ("vals_plane", "cols_plane",
+                                 "slice_offsets", "slot_slice", "perm",
+                                 "seg_offset", "row_rank", "lane_lengths")},
+            shape=tuple(int(v) for v in z["shape"]),
+            **{k: int(z[k]) for k in ("nnz", "C", "sigma", "split_len",
+                                      "n_splits")},
+        )
+
 
 def _sigma_sort(lengths: np.ndarray, sigma: int) -> np.ndarray:
     """Order rows by descending length, stably, within windows of sigma
@@ -242,3 +275,38 @@ def _sell_pack_numpy(
         convert_time=pt.total,
         convert_phases=dict(pt.phases),
     )
+
+
+def sell_unpack(sm: SellMatrix) -> CSRMatrix:
+    """The exact inverse of sell_pack: the CSR it packed, each row's
+    entries in their order."""
+    nrows = sm.shape[0]
+    C = sm.C
+    P = sm.perm.shape[0]
+    pos_len = sm.lane_lengths.astype(np.int64)
+    nnz = int(pos_len.sum())
+    if nnz != sm.nnz:
+        raise ValueError("corrupt SellMatrix: lane_lengths sum != nnz")
+    lengths = np.zeros(nrows + 1, dtype=np.int64)
+    np.add.at(lengths, sm.perm.astype(np.int64), pos_len)
+    rowptr = np.zeros(nrows + 1, dtype=np.int64)
+    np.cumsum(lengths[:nrows], out=rowptr[1:])
+    if nnz == 0:
+        return CSRMatrix(rowptr=rowptr, cols=np.empty(0, dtype=np.int32),
+                         vals=np.empty(0, dtype=sm.vals_plane.dtype),
+                         shape=sm.shape)
+    # each nnz, in sorted-position order: its flat index in the planes
+    # (src) and its place in CSR order (dst)
+    pos_of_nnz = np.repeat(np.arange(P, dtype=np.int64), pos_len)
+    starts = np.zeros(P, dtype=np.int64)
+    np.cumsum(pos_len[:-1], out=starts[1:])
+    j = np.arange(nnz, dtype=np.int64) - starts[pos_of_nnz]
+    base = sm.slice_offsets[pos_of_nnz // C].astype(np.int64)
+    src = (base + j) * C + pos_of_nnz % C
+    row = sm.perm[pos_of_nnz].astype(np.int64)
+    dst = rowptr[row] + sm.seg_offset[pos_of_nnz].astype(np.int64) + j
+    cols = np.empty(nnz, dtype=np.int32)
+    vals = np.empty(nnz, dtype=sm.vals_plane.dtype)
+    cols[dst] = sm.cols_plane.reshape(-1)[src]
+    vals[dst] = sm.vals_plane.reshape(-1)[src]
+    return CSRMatrix(rowptr=rowptr, cols=cols, vals=vals, shape=sm.shape)

@@ -859,3 +859,134 @@ def _pack_routed_tail(
         zone_rows=zone["zrows"] if zone is not None else 0,
         yslices=zone["yslices"] if zone is not None else nslices,
     )
+
+
+# ---------------------------------------------------------------------------
+# save / load: the JAX package's .npz layout, key for key and dtype for
+# dtype, so that either package loads the other's files
+# ---------------------------------------------------------------------------
+
+_MID_PLANES = ("mid", "m1", "csel", "m3")
+
+
+def mid_npz(mid: dict, prefix: str) -> dict:
+    """A route middle's planes as .npz entries ``{prefix}_*``."""
+    out = {f"{prefix}_{k}": v for k, v in mid.items()
+           if k not in ("kind", "Tk")}
+    out[f"{prefix}_kind"] = np.bytes_(mid["kind"].encode())
+    out[f"{prefix}_Tk"] = np.int64(mid["Tk"])
+    return out
+
+
+def mid_from_npz(z, prefix: str) -> dict:
+    mid = {"kind": bytes(z[f"{prefix}_kind"]).decode(),
+           "Tk": int(z[f"{prefix}_Tk"])}
+    for k in _MID_PLANES:
+        if f"{prefix}_{k}" in z:
+            mid[k] = z[f"{prefix}_{k}"]
+    return mid
+
+
+def y_route_npz(ra: dict) -> dict:
+    """A y-route's arrays (route_planes.route_arrays) as .npz entries
+    ``y_*`` and ``ymid_*``."""
+    out = {f"y_{k}": v for k, v in ra.items()
+           if k not in ("T", "Tp", "n", "mid_planes")}
+    out.update(y_T=np.int64(ra["T"]), y_Tp=np.int64(ra["Tp"]),
+               y_n=np.int64(ra["n"]))
+    return {**out, **mid_npz(ra["mid_planes"], "ymid")}
+
+
+def y_route_from_npz(z) -> dict:
+    return {"s1": z["y_s1"], "s3": z["y_s3"],
+            "mid_planes": mid_from_npz(z, "ymid"), "T": int(z["y_T"]),
+            "Tp": int(z["y_Tp"]), "n": int(z["y_n"])}
+
+
+def save_routed(sr: SellRouted, path) -> None:
+    """Write the routed artifact as the JAX package's ``.npz`` layout, so
+    that a later run loads it in place of the pack and its route compile
+    (``cli spmv --save-packed`` / ``--load-packed``).  A ring-scheduled
+    artifact keeps its schedule (ring_*): its streams are permuted into
+    ring order, and without the schedule they would load as a corrupt
+    artifact."""
+    hot = {}
+    if sr.hot is not None:
+        hp = sr.hot
+        hot = {
+            "hot_hidx": hp.hidx, "hot_hvals": hp.hvals,
+            "hot_gcls": hp.hgcls, "hot_emit": hp.hemit,
+            "hot_ycall_rows": hp.ycall_rows, "hot_regions": hp.regions,
+            "hot_ids": hp.hot_ids,
+            "hot_meta": np.asarray([hp.nslices, hp.NH, hp.ncand],
+                                   dtype=np.int64),
+        }
+    np.savez_compressed(
+        path,
+        w8=sr.w8, li=sr.li, gcls=sr.gcls, seg_blk=sr.seg_blk,
+        ycall_rows=sr.ycall_rows, regions=sr.regions,
+        vals_ss=sr.vals_ss, p3=sr.p3, emit=sr.emit,
+        extra_src=sr.extra_src, extra_row=sr.extra_row, ymask=sr.ymask,
+        shape=np.asarray(sr.shape), nnz=np.int64(sr.nnz), T=np.int64(sr.T),
+        S=np.int64(sr.S), S_pad=np.int64(sr.S_pad),
+        nslices=np.int64(sr.nslices), segw=np.int64(sr.segw),
+        n_segs=np.int64(sr.n_segs), n_fillers=np.int64(sr.n_fillers),
+        nslA=np.int64(sr.nslA), zone_rows=np.int64(sr.zone_rows),
+        yslices=np.int64(sr.yslices),
+        ring_seg=(sr.seg_ring if sr.seg_ring is not None
+                  else np.zeros(0, dtype=np.int32)),
+        ring_cnt=np.asarray(sr.ring_cnt if sr.ring_cnt is not None else (),
+                            dtype=np.int64),
+        ring_nsegtab=np.asarray(sr.ring_nsegtab, dtype=np.int64),
+        **mid_npz(sr.mid, "mid"), **y_route_npz(sr.y_ra), **hot,
+    )
+
+
+def load_routed(path) -> SellRouted:
+    """Read a routed artifact that either package saved.  Older layouts
+    read as the JAX package reads them: before v10 w8 held 1024-aligned
+    window indices and there were no gather classes (all 8), and a file
+    without regions, ymask, nslA, zone_rows, yslices or ring_* gets the
+    values that mean none."""
+    from cvr_tpu_torch.formats.hot import HotPlanes
+
+    z = np.load(path)
+    if "gcls" in z:
+        w8, gcls = z["w8"], z["gcls"]
+    else:
+        w8 = z["w8"] * 8
+        gcls = np.full(int(z["T"]) // 8, 8, dtype=np.int32)
+    hot = None
+    if "hot_meta" in z:
+        hm = z["hot_meta"]
+        hot = HotPlanes(
+            hidx=z["hot_hidx"], hvals=z["hot_hvals"], hgcls=z["hot_gcls"],
+            hemit=z["hot_emit"], ycall_rows=z["hot_ycall_rows"],
+            regions=z["hot_regions"], hot_ids=z["hot_ids"],
+            nslices=int(hm[0]), NH=int(hm[1]), ncand=int(hm[2]),
+        )
+    ring_seg = z["ring_seg"] if "ring_seg" in z else None
+    ring_cnt = z["ring_cnt"] if "ring_cnt" in z else None
+    return SellRouted(
+        hot=hot, w8=w8, gcls=gcls, li=z["li"], seg_blk=z["seg_blk"],
+        regions=(z["regions"] if "regions" in z
+                 else np.zeros((0, 5), dtype=np.int64)),
+        ycall_rows=z["ycall_rows"], mid=mid_from_npz(z, "mid"),
+        vals_ss=z["vals_ss"], p3=z["p3"], emit=z["emit"],
+        y_ra=y_route_from_npz(z), extra_src=z["extra_src"],
+        extra_row=z["extra_row"],
+        ymask=z["ymask"] if "ymask" in z else np.zeros(0, np.float32),
+        shape=tuple(int(v) for v in z["shape"]),
+        nnz=int(z["nnz"]), T=int(z["T"]), S=int(z["S"]),
+        S_pad=int(z["S_pad"]), nslices=int(z["nslices"]),
+        segw=int(z["segw"]), n_segs=int(z["n_segs"]),
+        n_fillers=int(z["n_fillers"]),
+        nslA=int(z["nslA"]) if "nslA" in z else 0,
+        zone_rows=int(z["zone_rows"]) if "zone_rows" in z else 0,
+        yslices=int(z["yslices"] if "yslices" in z else z["nslices"]),
+        seg_ring=ring_seg if ring_seg is not None and ring_seg.size else None,
+        ring_cnt=(tuple(int(c) for c in ring_cnt)
+                  if ring_cnt is not None and ring_cnt.size else None),
+        ring_nsegtab=(tuple(int(v) for v in z["ring_nsegtab"])
+                      if "ring_nsegtab" in z else ()),
+    )

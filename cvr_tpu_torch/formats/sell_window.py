@@ -66,12 +66,57 @@ class SellWindow:
     segw: int
     n_segs: int
     wrl: int  # 128-column blocks a window gather reaches (<= W // 128)
+    # a y-route to natural rows (route_planes.route_arrays), for planes
+    # whose rows are in another order; the pack gives none, a loaded
+    # artifact may carry one
+    y_ra: dict | None = None
     convert_time: float = 0.0
     convert_phases: dict = field(default_factory=dict)
 
     @property
     def padded_nnz(self) -> int:
         return self.S_pad * TILE
+
+    def save(self, path) -> None:
+        """Write the artifact as the JAX package's ``.npz`` layout (the
+        y-route's keys only where it has one)."""
+        from cvr_tpu_torch.formats.sell_routed import y_route_npz
+
+        np.savez_compressed(
+            path,
+            vals_ss=self.vals_ss, li=self.li, w10=self.w10,
+            seg_blk=self.seg_blk, emit=self.emit,
+            ycall_rows=self.ycall_rows,
+            shape=np.asarray(self.shape, dtype=np.int64),
+            nnz=np.int64(self.nnz), W=np.int64(self.W),
+            D=np.int64(self.D), G=np.int64(self.G),
+            S=np.int64(self.S), S_pad=np.int64(self.S_pad),
+            nslices=np.int64(self.nslices), segw=np.int64(self.segw),
+            n_segs=np.int64(self.n_segs), wrl=np.int64(self.wrl),
+            **(y_route_npz(self.y_ra) if self.y_ra is not None else {}),
+        )
+
+    @staticmethod
+    def load(path) -> "SellWindow":
+        """Read a SELL-W artifact that either package saved; a file
+        without wrl loads wrl 0, which the upload reads as W // 128, as
+        the JAX package does."""
+        from cvr_tpu_torch.formats.sell_routed import y_route_from_npz
+
+        z = np.load(path)
+        W = int(z["W"])
+        return SellWindow(
+            vals_ss=z["vals_ss"], li=z["li"], w10=z["w10"],
+            seg_blk=z["seg_blk"], emit=z["emit"],
+            ycall_rows=z["ycall_rows"],
+            shape=tuple(int(v) for v in z["shape"]),
+            nnz=int(z["nnz"]), W=W, D=int(z["D"]), G=int(z["G"]),
+            S=int(z["S"]), S_pad=int(z["S_pad"]),
+            nslices=int(z["nslices"]), segw=int(z["segw"]),
+            n_segs=int(z["n_segs"]),
+            wrl=int(z["wrl"]) if "wrl" in z.files else 0,
+            y_ra=y_route_from_npz(z) if "y_s1" in z.files else None,
+        )
 
 
 def _plan_for_d(nrows, row_lengths, D):

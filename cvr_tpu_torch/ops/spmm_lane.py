@@ -59,6 +59,34 @@ def from_reference(lp) -> LanePlan:
     return LanePlan(**{k: getattr(lp, k) for k in _FIELDS})
 
 
+def save_lane(lp: LanePlan, path) -> None:
+    """Write the lane plan as the JAX package's ``.npz`` layout."""
+    np.savez_compressed(
+        path,
+        lane_cols=lp.cols_l,
+        lane_vals=lp.vals_l,
+        lane_emit=lp.emit_l,
+        lane_ob=lp.ob,
+        lane_first=lp.first_pos,
+        lane_extra_pos=lp.extra_pos,
+        lane_extra_row=lp.extra_row,
+        lane_meta=np.asarray([lp.shape[0], lp.shape[1], lp.nnz, lp.nslices],
+                             dtype=np.int64),
+    )
+
+
+def load_lane(path) -> LanePlan:
+    """Read a lane plan that either package saved."""
+    z = np.load(path)
+    m = [int(v) for v in z["lane_meta"]]
+    return LanePlan(
+        cols_l=z["lane_cols"], vals_l=z["lane_vals"], emit_l=z["lane_emit"],
+        ob=z["lane_ob"], first_pos=z["lane_first"],
+        extra_pos=z["lane_extra_pos"], extra_row=z["lane_extra_row"],
+        shape=(m[0], m[1]), nnz=m[2], nslices=m[3],
+    )
+
+
 def lane_plan(sm: SellMatrix) -> LanePlan:
     """Plan the lane SpMM from a SELL pack (cheap vectorized passes)."""
     from cvr_tpu_torch.formats.sell_routed import group_padded_rmap

@@ -83,6 +83,34 @@ def from_reference(plan) -> PmmPlan:
     return PmmPlan(**{k: getattr(plan, k) for k in _FIELDS})
 
 
+def save_pmm(plan: PmmPlan, path) -> None:
+    """Write the PMM plan as the JAX package's ``.npz`` layout: the host
+    plan, from which the upload makes the entries and the work plan."""
+    np.savez_compressed(
+        path,
+        pmm_win=plan.win,
+        pmm_rt=plan.rt,
+        pmm_ch=plan.ch,
+        pmm_lc=plan.lc,
+        pmm_val=plan.val,
+        pmm_rl=plan.rl,
+        pmm_meta=np.asarray([plan.shape[0], plan.shape[1], plan.nnz,
+                             plan.nchunks, plan.npairs, plan.ncb, plan.nrt],
+                            dtype=np.int64),
+    )
+
+
+def load_pmm(path) -> PmmPlan:
+    """Read a PMM plan that either package saved."""
+    z = np.load(path)
+    m = [int(v) for v in z["pmm_meta"]]
+    return PmmPlan(
+        win=z["pmm_win"], rt=z["pmm_rt"], ch=z["pmm_ch"], lc=z["pmm_lc"],
+        val=z["pmm_val"], rl=z["pmm_rl"], shape=(m[0], m[1]), nnz=m[2],
+        nchunks=m[3], npairs=m[4], ncb=m[5], nrt=m[6],
+    )
+
+
 def pmm_plan(rows, cols, vals, shape) -> PmmPlan:
     """Build the PMM plan from COO arrays (vectorized host passes).
 

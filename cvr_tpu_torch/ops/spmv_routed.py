@@ -439,18 +439,24 @@ def apply_route_stream(ra: RouteDevice, g: torch.Tensor) -> torch.Tensor:
     return staged_route(ra, g)
 
 
+def route_stream(ra: RouteDevice, v: torch.Tensor) -> torch.Tensor:
+    """v (at most Tp*1024 elements) as float32, padded to the route's
+    Tp*1024 and laid out as its input stream (8, Tp, 128)."""
+    n_pad = ra.Tp * 1024 - v.shape[0]
+    if n_pad < 0:
+        raise ValueError(f"apply_route: v has {v.shape[0]} elements, the "
+                         f"route {ra.Tp * 1024}")
+    g = rk.flat_to_stream(F.pad(v.to(torch.float32), (0, n_pad)), ra.Tp)
+    return g.contiguous()
+
+
 def apply_route(ra, v: torch.Tensor) -> torch.Tensor:
     """out = v[perm] (float32) for the compiled permutation ``ra``: a
     host route_arrays dict (uploaded to v's device) or a RouteDevice; v
     holds at most Tp*1024 elements and is padded to them."""
     if isinstance(ra, dict):
         ra = route_to_device(ra, v.device)
-    n_pad = ra.Tp * 1024 - v.shape[0]
-    if n_pad < 0:
-        raise ValueError(f"apply_route: v has {v.shape[0]} elements, the "
-                         f"route {ra.Tp * 1024}")
-    g = rk.flat_to_stream(F.pad(v.to(torch.float32), (0, n_pad)), ra.Tp)
-    return apply_route_stream(ra, g.contiguous())
+    return apply_route_stream(ra, route_stream(ra, v))
 
 
 def y_from_slices(sd: SellRoutedDevice, ys: torch.Tensor,

@@ -12,10 +12,20 @@ sets it up for the tests, and writes:
     each mode, y (6000,) float32 under the mode's name (each interpret-mode
     call takes 11-17 s).
 
+  * jax_<name>.npz for each name of chip_smoke.JAX_FIXTURES: the JAX
+    package's pack of the fixture's matrix (made by the port's generator,
+    the same arrays), saved by the JAX package's own save (save_routed
+    with hot planes, save_bell, SellWindow.save with a y-route,
+    DiaMatrix.save, BsrMatrix.save, save_lane, save_pmm); chip_smoke.py
+    phase [12](c) loads them on the card.
+
 The tests keep one mode live (test_torch_dist_routed.LIVE_MODE) and hold
 its recorded y against the JAX package's live one, so that the records
-stay tied to the package.  Rerun this after a change to the JAX package's
-routed SpMV or to the test's matrix.
+stay tied to the package; test_torch_artifacts.py holds each jax_*.npz
+against the port's save of its own pack.  Rerun this after a change to
+the JAX package's routed SpMV, its savers, or the matrices.
+
+    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py [dist | jax]
 """
 
 import os
@@ -51,5 +61,29 @@ def dist_routed_ring() -> None:
     print(f"{RING_FIXTURE}: {sorted(ys)}, {ys['replicated'].shape}")
 
 
+def jax_fixtures() -> None:
+    import chip_smoke
+    import cvr_tpu.formats.sell_routed as jsr
+    from cvr_tpu.formats.bell import save_bell
+    from cvr_tpu.formats.coo import COOMatrix
+    from cvr_tpu.ops.spmm_lane import save_lane
+    from cvr_tpu.ops.spmm_pmm import save_pmm
+    from torch_cases import j_pack
+
+    saves = {"sell-routed": jsr.save_routed, "bell": save_bell,
+             "lane": save_lane, "pmm": save_pmm}
+    for name, (make, kind, env, _K) in chip_smoke.JAX_FIXTURES.items():
+        t = make()
+        jcoo = COOMatrix(rows=t.rows, cols=t.cols, vals=t.vals, shape=t.shape)
+        A = j_pack(kind, jcoo, env)
+        path = chip_smoke.FIXTURE_DIR / f"jax_{name}.npz"
+        saves.get(kind, lambda a, p: a.save(p))(A, path)
+        print(f"{path}: {type(A).__name__}, {path.stat().st_size} B")
+
+
 if __name__ == "__main__":
-    dist_routed_ring()
+    which = sys.argv[1:] or ["dist", "jax"]
+    if "dist" in which:
+        dist_routed_ring()
+    if "jax" in which:
+        jax_fixtures()

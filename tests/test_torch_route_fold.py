@@ -287,7 +287,7 @@ def test_reduce_geometry_checks_g1(T, ok):
 # names of the JAX package's __all__ the port gives under another name
 RENAMED = {"spmv_csr_jnp": "spmv_csr_torch"}
 # the JAX formats package's names not ported yet
-FORMATS_GAPS = {"sell_unpack"}
+FORMATS_GAPS = set()
 
 
 def test_package_exports_the_reference_names():
@@ -324,3 +324,22 @@ def test_port_imports_neither_jax_nor_the_reference():
     bad = {str(p.relative_to(REPO)): sorted(_imported(p) & {"jax", "cvr_tpu"})
            for p in files}
     assert not {k: v for k, v in bad.items() if v}
+
+
+# the modules the save / load and CLI slice wrote or changed: each is among
+# the files the check above reads, and imports neither
+SLICE_G = ("cvr_tpu_torch/cli.py", "cvr_tpu_torch/utils/memarena.py",
+           "cvr_tpu_torch/bench/harness.py", "cvr_tpu_torch/formats/sell.py",
+           "cvr_tpu_torch/formats/sell_routed.py",
+           "cvr_tpu_torch/formats/bell.py", "cvr_tpu_torch/formats/dia.py",
+           "cvr_tpu_torch/formats/bsr.py",
+           "cvr_tpu_torch/formats/sell_window.py",
+           "cvr_tpu_torch/ops/spmv_window.py",
+           "cvr_tpu_torch/ops/spmm_lane.py", "cvr_tpu_torch/ops/spmm_pmm.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_G)
+def test_save_load_modules_import_neither_jax_nor_the_reference(rel):
+    path = REPO / rel
+    assert path in set((REPO / "cvr_tpu_torch").rglob("*.py"))
+    assert not _imported(path) & {"jax", "cvr_tpu"}

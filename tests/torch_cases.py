@@ -8,7 +8,9 @@ the suite runs one test process per worker (pytest-xdist, ``-n 6`` on an
 8-core host), and torch's default of one thread per core in each of them
 oversubscribes the cores (on such a host the port's test files took 479 s
 with the default against 158 s with one thread each, single cases up to
-75x longer than alone).
+75x longer than alone).  It also turns off the allocator-arena warm of
+the port's CLI (utils/memarena.py): on a lazily backed host each test
+process that runs ``cli.main`` would otherwise keep 1.5 GB.
 """
 
 from pathlib import Path
@@ -22,7 +24,10 @@ from cvr_tpu.formats.coo import COOMatrix as JCOO
 from cvr_tpu_torch.bench import synthetic as tsyn
 from cvr_tpu_torch.formats.coo import COOMatrix as TCOO
 
+from cvr_tpu_torch.utils import memarena as _memarena
+
 torch.set_num_threads(1)
+_memarena.warm(mb=0)  # decided once: no arena; warm_if_lazy is a no-op
 
 FIXTURES = sorted((Path(__file__).parent / "fixtures").glob("*.mtx*"))
 
@@ -207,3 +212,38 @@ def empty_blocks(seed=6):
     vals = rng.standard_normal(3000).astype(np.float32)
     j, t = pair(rows, cols, vals, (900, 1000))
     return j.sum_duplicates(), t.sum_duplicates()
+
+
+def j_pack(kind, jcoo, env=None):
+    """The JAX package's pack of jcoo as an artifact of ``kind`` (the kinds
+    of chip_smoke.port_pack), under the environment switches ``env``."""
+    import dataclasses
+
+    import chip_smoke
+    from cvr_tpu.formats.bell import bell_pack
+    from cvr_tpu.formats.bsr import bsr_pack
+    from cvr_tpu.formats.dia import dia_pack
+    from cvr_tpu.formats.sell import sell_pack
+    from cvr_tpu.formats.sell_routed import sell_pack_routed
+    from cvr_tpu.formats.sell_window import sell_pack_window
+    from cvr_tpu.ops.pallas_route import route_arrays_from_perm
+    from cvr_tpu.ops.spmm_lane import spmm_lane_pack
+    from cvr_tpu.ops.spmm_pmm import pmm_plan
+
+    def window_y_route(csr):
+        rows, inv = chip_smoke.block_sorted(jcoo)
+        sw = sell_pack_window(JCOO(rows=rows.rows, cols=rows.cols,
+                                   vals=rows.vals, shape=rows.shape).to_csr())
+        return dataclasses.replace(
+            sw, y_ra=route_arrays_from_perm(inv, n=jcoo.shape[0]))
+
+    packs = {
+        "sell-routed": sell_pack_routed, "bell": bell_pack,
+        "sell-window": sell_pack_window, "window_y_route": window_y_route,
+        "dia": dia_pack, "bsr": bsr_pack, "lane": spmm_lane_pack,
+        "pmm": lambda csr: pmm_plan(jcoo.rows, jcoo.cols, jcoo.vals,
+                                    jcoo.shape),
+        "sell": lambda csr: sell_pack(csr, C=128),
+    }
+    with chip_smoke.environment(env or {}):
+        return packs[kind](jcoo.to_csr())
