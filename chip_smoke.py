@@ -155,13 +155,32 @@ Phases, each printed on its own lines:
      ``cli compare`` (six reports or refusals, then Best:), ``compare
      --rhs 8``, ``info --iters 2 --threads 68``, ``spmv --format window``
      and ``spmv --format sell --c 128 --sigma 64``, each exiting 0;
+ 14. the other row-sharded paths (cvr_tpu_torch.parallel) at full size
+     on 4 shards of the one card (the 2-D mesh on 2 x 2 of it; the
+     all-gather, the mesh's moves and its reduce-scatter are copies inside
+     it, so the times are the cost of sharding, not scaling figures):
+     dist_dia on banded-2M (K8), dist_window on fem-like (K10), dist_bell
+     on road-usa-like (K9 and its spill's K1, K3, K4), dist_bsr on
+     fem-like at K 64 (K12), dist_lane on web-Google-like at K 128 (K13),
+     dist_pmm on fsm-like at K 32 (K14), dist2d on web-Google-like (K1,
+     K3, K4 a block); each with its pack's seconds and geometry, then with
+     x replicated and all-gathered (dist2d: x whole): launches against
+     the geometry's, the float64 golden (SpMM: 8 columns), y's sha256
+     under deterministic algorithms (printed), times by CUDA events and
+     device time beside the one-card path of the same matrix; shard 0's
+     kernel launches against their plain versions as in [3] and the
+     path's kernel on every other shard, summed (in the replicated mode:
+     the all-gathered x is checked equal to x, so the kernels' inputs are
+     the same); then dryrun_multichip(4), the JAX dry run's ten paths, on
+     the card;
  13. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
 ``--phases 1,2,12`` runs the build, the main path and [12] alone (the
 default runs every phase; [0], [1] and [13] always run, [3] with [2], [8]
-and [9] need [2], and [10]'s check runs when [2], [4], [5], [6] and [8]
-all ran).  Any failure raises, and the script exits non-zero.  It needs a
+and [9] need [2], [14] reuses [2]'s pack where [2] ran, and [10]'s check
+runs when [2], [4], [5], [6] and [8] all ran).  The full-size matrices
+are generated once per run (full_size) and shared by the phases.  Any failure raises, and the script exits non-zero.  It needs a
 CUDA card and the repository around it; it imports nothing of JAX.
 """
 
@@ -244,11 +263,22 @@ from cvr_tpu_torch.ops.spmv_window import (
     reduce_args,
     window_rows,
 )
-from cvr_tpu_torch.parallel.dist import make_mesh
+from cvr_tpu_torch.parallel import dist as tdist
+from cvr_tpu_torch.parallel import (
+    dist2d,
+    dist_bell,
+    dist_bsr,
+    dist_dia,
+    dist_lane,
+    dist_pmm,
+    dist_window,
+)
+from cvr_tpu_torch.parallel.dist import local_csrs, make_mesh
 from cvr_tpu_torch.parallel.dist_routed import (
     dist_routed_pack,
     dist_spmv_routed,
 )
+from cvr_tpu_torch.parallel.dryrun import dryrun_multichip
 
 ITERS = 100
 KERNEL_ITERS = 20
@@ -302,21 +332,40 @@ GEOMETRIES = (
 )
 
 
+# The full-size matrices of the phases, each generated once per run
+# (full_size) and shared by the phases that run it.
+FULL_SIZE = {
+    "web_google_like": lambda: syn.web_google_like(),
+    "fsm_like": lambda: syn.fsm_like(),
+    "banded_2m": lambda: syn.banded_matrix(1 << 21, 27),
+    "road_usa_like": lambda: syn.road_usa_like(),
+    "fem_like": lambda: syn.fem_like(),
+}
+_GENERATED = {}
+
+
+def full_size(name) -> COOMatrix:
+    """FULL_SIZE[name], generated on its first call."""
+    if name not in _GENERATED:
+        _GENERATED[name] = FULL_SIZE[name]()
+    return _GENERATED[name]
+
+
 # Phase [6]: name, matrix, the format pack_auto must pick and the geometry
 # it must reach, the kernel of the format, a smaller matrix of the same
 # generator for the CLI (it reads a MatrixMarket file).
 FORMATS = (
-    ("banded_2m", lambda: syn.banded_matrix(1 << 21, 27),
+    ("banded_2m", functools.partial(full_size, "banded_2m"),
      lambda A: isinstance(A, DiaMatrix) and A.nd == 27, "dia_spmv",
      lambda: syn.banded_matrix(1 << 16, 27)),
-    ("road_usa_like", syn.road_usa_like,
+    ("road_usa_like", functools.partial(full_size, "road_usa_like"),
      lambda A: (isinstance(A, BellMatrix)
                 and (A.k, A.reach, A.ncand, A.TBb, A.R_sub)
                 == (6, 64, 10, 128, 65536)
                 and A.spill is not None and A.spill.nnz == 146396
                 and A.spill_map.shape[0] == 106239 and A.spill.T == 9216),
      "bell_gather_mac", lambda: syn.road_usa_like(n=1 << 18)),
-    ("fem_like", syn.fem_like,
+    ("fem_like", functools.partial(full_size, "fem_like"),
      lambda A: (isinstance(A, SellWindow)
                 and (A.D, A.W, A.wrl, A.G, A.n_segs, A.nslices,
                      len(A.ycall_rows), A.S_pad)
@@ -329,17 +378,18 @@ FORMATS = (
 # runs cli._spmm with --format auto, "spmm" runs spmm on pack_auto's
 # artifact.
 SPMM_CASES = (
-    ("banded_2m", lambda: syn.banded_matrix(1 << 21, 27),
+    ("banded_2m", functools.partial(full_size, "banded_2m"),
      lambda: syn.banded_matrix(1 << 16, 27),
      ((64, "cli", "bsr"), (64, "spmm", "dia"))),
-    ("fem_like", syn.fem_like, lambda: syn.fem_like(n=1 << 15),
-     ((64, "cli", "bsr"),)),
-    ("fsm_like", syn.fsm_like, lambda: syn.fsm_like(n=1 << 17),
+    ("fem_like", functools.partial(full_size, "fem_like"),
+     lambda: syn.fem_like(n=1 << 15), ((64, "cli", "bsr"),)),
+    ("fsm_like", functools.partial(full_size, "fsm_like"),
+     lambda: syn.fsm_like(n=1 << 17),
      ((32, "cli", "pmm"),)),
-    ("web_google_like", syn.web_google_like,
+    ("web_google_like", functools.partial(full_size, "web_google_like"),
      lambda: syn.rmat_matrix(14, 6, seed=42),
      ((128, "cli", "lane"), (8, "cli", "sell-routed"))),
-    ("road_usa_like", syn.road_usa_like,
+    ("road_usa_like", functools.partial(full_size, "road_usa_like"),
      lambda: syn.road_usa_like(n=1 << 18),
      ((8, "cli", "bell"),)),
 )
@@ -986,7 +1036,11 @@ def bound(name, args, out) -> tuple[float, str]:
     gemit is not read); K4 its index and the ysp
     elements it names (none for a -1); K14 its entries (8 B each), its work plan's tables
     (segment offsets, units, combine table: on the card they take the
-    place of the row offsets, which it does not read) and X once."""
+    place of the row offsets, which it does not read) and the X rows its
+    entries name; K13 the plane rows its slots name and the X rows they
+    name, K12 the X rows of the column blocks its bricks name, K8 the x
+    entries its rows' diagonals reach and K9 the x prefix it may read
+    (a shard of [14] reads a part of x or X)."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     ops, rate = 0, F32_OPS_PER_S
@@ -1018,19 +1072,36 @@ def bound(name, args, out) -> tuple[float, str]:
                 nbytes -= t.numel() * t.element_size()
                 nbytes += min(used, t.numel()) * t.element_size()
         ops = 2 * used
-    elif name in ("dia_spmv", "bell_gather_mac"):
+    elif name == "dia_spmv":  # the x entries its rows' diagonals reach
+        bands, offsets, x = args
+        offs = offsets.tolist()
+        reach = (min(x.numel(), bands.shape[1] + max(offs))
+                 - max(min(offs), 0))
+        nbytes += (max(reach, 0) - x.numel()) * 4
+        ops = 2 * bands.numel()
+    elif name == "bell_gather_mac":  # the x prefix it may read
+        nbytes += (args[5] - args[2].numel()) * 4
         ops = 2 * args[0].numel()
     elif name == "dia_spmm":
         ops = 2 * args[0].numel() * out.shape[1]
     elif name == "bsr_spmm":  # three TF32 passes
+        _vals, _brow, bcol, _row_start, X, _nrows = args
+        xrows = min(int(torch.unique(bcol).numel()) * 128, X.shape[0])
+        nbytes += (xrows - X.shape[0]) * X.shape[1] * 4
         ops, rate = 3 * 2 * args[0].numel() * out.shape[1], TF32_OPS_PER_S
-    elif name == "lane_reduce":
-        used = int((args[3].long() - args[2].long()).sum()) * 1024
+    elif name == "lane_reduce":  # the named plane rows, the X rows they name
+        cols, vals, row0, row1, X, _split = args
+        _, rows = rk.slice_rows(row0, row1)
+        used = rows.numel() * 1024
+        xrows = int(torch.unique(cols.view(-1, 1024)[rows]).numel())
+        nbytes += ((used - vals.numel()) * 8
+                   + (xrows - X.shape[0]) * X.shape[1] * 4)
         ops = 2 * used * out.shape[1]
-    elif name == "pmm_spmm":
+    elif name == "pmm_spmm":  # the X rows its entries name
         col, val, rowptr, X, work = args
         nbytes = sum(t.numel() * t.element_size() for t in (
-            col, val, X, work.segptr, work.units, work.combine))
+            col, val, work.segptr, work.units, work.combine))
+        nbytes += int(torch.unique(col).numel()) * X.shape[1] * 4
         ops = 2 * col.numel() * out.shape[1]
     nbytes += out.numel() * out.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1403,7 +1474,7 @@ def fsm_path(device, walks):
     2048-tile y-route, its kernels K5-K7, and the hot="off" comparison;
     ``walks``: the K7 row walks of [4] (None where [4] did not run)."""
     t0 = time.perf_counter()
-    coo = syn.fsm_like()
+    coo = full_size("fsm_like")
     print(f"[5] fsm_like: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} nnz, "
           f"generated in {time.perf_counter() - t0:.2f} s")
     sr, sd, xd, launches, _ms, spmv_dms, _lib = drive(
@@ -1551,7 +1622,8 @@ def spmm_case(tag, name, coo, K, entry, want, device):
     csr = coo.to_csr()
     if entry == "cli":
         args = argparse.Namespace(matrix=name, format="auto", rhs=K,
-                                  iters=ITERS, device=device, no_verify=False)
+                                  iters=ITERS, device=device, no_verify=False,
+                                  c=None, sigma=0)
         run = cli._spmm(args, coo)
         if run.rc != 0 or run.fmt != want:
             raise AssertionError(f"{tag} cli spmv --rhs {K} picked "
@@ -3217,7 +3289,393 @@ def loaded_paths(device, coo, card):
     return rows
 
 
-PHASES = (2, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+# Phase [14]: the row-sharded paths of the distributed layer on
+# DIST_SHARDS shards of the one card (the 2-D mesh on 2 x 2 of it): path,
+# the full-size matrix (FULL_SIZE), K (None: an SpMV), the kernel whose
+# launches and device time stand for the path, one launch a shard.
+DIST_FORMATS = (
+    ("dist_dia", "banded_2m", None, "dia_spmv"),
+    ("dist_window", "fem_like", None, "window_reduce"),
+    ("dist_bell", "road_usa_like", None, "bell_gather_mac"),
+    ("dist_bsr", "fem_like", 64, "bsr_spmm"),
+    ("dist_lane", "web_google_like", 128, "lane_reduce"),
+    ("dist_pmm", "fsm_like", 32, "pmm_spmm"),
+    ("dist2d", "web_google_like", None, "expand"),
+)
+DIST_PACKS = {
+    "dist_dia": dist_dia.dist_dia_pack,
+    "dist_window": dist_window.dist_window_pack,
+    "dist_bell": dist_bell.dist_bell_pack,
+    "dist_bsr": dist_bsr.dist_bsr_pack,
+    "dist_lane": dist_lane.dist_lane_pack,
+    "dist_pmm": dist_pmm.dist_pmm_pack,
+    "dist2d": dist2d.dist_routed_pack_2d,
+}
+
+
+def dist_run(path, dm, xd, x_sharded):
+    """One product of the row-sharded artifact ``dm`` of ``path``."""
+    if path == "dist2d":  # x enters whole; its pieces move inside
+        return dist2d.dist_spmv_routed_2d(dm, xd)
+    fn = {"dist_dia": dist_dia.dist_spmv_dia,
+          "dist_window": dist_window.dist_spmv_window,
+          "dist_bell": dist_bell.dist_spmv_bell,
+          "dist_bsr": dist_bsr.dist_spmm_bsr,
+          "dist_lane": dist_lane.dist_spmm_lane,
+          "dist_pmm": dist_pmm.dist_spmm_pmm}[path]
+    return fn(dm, xd, x_sharded=x_sharded)
+
+
+def dist_shards(path, dm):
+    """The shards' (blocks') device artifacts, in shard order."""
+    return dm.blocks if path == "dist2d" else dm.shards
+
+
+def dist_format_launches(path, dm) -> dict[str, int]:
+    """Launches of each kernel in one product of ``dm``, from its
+    geometry: one launch of the path's kernel a shard (K13's and K14's
+    second pass where a shard's plan splits an item), BELL's spill's
+    routed passes on every shard, the routed passes on every 2-D block."""
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    for sd in dist_shards(path, dm):
+        if path == "dist_bell":
+            want["bell_gather_mac"] += 1
+            sd = sd.spill
+            if sd is None:
+                continue
+        if path in ("dist_bsr", "dist_lane", "dist_pmm"):
+            got = expected_spmm_launches(sd, 1)
+        else:
+            got = expected_launches(sd)
+        for k, n in got.items():
+            want[k] += n
+    return want
+
+
+def dist_format_geometry(path, dm) -> str:
+    """The sharded pack's geometry, in one line."""
+    rows = np.diff(dm.rb_bounds * 128 if path == "dist_bsr"
+                   else dm.bounds).tolist()
+    bal = getattr(dm, "balance", None)
+    head = f"bounds {rows} rows a shard"
+    if bal:
+        head += (f", nnz {bal['part_nnz'].tolist()} (imbalance "
+                 f"{bal['imbalance']:.4f})")
+    if path == "dist_dia":
+        sd = dm.shards[0]
+        return (f"{head}; rows_max {dm.rows_max}, pre rows {dm.pre}, nd "
+                f"{sd.bands.shape[0]}, offsets {dm.offsets[0]} .. "
+                f"{dm.offsets[-1]}")
+    if path == "dist_window":
+        return (f"{head}; forced (D, W) ({dm.D}, {dm.W}), G {dm.G}, wrl "
+                f"{dm.wrl}, {dm.n_segs} x segments, {dm.nslices_u} slices in "
+                f"{len(dm.ycall_rows)} reduce groups of {dm.ycall_rows} "
+                f"(start, rows), S_pad {dm.planes[0]['emit'].shape[0]} a "
+                f"shard spliced, {[int(s.li.shape[1]) for s in dm.shards]} "
+                f"uploaded, slices a shard "
+                f"{[int(s.row0.shape[0]) for s in dm.shards]}")
+    if path == "dist_bell":
+        m, sp = dm.meta, dm.meta["spill"]
+        spill = "none" if sp is None else (
+            f"T {sp['T']}, S_pad {sp['S_pad']}, {sp['nslices']} slices, "
+            f"{sp['rows_max']} rows a shard (rows per shard "
+            f"{[int((pl['sp_map'] < dm.rows_max).sum()) for pl in dm.planes]}"
+            f"), y-route Tp {sp['y_Tp']} {sp['ymid_kind']!r}")
+        return (f"{head}; k {m['k']}, reach {m['reach']}, ncand "
+                f"{m['ncand']}, R_sub {m['R_sub']}, TBb {m['TBb']}, d "
+                f"{m['d']}, pre {m['pre']}; forced routed spill: {spill}")
+    if path == "dist_bsr":
+        return (f"{head}; row-block bounds {dm.rb_bounds.tolist()}, "
+                f"nrb_local_max {dm.nrb_local_max}, bricks uploaded a shard "
+                f"{[int(sd.vals.shape[0]) for sd in dm.shards]}")
+    if path == "dist_lane":
+        ex = [int((pl["extra_row"] < dm.rows_max).sum()) for pl in dm.planes]
+        return (f"{head}; S_lane {dm.meta['S_lane']} padded, "
+                f"{[int(s.vals_l.shape[0]) for s in dm.shards]} uploaded, "
+                f"{dm.meta['nslices']} slices a shard, split-row extras {ex} "
+                f"(padded to {dm.planes[0]['extra_row'].shape[0]}, the "
+                f"padding not uploaded), K13 pieces "
+                f"{[int(s.split.pieces.shape[0]) for s in dm.shards]}")
+    if path == "dist_pmm":
+        return (f"{head}; c_mean {dm.c_mean:.4f}, pairs "
+                f"{[p.npairs for p in dm.plans]}, chunks "
+                f"{[p.nchunks for p in dm.plans]}; the JAX kernel's segments "
+                f"a shard {[dist_pmm.tpu_segments(p) for p in dm.plans]} "
+                f"({dist_pmm.SEG} pairs each); K14's work: segments "
+                f"{[int(s.work.segptr.shape[0]) - 1 for s in dm.shards]}, "
+                f"units {[int(s.work.units.shape[0]) for s in dm.shards]}, "
+                f"split rows {[int(s.work.combine.shape[0]) for s in dm.shards]}")
+    m = dm.meta
+    return (f"{head}; {dm.R} x {dm.C} blocks, {dm.nwin_u} windows a column "
+            f"block, rows_max {dm.rows_max}; per block: T {m['T']}, S_pad "
+            f"{m['S_pad']}, {m['nslices']} slices in {len(m['ycall_rows'])} "
+            f"reduce groups, middle {m['mid_kind']!r}, y-route Tp "
+            f"{m['y_Tp']} {m['ymid_kind']!r}, "
+            f"{dm.planes[0]['extra_src'].shape[0]} split-row extras")
+
+
+def dist_block_x(dm, xd, b):
+    """Block b's gathered x of the 2-D mesh (its column block's windows)."""
+    xp = torch.nn.functional.pad(xd, (0, dm.nwin_u * dm.C * 1024
+                                      - xd.shape[0]))
+    return xp.view(-1, 1024)[b % dm.C :: dm.C].reshape(-1).contiguous()
+
+
+def dist_shard_cases(tag, path, dm, d, xd):
+    """Every kernel launch of shard (block) d in one product, as
+    kernel_cases gives them, at the tensors that shard runs on."""
+    sd = dist_shards(path, dm)[d]
+    if path == "dist_dia":
+        p = dm.pre[d]
+        return [("dia_spmv", "", (sd.bands, sd.offsets,
+                                  xd[int(dm.bounds[d]) - p:]))]
+    if path == "dist_bell":
+        cases = [("bell_gather_mac", "",
+                  dist_bell.shard_gather_args(dm, d, xd))]
+        if sd.spill is not None:
+            cases += [(name, f"spill {which}".strip(), args)
+                      for name, which, args in kernel_cases(
+                          f"{tag} spill", sd.spill, xd)]
+        return cases
+    if path == "dist2d":
+        return kernel_cases(tag, sd, dist_block_x(dm, xd, d))
+    return kernel_cases(tag, sd, xd)
+
+
+def dist_shard_csr(path, dm, csr, d):
+    """Shard d's rows of the matrix (global columns): what its kernel's
+    library call multiplies."""
+    if path == "dist_bsr":
+        lo = min(int(dm.rb_bounds[d]) * 128, csr.shape[0])
+        hi = min(int(dm.rb_bounds[d + 1]) * 128, csr.shape[0])
+    else:
+        lo, hi = int(dm.bounds[d]), int(dm.bounds[d + 1])
+    return local_csrs(csr, np.asarray([lo, hi]))[0]
+
+
+def graph_ms(wrapper, groups, device) -> float:
+    """Device ms of one replay of a CUDA graph that runs each group of
+    ``wrapper`` launches (argument tuples) in order on a stream of its
+    own, the groups side by side: no host enqueue inside the timing."""
+    side = [torch.cuda.Stream(device) for _ in groups]
+    for grp in groups:  # builds and first-launch set-up outside the capture
+        for args in grp:
+            wrapper(*args)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        cur = torch.cuda.current_stream()
+        for s, grp in zip(side, groups):
+            s.wait_stream(cur)
+            with torch.cuda.stream(s):
+                for args in grp:
+                    wrapper(*args)
+        for s in side:
+            cur.wait_stream(s)
+    ms = time_iterations(g.replay, KERNEL_ITERS, device) * 1e3
+    del g
+    return ms
+
+
+def dist_fill(tag, name, one_args, shard_args, device) -> None:
+    """Why a shard's launch takes more than its share of the one-card
+    launch: the one-card launch, the shards' launches in series, and the
+    shards' launches side by side on a stream each, all replayed from CUDA
+    graphs.  Side by side the launches fill the card together, so what
+    they save against the series is the cost of launches that leave it
+    part idle (a short last wave, the ramp and tail of each launch), and
+    what remains above the one-card launch is work or bytes that sharding
+    adds."""
+    wrapper = kernels.KERNELS[name][0]
+    one = graph_ms(wrapper, [[one_args]], device)
+    series = graph_ms(wrapper, [shard_args], device)
+    side = graph_ms(wrapper, [[a] for a in shard_args], device)
+    print(f"{tag} {name} from CUDA graphs (device ms a replay): the "
+          f"one-card launch {one:.4f}; the {len(shard_args)} shards' "
+          f"launches in series {series:.4f} (x{series / one:.3f}), side by "
+          f"side {side:.4f} (x{side / one:.3f})")
+
+
+def dist_format_kernels(tag, path, label, dm, csr, xd, launches, ours,
+                        main, one_sd, device):
+    """Shard 0's kernel launches against their plain versions (with times,
+    bound and library call, as [3]), then the path's main kernel on every
+    other shard (block), summed over the shards as [8] sums K3, and
+    against the one-card artifact ``one_sd``'s launch (dist_fill)."""
+    cases = dist_shard_cases(tag, path, dm, 0, xd)
+    library = library_whole(main, dist_shard_csr(path, dm, csr, 0), xd,
+                            device) if path != "dist2d" else {}
+    rows = check_path(f"{tag} shard 0", label, cases, launches, ours, device,
+                      library)
+    for r in rows:
+        r["launch"] = f"shard 0 {r['launch']}".strip()
+    first = "reduce_slices" if path == "dist2d" else main
+    every = [r for r in rows if r["name"] == first]
+    shard_args = [next(a for n, _, a in cases if n == first)]
+    for d in range(1, len(dist_shards(path, dm))):
+        args = next(a for n, w, a in dist_shard_cases(
+            f"{tag} shard {d}", path, dm, d, xd) if n == first)
+        shard_args.append(args)
+        lib = library_whole(first, dist_shard_csr(path, dm, csr, d), xd,
+                            device) if path != "dist2d" else {}
+        row = check_case(tag, label, first, f"shard {d}", args, launches,
+                         ours, device, lib.get(first))
+        rows.append(row)
+        every.append(row)
+    print(f"{tag} {first} over the {len(every)} shards: "
+          f"{launches[first]} launches, device time alone "
+          f"{sum(r['device_ms'] for r in every):.4f} ms, bound "
+          f"{sum(r['bound_ms'] for r in every):.4f} ms, in the path's "
+          f"trace {ours[first]:.4f} ms")
+    one_args = next(a for n, _, a in kernel_cases(f"{tag} one-card", one_sd,
+                                                  xd) if n == first)
+    dist_fill(tag, first, one_args, shard_args, device)
+    return rows
+
+
+def dist_one_card(path, coo, csr, main_sd, device):
+    """The one-card path of the same matrix: (function of x, its pack's
+    line, its device artifact)."""
+    t0 = time.perf_counter()
+    if path == "dist2d":
+        sd = main_sd if main_sd is not None else sp.to_device_routed(
+            sell_pack_routed(csr), device)
+        return functools.partial(sp.spmv_routed, sd), "[2]'s pack", sd
+    A = {"dist_dia": lambda: dia_pack(csr),
+         "dist_window": lambda: sell_pack_window(csr),
+         "dist_bell": lambda: bell_pack(csr),
+         "dist_bsr": lambda: bsr_pack(csr),
+         "dist_lane": lambda: spmm_lane_pack(csr),
+         "dist_pmm": lambda: pmm_plan(coo.rows, coo.cols, coo.vals,
+                                      coo.shape)}[path]()
+    sd = upload(A, device)
+    line = f"pack {time.perf_counter() - t0:.3f} s: {describe(A)}"
+    fn = spmm if path in ("dist_bsr", "dist_lane", "dist_pmm") else spmv
+    return functools.partial(fn, sd), line, sd
+
+
+def dist_format_path(device, path, name, K, main, main_sd):
+    """One path of DIST_FORMATS: the sharded pack, each x mode (launches,
+    golden, y's digest, times beside the one-card path's), then the
+    kernels."""
+    tag = f"[14] {path}"
+    D = DIST_SHARDS
+    coo = full_size(name)
+    csr = coo.to_csr()
+    if path == "dist2d":
+        mesh = dist2d.make_mesh2d(2, 2, devices=[device] * 4)
+    else:
+        mesh = make_mesh(devices=[device] * D)
+    t0 = time.perf_counter()
+    dm = DIST_PACKS[path](csr, mesh)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    phases = getattr(dm, "convert_phases", None)
+    print(f"{tag} {name}: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} nnz; "
+          f"pack and upload {pack_s:.3f} s"
+          + (f" ({', '.join(f'{k} {v:.3f}' for k, v in phases.items())})"
+             if phases else "") + f": {dist_format_geometry(path, dm)}")
+    rng = np.random.default_rng(0 if K is None else K)
+    X = rng.standard_normal(coo.shape[1] if K is None
+                            else (coo.shape[1], K)).astype(np.float32)
+    xd = torch.from_numpy(X).to(device)
+    if K is None:
+        golden, scale = spmv_golden_numpy(csr, X), spmv_row_scale(csr, X)
+    else:
+        golden, scale = spmm_golden(csr, X[:, :SPMM_CHECK_COLS])
+    one, line, one_sd = dist_one_card(path, coo, csr, main_sd, device)
+    one_ms = time_iterations(lambda: one(xd), ITERS, device) * 1e3
+    one_dev = sum(device_ms(lambda: one(xd), KERNEL_ITERS, None).values())
+    print(f"{tag} one-card path ({line}): {one_ms:.4f} ms/iter (CUDA "
+          f"events), device time {one_dev:.4f} ms/iter")
+    label = f"{path} {name} {mesh.size} shards"
+    if K is not None:
+        label += f" K {K}"
+    want = dist_format_launches(path, dm)
+    rows = []
+    for x_sharded in ((False,) if path == "dist2d" else (False, True)):
+        mode = "x whole" if path == "dist2d" else (
+            "x_sharded" if x_sharded else "replicated")
+        fn = functools.partial(dist_run, path, dm, xd, x_sharded)
+        kernels.reset_launches()
+        y = fn()
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        shape = (coo.shape[0],) if K is None else (coo.shape[0], K)
+        if tuple(y.shape) != shape or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{tag} {mode}: bad output "
+                                 f"{tuple(y.shape)}")
+        if K is None:
+            ok, nbad, maxrel = verify(y.cpu().numpy(), golden, rtol=1e-6,
+                                      row_scale=scale)
+            print(f"{tag} {mode}: verify vs float64 golden (rtol 1e-6, "
+                  f"row-scaled): {'PASS' if ok else 'FAIL'}, {nbad} bad "
+                  f"rows, max rel {maxrel:.3e}")
+            if not ok:
+                raise AssertionError(f"{tag} {mode} disagrees with the "
+                                     "golden")
+        else:
+            check_columns(f"{tag} {mode}", f"K {K} SpMM",
+                          y[:, :SPMM_CHECK_COLS].cpu().numpy(), golden,
+                          scale)
+        del y
+        print(f"{tag} {mode}: launches "
+              f"{ {k: n for k, n in launches.items() if n} }, the geometry "
+              f"predicts { {k: n for k, n in want.items() if n} }")
+        if launches != want:
+            raise AssertionError(f"{tag} {mode} launches {launches}, the "
+                                 f"pack needs {want}")
+        print(f"{tag} {mode} y sha256 {y_digest(fn)} (deterministic "
+              "algorithms)")
+        ms = time_iterations(fn, ITERS, device) * 1e3
+        per = device_ms(fn, KERNEL_ITERS, event_of(main),
+                        per_call=len(dist_shards(path, dm)))
+        dev = sum(per.values())
+        ours = by_kernel(per)
+        flops = 2 * coo.nnz * (1 if K is None else K)
+        print(f"{tag} {mode}: {ms:.4f} ms/iter over {ITERS} iters (CUDA "
+              f"events), {flops / ms / 1e6:.3f} GFLOPS; device time "
+              f"{device_split(per, ours)} (busy {100 * dev / ms:.1f}%); "
+              f"one-card path {one_ms:.4f} ms events, {one_dev:.4f} ms "
+              f"device (x{ms / one_ms:.2f} events, x{dev / one_dev:.2f} "
+              "device)")
+        if not x_sharded:
+            rep_ms = ms
+        else:  # the kernels' inputs are those of the first mode
+            xs = tdist.replicate_or_gather(xd, dm.mesh, coo.shape[1], True)
+            if not all(torch.equal(xi, xd) for xi in xs):
+                raise AssertionError(f"{tag} the all-gathered x is not x")
+            print(f"{tag} x_sharded: every shard's all-gathered x equals x "
+                  "bit for bit, so its kernels' inputs are the replicated "
+                  "mode's")
+            continue
+        rows += dist_format_kernels(tag, path, label, dm, csr, xd, launches,
+                                    ours, main, one_sd, device)
+    for r in rows:
+        r["dist_ms"], r["one_card_ms"] = rep_ms, one_ms
+    return rows
+
+
+def dist_formats(device, main_sd):
+    """Phase [14]: each path of DIST_FORMATS at full size on DIST_SHARDS
+    shards of the one card, then dryrun_multichip(4) on the card."""
+    print(f"[14] the {DIST_SHARDS} shards share one card: the all-gather, "
+          "the 2-D mesh's moves and its reduce-scatter are copies inside "
+          "it, and these times are not scaling figures")
+    rows = []
+    for path, name, K, main in DIST_FORMATS:
+        t0 = time.perf_counter()
+        rows += dist_format_path(device, path, name, K, main, main_sd)
+        torch.cuda.empty_cache()
+        print(f"[14] {path} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_multichip(DIST_SHARDS)
+    print(f"[14] dryrun_multichip({DIST_SHARDS}) on the card: all paths at "
+          f"the golden, {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+PHASES = (2, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14)
 # phases that run on [2]'s pack and tensors, and [10]'s, whose digests
 # they record
 NEEDS_2 = (8, 9)
@@ -3263,7 +3721,7 @@ def main(argv=None) -> int:
         print(json.dumps(y_digests("cuda")))
         return 0
     t0 = time.perf_counter()
-    coo = syn.web_google_like()
+    coo = full_size("web_google_like")
     print(f"[2] web_google_like: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} "
           f"nnz, generated in {time.perf_counter() - t0:.2f} s")
     rows = []
@@ -3290,7 +3748,9 @@ def main(argv=None) -> int:
         print(f"[10] all {len(Y_SHA256)} routed y's equal the parent's bit "
               "for bit (sha256)")
     for p, run in ((11, lambda: model_paths("cuda", coo)),
-                   (12, lambda: loaded_paths("cuda", coo, f"{kind}; nvidia-smi: {smi}"))):
+                   (12, lambda: loaded_paths("cuda", coo, f"{kind}; nvidia-smi: {smi}")),
+                   (14, lambda: dist_formats("cuda", sd if 2 in phases
+                                             else None))):
         if p in phases:
             t0 = time.perf_counter()
             rows += run()

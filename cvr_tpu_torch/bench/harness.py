@@ -121,8 +121,14 @@ def time_iterations(fn, iters: int, device, warmup: int = 3) -> float:
     return (time.perf_counter() - t0) / iters
 
 
-TRACES = 5  # traces device_ms takes at most to find one that holds every call
-MARGIN_S = 0.02  # idle time around the kept calls of a trace
+TRACES = 8  # traces device_ms takes at most to find one that holds every call
+# torch.cuda._sleep's kernel marks the kept calls' range on the device's own
+# timeline: OPEN_CYCLES spins open it, CLOSE_CYCLES spins (20 us and more)
+# close it, each one launched with the card idle, and a trace that loses
+# one spin of a kind still holds the range
+BRACKET = "spin_kernel"
+OPEN_CYCLES, CLOSE_CYCLES, SPINS = 1_000, 100_000, 2
+CLOSE_MIN_MS = 0.02
 
 
 def device_ms(fn, iters: int, marker: str | None,
@@ -132,23 +138,28 @@ def device_ms(fn, iters: int, marker: str | None,
     events around back-to-back calls also count the host, when enqueueing
     is the slower side).
 
-    A trace can lose device events: those of its first calls, and now and
-    then one or two calls' kernels in the middle.  So ``iters`` lead calls
-    open the trace, only the events inside the range of the ``iters``
-    calls after them count, and a trace counts only if it holds all of
-    them: ``marker`` (a part of an event name, or a tuple of such), a
-    kernel that one call launches ``per_call`` times,
+    A trace can lose device events, and its device timestamps, put on
+    the host's clock, may stand off it by an amount that varies from trace
+    to trace (on an H100 a range taken on the host's clock between idle
+    margins of 20 ms held now none, now part, now more than all of the
+    kept calls' kernels).  So ``iters`` lead
+    calls open the trace, and the kept ``iters`` calls after them lie
+    between SPINS short BRACKET kernels and SPINS long ones, each launched
+    with the card idle; only the device events between the last short
+    one and the first long one after it count, both on the device's
+    timeline.  A trace counts only if it holds a spin of each kind and all
+    of the kept calls: ``marker`` (a part of an event name, or a
+    tuple of such), a kernel that one call launches ``per_call`` times,
     ``iters * per_call`` times (None where ``fn`` launches no kernel of
-    ours), and every device event
-    a multiple of ``iters`` times, since each call launches the same
-    kernels.  The range opens and closes with MARGIN_S of idle time: the
-    device's timestamps may stand off the host's by a fraction of a
-    millisecond, and the kept calls of a short kernel take little more.
-    Up to TRACES traces are taken; it raises when none holds every
-    call."""
+    ours), and every device event a multiple of ``iters`` times, since
+    each call launches the same kernels.  Up to TRACES traces are taken;
+    it raises when none holds every call."""
     faults = []
     for _ in range(TRACES):
         per, count = _trace(fn, iters)
+        if isinstance(count, str):
+            faults.append(f"the trace holds {count}")
+            continue
         seen = sum(c for n, c in count.items()
                    if marker is None or is_event(n, marker))
         uneven = {n: c for n, c in count.items() if c % iters}
@@ -166,37 +177,46 @@ def device_ms(fn, iters: int, marker: str | None,
 
 
 def _trace(fn, iters: int):
-    """One trace of ``iters`` lead calls, then ``iters`` kept calls: (ms
-    per kept call by device event name, the count of each name)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """One trace of ``iters`` lead calls, then ``iters`` kept calls between
+    the spins that open and close their range (BRACKET): (ms per kept call
+    by device event name, the count of each name), or (None, what it
+    holds) where it lacks a spin of a kind, the closing one after the
+    opening one."""
+    from torch.profiler import ProfilerActivity, profile
 
-    kept = "harness.kept_calls"
+    def spins(cycles):
+        for _ in range(SPINS):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+        torch.cuda.synchronize()
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-        time.sleep(MARGIN_S)
-        with record_function(kept):
-            time.sleep(MARGIN_S)
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(MARGIN_S)
-    events = prof.events()
+        spins(OPEN_CYCLES)
+        for _ in range(iters):
+            fn()
+        spins(CLOSE_CYCLES)
     dt = torch.autograd.DeviceType
-    window = [e.time_range for e in events
-              if e.name == kept and e.device_type == dt.CPU]
-    if len(window) != 1:
-        raise AssertionError(f"the trace holds {len(window)} ranges {kept}")
-    t0, t1 = window[0].start, window[0].end
+    events = [e for e in prof.events() if e.device_type == dt.CUDA]
+    marks = [e for e in events if BRACKET in e.name]
+    opens = [e.time_range.start for e in marks
+             if e.device_time / 1e3 < CLOSE_MIN_MS]
+    closes = [e.time_range.start for e in marks
+              if e.device_time / 1e3 >= CLOSE_MIN_MS]
+    # a trace may also hold the spins of an earlier one, before its own
+    closes = [t for t in closes if opens and t > max(opens)]
+    if not opens or not closes:
+        return None, f"{len(opens)} opening and {len(closes)} closing spins"
+    t0, t1 = max(opens), min(closes)
+    if any(t0 < e.time_range.start < t1 for e in marks):
+        return None, "a spin between its own"
     per, count = {}, {}
     for e in events:
-        # the range itself is also laid over the device timeline
-        if (e.device_type == dt.CUDA and e.name != kept
-                and t0 <= e.time_range.start <= t1):
+        if BRACKET not in e.name and t0 < e.time_range.start < t1:
             per[e.name] = per.get(e.name, 0.0) + e.device_time / iters / 1e3
             count[e.name] = count.get(e.name, 0) + 1
     return per, count

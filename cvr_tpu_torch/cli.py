@@ -240,9 +240,11 @@ class SpmmRun:
     max_rel_err: float | None = None
 
 
-def spmm_pick(fmt: str, coo, K: int):
+def spmm_pick(fmt: str, coo, K: int, C: int | None = None, sigma: int = 0):
     """(format name, packed host artifact) that ``spmv --rhs K --format
-    fmt`` runs, picked as the JAX package's CLI picks them.  Raises
+    fmt`` runs, picked as the JAX package's CLI picks them; ``sell`` and
+    ``csr`` pack the plain SELL planes at slice height C (default 1024)
+    and sort window sigma, as ``--c`` and ``--sigma`` give them.  Raises
     BsrInfeasible for --format bsr where the bricks are refused."""
     from cvr_tpu_torch.formats import pack_auto
     from cvr_tpu_torch.formats.bell import BellMatrix, bell_pack
@@ -296,7 +298,7 @@ def spmm_pick(fmt: str, coo, K: int):
     if pack is not None:
         return fmt, pack(csr)
     # "sell" and "csr": the plain SELL planes, as in the JAX package's CLI
-    return "sell", sell_pack(csr)
+    return "sell", sell_pack(csr, C=C or 1024, sigma=sigma)
 
 
 def _spmm(args, coo, refusals=()) -> SpmmRun:
@@ -316,7 +318,7 @@ def _spmm(args, coo, refusals=()) -> SpmmRun:
     t0 = time.perf_counter()
     try:
         fmt, packed = spmm_pick(FORMAT_ALIASES.get(args.format, args.format),
-                                coo, K)
+                                coo, K, C=args.c, sigma=args.sigma)
     except refusals:
         raise
     except BsrInfeasible as e:

@@ -78,6 +78,9 @@ class BellMatrix:
     TBb: int
     convert_time: float = 0.0
     convert_phases: dict | None = None
+    # the spill as raw (rows, cols, vals) triples, where the pack was asked
+    # not to pack it (pack_spill=False: the sharded packer packs them)
+    spill_raw: tuple | None = None
 
     @property
     def R_sub(self) -> int:
@@ -95,6 +98,9 @@ def bell_pack(
     k: int | None = None,
     max_spill: float = 0.02,
     max_k: int = 12,
+    reach_force: int | None = None,
+    R_sub_min: int = 0,
+    pack_spill: bool = True,
 ) -> BellMatrix:
     """Pack a banded-sparse CSR into BELL planes and a routed spill.
 
@@ -103,6 +109,13 @@ def bell_pack(
     row, for some k <= max_k (the smallest is taken unless ``k`` is
     given); otherwise BellInfeasible.  The native passes run when the
     library loads, the numpy path otherwise.
+
+    ``reach_force`` and ``R_sub_min`` pin the window geometry, so that row
+    shards packed one by one share it (cvr_tpu_torch/parallel/dist_bell.py);
+    ``pack_spill=False`` leaves the spill as raw (rows, cols, vals)
+    triples in ``spill_raw``.  Columns may be negative down to
+    -128*ceil(reach/128): a row shard's band reaches left of its first
+    row, into the x table's ``pre`` rows.
     """
     from cvr_tpu_torch import _native
 
@@ -136,9 +149,13 @@ def bell_pack(
             f"spill {spilled / nnz:.1%} at k={min(k, max_k)} over the "
             f"{max_spill:.0%} gate"
         )
+    if reach_force is not None:
+        if reach_force < reach:
+            raise ValueError("reach_force below the measured reach")
+        reach = reach_force
     cr = -(-reach // 128)
     TBb = bell_tbb0(k)
-    R_sub = _round_up(-(-max(nrows, 1) // 128), TBb * 8)
+    R_sub = _round_up(max(-(-max(nrows, 1) // 128), R_sub_min), TBb * 8)
 
     if use_native:
         li, vals, sp_rows, sp_cols, sp_vals = _native.bell_fill_native(
@@ -162,8 +179,10 @@ def bell_pack(
         sp_vals = csr.vals[sp]
     pre = _round_up(cr, 8)
 
-    spill = spill_map = None
-    if sp_rows.size:
+    spill = spill_map = spill_raw = None
+    if sp_rows.size and not pack_spill:
+        spill_raw = (sp_rows, sp_cols, sp_vals)
+    elif sp_rows.size:
         from cvr_tpu_torch.formats.sell_routed import sell_pack_routed
 
         # compress the spill to its occupied rows, so that its pack and
@@ -198,6 +217,7 @@ def bell_pack(
         TBb=bell_tbb(k, R_sub),
         convert_time=dt,
         convert_phases=phases,
+        spill_raw=spill_raw,
     )
 
 

@@ -187,7 +187,10 @@ def _grid_fit(wmin, wmax, W, G):
 
 
 def sell_pack_window(
-    csr: CSRMatrix, segw: int = SEGW_WIN, use_native: bool | None = None
+    csr: CSRMatrix,
+    segw: int = SEGW_WIN,
+    use_native: bool | None = None,
+    force_dw: tuple[int, int] | None = None,
 ) -> SellWindow:
     """CSR -> SELL-W, O(nnz).
 
@@ -195,7 +198,10 @@ def sell_pack_window(
     row's column spread about D-fold for ~D/2 extra slots per row, and
     W = 1024 halves the gather reach of 2048.  Raises WindowInfeasible
     when nothing fits.  ``use_native`` (default: float32 values) picks the
-    native passes over the numpy ones when the library loads.
+    native passes over the numpy ones when the library loads.  ``force_dw``
+    pins (D, W), so that row shards packed one by one share one geometry
+    (cvr_tpu_torch/parallel/dist_window.py); WindowInfeasible if it does
+    not fit.
     """
     from cvr_tpu_torch.ops import route_planes as rp
 
@@ -213,7 +219,7 @@ def sell_pack_window(
     with pt.phase("plan"):
         plans = {D: _plan_for_d(nrows, csr.row_lengths, D) for D in (1, 2, 4)}
         # candidate order: estimated kernel cost = rows x (base + gathers)
-        cands = sorted(
+        cands = [tuple(force_dw)] if force_dw is not None else sorted(
             [(D, W) for D in (1, 2, 4) for W in (1024, 2048)],
             key=lambda dw: plans[dw[0]][3] * (40 + 4.5 * (dw[1] // 128)),
         )
@@ -243,7 +249,8 @@ def sell_pack_window(
                 chosen = (D, W, grid, wb_used)
                 break
         if chosen is None:
-            wmin, wmax = minmax[1]
+            # the spread without duplication (the pinned D's under force_dw)
+            wmin, wmax = minmax.get(1) or minmax[cands[0][0]]
             spread = int((wmax.astype(np.int64) - wmin.astype(np.int64)).max())
             raise WindowInfeasible(
                 f"max plane-row column spread {spread} exceeds the window "

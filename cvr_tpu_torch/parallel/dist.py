@@ -80,11 +80,11 @@ def initialize_distributed(**kwargs) -> None:
 
 
 def shard_vector(x: torch.Tensor, mesh: Mesh, n_pad: int):
-    """x padded with zeros to ``n_pad`` entries (a multiple of the mesh
-    size) and cut into equal pieces, piece i on shard i's device: the
-    row-sharded input."""
+    """x (or the rows of X (n, K)) padded with zeros to ``n_pad`` rows (a
+    multiple of the mesh size) and cut into equal pieces, piece i on shard
+    i's device: the row-sharded input."""
     D = mesh.size
-    x = F.pad(x, (0, n_pad - x.shape[0]))
+    x = F.pad(x, (0, 0) * (x.dim() - 1) + (0, n_pad - x.shape[0]))
     w = n_pad // D
     return [x[i * w : (i + 1) * w].to(d) for i, d in enumerate(mesh.devices)]
 
@@ -138,31 +138,11 @@ class RingPermute:
             torch.cuda.current_stream(d).wait_stream(s)
 
 
-def unshard(mesh: Mesh, ys, unpad_index: torch.Tensor) -> torch.Tensor:
-    """The shards' y slices (each padded to the same length) in row
-    order on the mesh's first device."""
-    dev = mesh.devices[0]
-    return torch.stack([y.to(dev) for y in ys]).reshape(-1)[unpad_index]
-
-
-def unpad_index(bounds: np.ndarray, rows_max: int,
-                device) -> torch.Tensor:
-    """[nrows] -> position of each row in the stacked (D, rows_max)
-    per-shard y: global row r lives in shard d at local index
-    r - bounds[d]."""
-    D = bounds.shape[0] - 1
-    nrows = int(bounds[-1])
-    row_ids = np.arange(nrows, dtype=np.int64)
-    shard_of_row = (
-        np.searchsorted(bounds, row_ids, side="right").astype(np.int64) - 1
-    )
-    if D * rows_max >= 2**31:
-        raise ValueError(
-            "stacked local-y index exceeds int32 range "
-            f"({D} shards x {rows_max} padded rows)"
-        )
-    unpad = shard_of_row * rows_max + (row_ids - bounds[shard_of_row])
-    return torch.from_numpy(unpad).to(device)
+def concat_rows(device, ys) -> torch.Tensor:
+    """The shards' outputs, each cut to its own rows, in row order on
+    ``device`` (the mesh's first; the shards are contiguous row ranges in
+    order)."""
+    return torch.cat([y.to(device) for y in ys])
 
 
 def local_csrs(csr: CSRMatrix, bounds: np.ndarray) -> list[CSRMatrix]:
@@ -185,7 +165,6 @@ class DistSellMatrix:
 
     planes: tuple[dict, ...]  # per shard: name -> tensor
     bounds: np.ndarray  # [D + 1] global row bounds
-    unpad_index: torch.Tensor  # [nrows] -> position in stacked local y
     shape: tuple[int, int]
     nnz: int
     C: int
@@ -245,7 +224,6 @@ def dist_sell_pack(
     return DistSellMatrix(
         planes=tuple(planes),
         bounds=bounds,
-        unpad_index=unpad_index(bounds, rows_max, mesh.devices[0]),
         shape=csr.shape,
         nnz=csr.nnz,
         C=C,
@@ -272,9 +250,9 @@ def _local_spmv(pl: dict, x_full: torch.Tensor, nslices: int,
 
 def replicate_or_gather(x: torch.Tensor, mesh: Mesh, n: int,
                         x_sharded: bool):
-    """x on every shard's device: replicated (x_sharded False), or cut
-    into row pieces (padded to a multiple of the mesh size) and
-    all-gathered."""
+    """x (or X (n, K)) on every shard's device: replicated (x_sharded
+    False), or cut into row pieces (padded to a multiple of the mesh size)
+    and all-gathered."""
     if not x_sharded:
         return [x.to(d) for d in mesh.devices]
     n_pad = -(-n // mesh.size) * mesh.size
@@ -289,9 +267,9 @@ def dist_spmv(dm: DistSellMatrix, x: torch.Tensor,
     enters row-sharded and is all-gathered before the per-shard SpMV.
     """
     xs = replicate_or_gather(x, dm.mesh, dm.shape[1], x_sharded)
-    ys = [_local_spmv(pl, xi, dm.nslices_max, dm.local_rows_max)
-          for pl, xi in zip(dm.planes, xs)]
-    return unshard(dm.mesh, ys, dm.unpad_index)
+    return concat_rows(dm.mesh.devices[0], [
+        _local_spmv(pl, xi, dm.nslices_max, dm.local_rows_max)[:n]
+        for pl, xi, n in zip(dm.planes, xs, np.diff(dm.bounds))])
 
 
 def dist_spmv_jit(dm: DistSellMatrix, x_sharded: bool = False):

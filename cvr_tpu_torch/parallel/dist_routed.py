@@ -49,10 +49,9 @@ from cvr_tpu_torch.ops.spmv_routed import (
 from cvr_tpu_torch.parallel.dist import (
     Mesh,
     RingPermute,
+    concat_rows,
     local_csrs,
     replicate_or_gather,
-    unpad_index,
-    unshard,
 )
 from cvr_tpu_torch.parallel.partition import (
     partition_balance,
@@ -74,7 +73,6 @@ class DistRoutedMatrix:
     seg_ring: tuple[torch.Tensor, ...] | None  # per shard, ring packs
     meta: dict  # shared geometry (T, S_pad, nslices, ...)
     bounds: np.ndarray  # [D + 1] global row bounds
-    unpad_index: torch.Tensor  # [nrows] -> position in stacked local y
     shape: tuple[int, int]
     nnz: int
     mesh: Mesh
@@ -202,10 +200,10 @@ def dist_routed_pack(
     return _dist_routed_finish(csr, mesh, bounds, srs, ring_meta, pt)
 
 
-def _dist_routed_finish(csr, mesh: Mesh, bounds, srs, ring_meta=None,
-                        pt: PhaseTimer | None = None) -> DistRoutedMatrix:
-    """Check the shards' geometry, name their planes as the JAX package
-    stacks them, and upload."""
+def forced_planes(srs, prefix: str = "") -> tuple[list[dict], dict]:
+    """Check that shards packed under one forced geometry share it, and
+    name each shard's planes (after ``prefix``) and the shared geometry as
+    the JAX package stacks them: (per-shard plane dicts, meta)."""
     s0 = srs[0]
     mid_kind = s0.mid["kind"]
     ymid_kind = s0.y_ra["mid_planes"]["kind"]
@@ -235,9 +233,7 @@ def _dist_routed_finish(csr, mesh: Mesh, bounds, srs, ring_meta=None,
                 pl[f"mid_{k}"] = sr.mid[k]
             if k in sr.y_ra["mid_planes"]:
                 pl[f"ymid_{k}"] = sr.y_ra["mid_planes"][k]
-        if ring_meta is not None:
-            pl["seg_ring"] = sr.seg_ring
-        planes.append(pl)
+        planes.append({prefix + k: v for k, v in pl.items()})
     meta = {
         "T": s0.T,
         "S_pad": s0.S_pad,
@@ -254,7 +250,17 @@ def _dist_routed_finish(csr, mesh: Mesh, bounds, srs, ring_meta=None,
         "ymid_kind": ymid_kind,
         "ymid_Tk": s0.y_ra["mid_planes"]["Tk"],
     }
+    return planes, meta
+
+
+def _dist_routed_finish(csr, mesh: Mesh, bounds, srs, ring_meta=None,
+                        pt: PhaseTimer | None = None) -> DistRoutedMatrix:
+    """Check the shards' geometry, name their planes as the JAX package
+    stacks them, and upload."""
+    planes, meta = forced_planes(srs)
     if ring_meta is not None:
+        for pl, sr in zip(planes, srs):
+            pl["seg_ring"] = sr.seg_ring
         meta.update(ring_meta)
     pt = pt or PhaseTimer()
     with pt.phase("upload"):
@@ -321,10 +327,8 @@ def _assemble(planes, meta, bounds, shape, nnz, mesh: Mesh,
     ) if ring else None
     return DistRoutedMatrix(
         planes=tuple(planes), shards=shards, seg_ring=seg_ring, meta=meta,
-        bounds=bounds,
-        unpad_index=unpad_index(bounds, rows_max, mesh.devices[0]),
-        shape=tuple(shape), nnz=int(nnz), mesh=mesh, rows_max=rows_max,
-        balance=balance,
+        bounds=bounds, shape=tuple(shape), nnz=int(nnz), mesh=mesh,
+        rows_max=rows_max, balance=balance,
     )
 
 
@@ -371,8 +375,9 @@ def dist_spmv_routed(
                 "overlap requires dist_routed_pack(..., overlap=True)")
         return _dist_spmv_routed_overlap(dm, x)
     xs = replicate_or_gather(x, dm.mesh, dm.shape[1], x_sharded)
-    ys = [spmv_routed(sd, xi) for sd, xi in zip(dm.shards, xs)]
-    return unshard(dm.mesh, ys, dm.unpad_index)
+    return concat_rows(dm.mesh.devices[0], [
+        spmv_routed(sd, xi)[:n]
+        for sd, xi, n in zip(dm.shards, xs, np.diff(dm.bounds))])
 
 
 def _dist_spmv_routed_overlap(dm: DistRoutedMatrix,
@@ -420,9 +425,9 @@ def _dist_spmv_routed_overlap(dm: DistRoutedMatrix,
         cur = nxt
     # after the last step every shard's buffer holds all of x
     ncols = dm.shape[1]
-    ys = [route_post_expand(sd, g, xgi.view(-1)[:ncols])
-          for sd, g, xgi in zip(dm.shards, g1, xg)]
-    return unshard(dm.mesh, ys, dm.unpad_index)
+    return concat_rows(dm.mesh.devices[0], [
+        route_post_expand(sd, g, xgi.view(-1)[:ncols])[:n]
+        for sd, g, xgi, n in zip(dm.shards, g1, xg, np.diff(dm.bounds))])
 
 
 def dist_spmv_routed_jit(

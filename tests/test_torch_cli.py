@@ -174,6 +174,35 @@ def test_sigma_and_c_reach_the_sell_pack(tmp_path, capsys):
     assert np.array_equal(z["perm"], want.perm)
 
 
+@pytest.mark.parametrize("cmd", ["spmv", "compare"])
+def test_sigma_and_c_reach_the_spmm_sell_pack(cmd, tmp_path, monkeypatch,
+                                              capsys):
+    """``spmv --rhs 8 --format sell --c 128 --sigma 64`` (and compare's
+    ``sell`` row) packs the SELL planes at C 128 and sigma 64, as the JAX
+    package's CLI does; without the flags, C 1024 and sigma 0."""
+    import cvr_tpu_torch.formats.sell as tsell
+
+    packs = []
+
+    def recording(*a, **kw):
+        packs.append(original(*a, **kw))
+        return packs[-1]
+
+    original = tsell.sell_pack
+    monkeypatch.setattr(tsell, "sell_pack", recording)
+    _, tcoo = powerlaw(n=2000)
+    m = _write(tmp_path / "m.mtx", tcoo)
+    fmt = ["--format", "sell"] if cmd == "spmv" else []
+    assert main([cmd, m, "--rhs", "8", *fmt, "--c", "128", "--sigma", "64",
+                 "--iters", "1", *CPU]) == 0
+    assert (packs[-1].C, packs[-1].sigma) == (128, 64)
+    want = original(tcoo.to_csr(), C=128, sigma=64)
+    assert np.array_equal(packs[-1].perm, want.perm)
+    assert "Verification: PASS" in capsys.readouterr().out
+    assert cli.spmm_pick("sell", tcoo, 8)[1].C == 1024
+    assert cli.spmm_pick("csr", tcoo, 8)[1].sigma == 0
+
+
 @pytest.mark.parametrize("alias, impl", [("routed", "sell-routed"),
                                          ("window", "sell-window")])
 def test_harness_takes_the_impl_aliases(alias, impl):

@@ -307,6 +307,56 @@ def test_formats_export_the_reference_names():
             or name not in cvr_tpu_torch.__all__
 
 
+# the JAX subpackages' names not ported yet, and the ones the port gives
+# under another name
+SUBPACKAGE_GAPS = {
+    "io": {"load_suitesparse"},
+    "ops": {"spmv_coo_jnp"},
+    "utils": {"Timer", "append_result", "append_jsonl"},
+}
+OPS_RENAMED = {"sell_spmv_xla": "sell_spmv", "sell_spmm_xla": "sell_spmm",
+               "spmv_csr_jnp": "spmv_csr_torch"}
+
+
+@pytest.mark.parametrize("sub", sorted(SUBPACKAGE_GAPS))
+def test_subpackages_export_the_reference_names(sub):
+    """cvr_tpu_torch.{io,ops,utils}.__all__ is the JAX subpackage's, in its
+    order, less the names not ported yet (renamed where the port's
+    function is torch's), each name the object of the port's module."""
+    import importlib
+
+    jmod = importlib.import_module(f"cvr_tpu.{sub}")
+    tmod = importlib.import_module(f"cvr_tpu_torch.{sub}")
+    gaps = SUBPACKAGE_GAPS[sub]
+    want = [OPS_RENAMED.get(n, n) for n in jmod.__all__ if n not in gaps]
+    assert tmod.__all__ == want
+    assert gaps <= set(jmod.__all__)
+    for name in want:
+        assert callable(getattr(tmod, name)), name
+    if sub == "ops":
+        # the function, as ``from cvr_tpu.ops import spmv`` gives it
+        from cvr_tpu_torch.ops import spmv as tspmv
+
+        assert tspmv is cvr_tpu_torch.spmv
+
+
+def test_ops_import_builds_nothing_and_leaves_jax_unloaded():
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, cvr_tpu_torch.ops, cvr_tpu_torch.io, cvr_tpu_torch.utils\n"
+        "from cvr_tpu_torch.ops import _build\n"
+        "assert _build._LIB is None, 'a kernel was built'\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'cvr_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def _imported(path):
     """The top-level module names a file imports."""
     names = set()

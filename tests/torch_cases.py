@@ -89,6 +89,14 @@ def same_arrays(t):
     return j.sum_duplicates(), t
 
 
+def stacked_rows(bounds, rows_max):
+    """Where each global row sits in the JAX package's stacked (D,
+    rows_max) per-shard y (its ``unpad_index``) when the row shards'
+    own rows are concatenated in order, as the port puts y together."""
+    return np.concatenate([d * rows_max + np.arange(n, dtype=np.int64)
+                           for d, n in enumerate(np.diff(bounds))])
+
+
 def empty_rows_cols():
     return same_arrays(tsyn.empty_rows_cols())
 
