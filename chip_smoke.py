@@ -173,10 +173,28 @@ Phases, each printed on its own lines:
      the all-gathered x is checked equal to x, so the kernels' inputs are
      the same); then dryrun_multichip(4), the JAX dry run's ten paths, on
      the card;
+ 15. multi-process runs: 4 gloo ranks (initialize_distributed), each a
+     process that torch.multiprocessing spawns and hands [2]'s CSR as
+     shared CPU tensors, share the card, so every move goes through host
+     memory: [8]'s routed SpMV of web-Google-like in its three modes (each
+     rank packs every shard and uploads its own), with the packs' seconds
+     and geometry, each rank's launches against its shard's geometry, y
+     at the float64 golden (rank 0) and its sha256 on every rank
+     (deterministic algorithms) equal to [8]'s recorded one, the time by
+     CUDA events, rank 0's device time, the exchange alone and [8]'s
+     one-process time beside it, and rank 0's kernel launches (K1, K3,
+     K4, K15 on its ring steps) against their plain versions as in [3];
+     [14]'s 2-D mesh on 2 x 2 ranks (its digest [14]'s); the multi-host
+     script's window, dia, xla, bell and lane impls on the smaller
+     matrices of their generators, each rank's y bit for bit that of the
+     single-process mesh of 4 shards of the card; then ``python -m
+     cvr_tpu_torch.multihost --impl routed`` as 4 gloo ranks and alone,
+     each exiting 0;
  13. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
-``--phases 1,2,12`` runs the build, the main path and [12] alone (the
+``--phases 1,2,12`` runs the build, the main path and [12] alone, and
+``--phases 15`` the build and [15] (the
 default runs every phase; [0], [1] and [13] always run, [3] with [2], [8]
 and [9] need [2], [14] reuses [2]'s pack where [2] ran, and [10]'s check
 runs when [2], [4], [5], [6] and [8] all ran).  The full-size matrices
@@ -206,7 +224,7 @@ import scipy.sparse as sps
 from scipy.sparse.linalg import spsolve
 import torch
 
-from cvr_tpu_torch import _native, cli
+from cvr_tpu_torch import _native, cli, multihost
 from cvr_tpu_torch.bench import models as bench_models
 from cvr_tpu_torch.bench import synthetic as syn
 from cvr_tpu_torch.bench.harness import (
@@ -219,6 +237,7 @@ from cvr_tpu_torch.formats import pack_auto
 from cvr_tpu_torch.formats.bell import BellMatrix, bell_pack
 from cvr_tpu_torch.formats.bsr import BsrMatrix, bsr_pack
 from cvr_tpu_torch.formats.coo import COOMatrix
+from cvr_tpu_torch.formats.csr import CSRMatrix
 from cvr_tpu_torch.formats.dia import DiaMatrix, dia_pack
 from cvr_tpu_torch.formats.sell import SellMatrix, sell_pack
 from cvr_tpu_torch.formats.sell_routed import (
@@ -507,6 +526,7 @@ PARENT_Y_SHA256 = {
     "[8] wiki_talk_like x_sharded": "8dc6e398c51d2065",
 }
 Y_SHA256 = {}  # this run's, by label (record_y)
+DIST_MS = {}  # [8]'s ms per SpMV (CUDA events) by (matrix, mode), for [15]
 
 
 def y_digest(fn) -> str:
@@ -1812,12 +1832,13 @@ def dist_launches(dm, mode) -> dict[str, int]:
     ``dm``: every shard runs one shard's passes (one geometry); the ring
     mode replaces each shard's K1 by one K15 per ring step with blocks."""
     want = dict.fromkeys(kernels.KERNELS, 0)
-    for shard in dm.shards:  # K3's second pass runs where a shard splits
+    held = [s for s in dm.shards if s is not None]  # a rank holds its own
+    for shard in held:  # K3's second pass runs where a shard splits
         for k, n in expected_launches(shard).items():
             want[k] += n
     if mode == "overlap":
         want["expand"] = 0
-        want["expand_ring"] = dm.n_shards * sum(
+        want["expand_ring"] = len(held) * sum(
             1 for c in dm.meta["ring_cnt"] if c)
     return want
 
@@ -1880,6 +1901,8 @@ def ring_steps(dm, xd):
     XGR = max(m["n_segs"] * segw * 8 + 8, D * Wr)
     out = []
     for i, sd in enumerate(dm.shards):
+        if sd is None:  # another rank's
+            continue
         k_lo = ring_base(dm, i)
         xg = torch.zeros((XGR, 128), dtype=torch.float32, device=xd.device)
         for s in range(D):
@@ -2097,6 +2120,7 @@ def dist_paths(device, main_sd, main_coo):
             tag = f"[8] {name}"
             launches, ms, ours = dist_mode(tag, dm, mode, xd, golden, scale,
                                            device)
+            DIST_MS[name, mode] = ms
             path = f"{name} {DIST_SHARDS} shards {mode}"
             ring_mode = mode == "overlap"
             if ring_mode:
@@ -3338,6 +3362,8 @@ def dist_format_launches(path, dm) -> dict[str, int]:
     routed passes on every shard, the routed passes on every 2-D block."""
     want = dict.fromkeys(kernels.KERNELS, 0)
     for sd in dist_shards(path, dm):
+        if sd is None:  # another rank's
+            continue
         if path == "dist_bell":
             want["bell_gather_mac"] += 1
             sd = sd.spill
@@ -3675,7 +3701,339 @@ def dist_formats(device, main_sd):
     return rows
 
 
-PHASES = (2, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14)
+# Phase [15]: RANKS gloo ranks (initialize_distributed) that share the one
+# card: the routed path of [8] on web-Google-like in its three modes, the
+# 2-D mesh of [14], and the multi-host script's other impls, each on a
+# smaller matrix of its generator (the ones [6] and [7] write for the CLI),
+# with the single-process mesh of RANKS shards of the card beside it.
+RANKS = 4
+RANK_TIMEOUT = 900.0  # s a wait may take: rank 0 checks kernels alone
+# a [15] SpMV takes 10-40 ms, its moves at the host's speed: fewer
+# iterations than ITERS give a steady mean
+RANK_ITERS = 20
+RANK_IMPLS = (
+    ("window", lambda: syn.fem_like(n=1 << 15)),
+    ("dia", lambda: syn.banded_matrix(1 << 16, 27)),
+    ("xla", lambda: syn.rmat_matrix(14, 6, seed=42)),
+    ("bell", lambda: syn.road_usa_like(n=1 << 18)),
+    ("lane", lambda: syn.rmat_matrix(14, 6, seed=42)),
+)
+# the [14] path whose launches each impl's geometry gives (xla: torch ops)
+IMPL_PATHS = {"window": "dist_window", "dia": "dist_dia",
+              "bell": "dist_bell", "lane": "dist_lane"}
+# [14]'s dist2d y of web-Google-like on 2 x 2, as its runs on an H100 print it
+DIST2D_SHA256 = "98737e9f1252ae78"
+ENTRY_TIMEOUT = 600
+
+
+def nonzero(counts) -> dict:
+    """The kernels of a launch count that launched."""
+    return {k: n for k, n in counts.items() if n}
+
+
+def shared(csr):
+    """The CSR's arrays as CPU tensors, which the spawned ranks share."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a))
+                 for a in (csr.rowptr, csr.cols, csr.vals)) + (csr.shape,)
+
+
+def unshared(t) -> CSRMatrix:
+    return CSRMatrix(rowptr=t[0].numpy(), cols=t[1].numpy(),
+                     vals=t[2].numpy(), shape=tuple(t[3]))
+
+
+def lead_device_ms(fn, lead, *args, **kw):
+    """device_ms(fn, ...) on rank 0 (it traces its own process), while
+    every other rank calls fn as often: rank 0 broadcasts 1 before each
+    call and 0 after the last, so that the collectives inside fn pair up.
+    Returns rank 0's device ms by kernel, None on the others."""
+    bcast = torch.distributed.broadcast
+    if lead:
+        def call():
+            bcast(torch.ones(1), 0)
+            return fn()
+        try:
+            return device_ms(call, *args, **kw)
+        finally:
+            bcast(torch.zeros(1), 0)
+    flag = torch.zeros(1)
+    while True:
+        bcast(flag, 0)
+        if not flag.item():
+            return None
+        fn()
+
+
+def rank_exchange(dm, mode, xd):
+    """The moves of one routed SpMV of ``mode`` alone: x's all-gather (or
+    the ring's D - 1 moves) and y's all-gather, on this rank's tensors."""
+    mesh = dm.mesh
+    n = int(np.diff(dm.bounds)[mesh.rank])
+    ys = tdist.on_shards(mesh, lambda i: torch.zeros(n, device=xd.device))
+    if mode != "overlap":
+        def fn():
+            tdist.replicate_or_gather(xd, mesh, dm.shape[1],
+                                      mode == "x_sharded")
+            return tdist.concat_rows(mesh, ys, dm.bounds)
+        return fn
+    Wr = dm.meta["ring_Wr"]
+    ring = tdist.RingPermute(mesh, (Wr, 128))
+    piece = tdist.on_shards(mesh, lambda i: torch.zeros(
+        (Wr, 128), device=xd.device))
+
+    def fn():
+        cur = piece
+        for _ in range(mesh.size - 1):
+            nxt = ring.start(cur)
+            ring.wait()
+            cur = nxt
+        return tdist.concat_rows(mesh, ys, dm.bounds)
+    return fn
+
+
+def rank_time(tag, fn, want_sha, lead, golden, scale, device,
+              exchange=None):
+    """One run of ``fn`` on every rank: this rank's launches, y at the
+    float64 golden (``golden``: (y's shape, the golden on rank 0)),
+    y's digest on every rank against ``want_sha`` (None: the ranks agree),
+    the time by CUDA events and the exchange's time alone.  Returns
+    (launches, digest, ms, exchange ms or None)."""
+    kernels.reset_launches()
+    y = fn()
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    if y.shape != golden[0] or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{tag} bad output {tuple(y.shape)}")
+    if lead:
+        ok, nbad, maxrel = verify(y.cpu().numpy(), golden[1], rtol=1e-6,
+                                  row_scale=scale)
+        print(f"{tag}: verify vs float64 golden (rtol 1e-6, row-scaled): "
+              f"{'PASS' if ok else 'FAIL'}, {nbad} bad rows, max rel "
+              f"{maxrel:.3e}")
+        if not ok:
+            raise AssertionError(f"{tag} disagrees with the golden")
+    del y
+    shas = multihost.world_list(y_digest(fn))
+    if lead:
+        print(f"{tag}: y sha256 on ranks 0-{len(shas) - 1} {shas} "
+              f"(deterministic algorithms), want {want_sha or 'one'}")
+    if len(set(shas)) != 1 or (want_sha is not None and shas[0] != want_sha):
+        raise AssertionError(f"{tag}: y sha256 {shas}, want {want_sha}")
+    ms = time_iterations(fn, RANK_ITERS, device) * 1e3
+    ex = (time_iterations(exchange, RANK_ITERS, device) * 1e3 if exchange
+          else None)
+    return launches, shas[0], ms, ex
+
+
+def rank_routed(tag, csr, mesh, xd, golden, scale, lead, dist_ms):
+    """[8]'s web-Google-like modes on the world's ranks; rank 0 holds its
+    kernel launches against their plain versions.  Returns (launches,
+    times, kernels-JSON rows) of this rank."""
+    device = xd.device
+    packs = {}
+    for ring in (False, True):
+        t0 = time.perf_counter()
+        dm = dist_routed_pack(csr, mesh, overlap=ring)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        phases = ", ".join(f"{k} {v:.3f}"
+                           for k, v in dm.convert_phases.items())
+        print(f"{tag} dist_routed_pack(overlap={ring}) {secs:.3f} s "
+              f"({phases})" + (f": {dist_geometry(dm)}" if lead else ""))
+        packs[ring] = dm
+    got, times, rows = {}, {}, []
+    for mode, ring, check in DIST_CASES[0][2]:
+        dm = packs[ring]
+        fn = functools.partial(dist_spmv_routed, dm, xd, **DIST_MODES[mode])
+        want = dist_launches(dm, mode)
+        launches, _, ms, ex = rank_time(
+            f"{tag} {mode}", fn,
+            PARENT_Y_SHA256[f"[8] web_google_like {mode}"], lead, golden,
+            scale, device, rank_exchange(dm, mode, xd))
+        per = lead_device_ms(fn, lead, KERNEL_ITERS, "reduce_slices_kernel")
+        print(f"{tag} {mode}: launches {nonzero(launches)}, the geometry "
+              f"of its shard {mesh.rank}: {nonzero(want)}")
+        if launches != want:
+            raise AssertionError(f"{tag} {mode} launches {launches}, the "
+                                 f"pack needs {want}")
+        got[mode], times[mode] = launches, (ms, ex)
+        if lead:
+            dev = sum(per.values())
+            ours = by_kernel(per)
+            if mode == "overlap":  # K15 launches K1's kernel
+                ours["expand_ring"], ours["expand"] = ours["expand"], 0.0
+            one = dist_ms.get(("web_google_like", mode))
+            print(f"{tag} {mode}: {ms:.4f} ms/iter over {RANK_ITERS} iters "
+                  f"(CUDA events), device time {dev:.4f} ms/iter (rank 0's "
+                  f"process; busy {100 * dev / ms:.1f}%; "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ours.items() if v)
+                  + f"); the exchange alone {ex:.4f} ms ({100 * ex / ms:.1f}"
+                  f"% of the SpMV); [8]'s {DIST_SHARDS} shards in one "
+                  "process " + (f"{one:.4f} ms" if one else "not run"))
+            path = f"web_google_like {RANKS} ranks {mode}"
+            ring_mode = mode == "overlap"
+            if ring_mode:
+                rows.append(check_ring_kernel(tag, path, dm, xd, launches,
+                                              ours, device))
+            if check:
+                for r in check_kernels(f"{tag} {mode}", path,
+                                       dm.shards[0], xd, launches, ours,
+                                       device, ring=ring_mode):
+                    r["launch"] = f"rank 0 {r['launch']}".strip()
+                    rows.append(r)
+        torch.distributed.barrier()  # rank 0's kernel checks
+    del packs
+    return got, times, rows
+
+
+def rank_phase(rank, main, small, dist_ms):
+    """Phase [15] on rank ``rank`` of the RANKS gloo ranks that share the
+    card: [8]'s routed modes, [14]'s 2-D mesh and the multi-host script's
+    other impls.  Returns this rank's launches, digests and times, and
+    rank 0's kernels-JSON rows."""
+    sys.stdout.reconfigure(line_buffering=True)
+    lead = rank == 0
+    tag = f"[15] rank {rank}"
+    mesh = make_mesh()
+    device = mesh.home
+    csr = unshared(main)
+    x = np.random.default_rng(0).standard_normal(csr.shape[1]).astype(
+        np.float32)
+    xd = torch.from_numpy(x).to(device)
+    golden = scale = None
+    if lead:
+        golden, scale = spmv_golden_numpy(csr, x), spmv_row_scale(csr, x)
+    golden = ((csr.shape[0],), golden)
+    out = {"device": str(device)}
+    out["routed"], out["times"], out["rows"] = rank_routed(
+        tag, csr, mesh, xd, golden, scale, lead, dist_ms)
+
+    t0 = time.perf_counter()
+    dm = dist2d.dist_routed_pack_2d(csr, dist2d.make_mesh2d(2, 2))
+    torch.cuda.synchronize()
+    print(f"{tag} dist2d pack {time.perf_counter() - t0:.3f} s"
+          + (f": {dist_format_geometry('dist2d', dm)}" if lead else ""))
+    fn = functools.partial(dist2d.dist_spmv_routed_2d, dm, xd)
+    launches, _, ms, _ = rank_time(f"{tag} dist2d 2 x 2", fn, DIST2D_SHA256,
+                                   lead, golden, scale, device)
+    per = lead_device_ms(fn, lead, KERNEL_ITERS, "expand_kernel")
+    want = dist_format_launches("dist2d", dm)
+    if launches != want:
+        raise AssertionError(f"{tag} dist2d launches {launches}, want {want}")
+    out["dist2d"], out["times"]["dist2d"] = launches, (ms, None)
+    if lead:
+        print(f"{tag} dist2d 2 x 2: launches {nonzero(launches)} a rank, "
+              f"{ms:.4f} ms/iter (CUDA events), device time "
+              f"{sum(per.values()):.4f} ms/iter (rank 0's process)")
+    del dm
+
+    out["impls"] = {}
+    for impl, t in small.items():
+        c = unshared(t)
+        xs = np.random.default_rng(0).standard_normal(c.shape[1]).astype(
+            np.float32)
+        xsd = torch.from_numpy(xs).to(device)
+        t0 = time.perf_counter()
+        dm, spmv = multihost.sharded_spmv(impl, c, mesh)
+        pack_s = time.perf_counter() - t0
+        want = (dist_format_launches(IMPL_PATHS[impl], dm)
+                if impl in IMPL_PATHS else dict.fromkeys(kernels.KERNELS, 0))
+        g = (spmv_golden_numpy(c, xs), spmv_row_scale(c, xs)) if lead else (
+            None, None)
+        launches, sha, ms, _ = rank_time(
+            f"{tag} {impl}", functools.partial(spmv, xsd), None, lead,
+            ((c.shape[0],), g[0]), g[1], device)
+        if launches != want:
+            raise AssertionError(f"{tag} {impl} launches {launches}, want "
+                                 f"{want}")
+        out["impls"][impl] = (sha, launches, pack_s, ms)
+    return out
+
+
+def rank_entry() -> None:
+    """``python -m cvr_tpu_torch.multihost --impl routed`` as RANKS gloo
+    ranks of one world, then alone with no coordinator flags; each must
+    exit 0, and the leads' reports are printed."""
+    cmd = [sys.executable, "-m", "cvr_tpu_torch.multihost", "--impl",
+           "routed"]
+    port = tdist.free_port()
+    here = Path(__file__).resolve().parent
+    for argvs in ([cmd + ["--coordinator", f"127.0.0.1:{port}",
+                          "--num-processes", str(RANKS), "--process-id",
+                          str(i), "--backend", "gloo"]
+                   for i in range(RANKS)], [cmd]):
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(a, cwd=here, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for a in argvs]
+        try:
+            outs = [p.communicate(timeout=ENTRY_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rcs = [p.returncode for p in procs]
+        more = " ..." if len(argvs) > 1 else ""
+        print(f"[15] {' '.join(argvs[0][1:])}{more}: {len(procs)} "
+              f"process(es), exit codes {rcs}, "
+              f"{time.perf_counter() - t0:.1f} s; the lead's output:")
+        for line in outs[0].splitlines():
+            if "socket.cpp" not in line:
+                print(f"[15]   {line}")
+        if any(rcs):
+            for i, o in enumerate(outs):
+                print(f"[15] process {i}'s output ends: {o[-2000:]}")
+            raise AssertionError(f"[15] the entry exited {rcs}")
+
+
+def rank_paths(device, coo):
+    """Phase [15]: RANKS gloo ranks on the card, each a process that
+    torch.multiprocessing spawns and hands [2]'s CSR (shared, not
+    copied), then the multi-host entry.  Returns rank 0's kernels-JSON
+    rows."""
+    print(f"[15] {RANKS} gloo ranks (initialize_distributed) share this "
+          "card: each move goes through host memory, and these times are "
+          "the cost of ranks and a host-staged exchange, not scaling "
+          "figures")
+    torch.cuda.empty_cache()
+    small, want = {}, {}
+    mesh = make_mesh(devices=[device] * RANKS)
+    for impl, make in RANK_IMPLS:
+        c = make().to_csr()
+        small[impl] = shared(c)
+        xs = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            c.shape[1]).astype(np.float32)).to(device)
+        _, spmv = multihost.sharded_spmv(impl, c, mesh)
+        want[impl] = y_digest(functools.partial(spmv, xs))
+        print(f"[15] {impl}: {c.shape[0]}x{c.shape[1]}, {c.nnz} nnz; "
+              f"{RANKS} shards in one process: y sha256 {want[impl]}")
+    t0 = time.perf_counter()
+    res = tdist.run_local_ranks(
+        rank_phase, RANKS, args=(shared(coo.to_csr()), small, dict(DIST_MS)),
+        timeout=RANK_TIMEOUT)
+    print(f"[15] the {RANKS} ranks took {time.perf_counter() - t0:.1f} s, "
+          f"on devices {[r['device'] for r in res]}")
+    for mode in res[0]["routed"]:
+        print(f"[15] routed {mode}: launches by rank "
+              f"{[nonzero(r['routed'][mode]) for r in res]}; ms/iter by "
+              "rank (CUDA events) "
+              f"{[round(r['times'][mode][0], 4) for r in res]}, the "
+              f"exchange alone {[round(r['times'][mode][1], 4) for r in res]}")
+    for impl, (sha, launches, pack_s, ms) in res[0]["impls"].items():
+        shas = {r["impls"][impl][0] for r in res}
+        print(f"[15] {impl}: y sha256 on every rank {sorted(shas)}, "
+              f"{RANKS} shards in one process {want[impl]}; pack "
+              f"{pack_s:.3f} s, {ms:.4f} ms/iter (rank 0, CUDA events); "
+              f"launches a rank {[nonzero(r['impls'][impl][1]) for r in res]}")
+        if shas != {want[impl]}:
+            raise AssertionError(f"[15] {impl}: the ranks' y is not the "
+                                 "single-process mesh's")
+    rank_entry()
+    return res[0]["rows"]
+
+
+PHASES = (2, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 15)
 # phases that run on [2]'s pack and tensors, and [10]'s, whose digests
 # they record
 NEEDS_2 = (8, 9)
@@ -3750,7 +4108,8 @@ def main(argv=None) -> int:
     for p, run in ((11, lambda: model_paths("cuda", coo)),
                    (12, lambda: loaded_paths("cuda", coo, f"{kind}; nvidia-smi: {smi}")),
                    (14, lambda: dist_formats("cuda", sd if 2 in phases
-                                             else None))):
+                                             else None)),
+                   (15, lambda: rank_paths("cuda", coo))):
         if p in phases:
             t0 = time.perf_counter()
             rows += run()

@@ -15,7 +15,13 @@ the column axis.  In one process the all-gather is the concatenation of
 the pieces on each device, and the reduce-scatter is the sum of a row
 block's C partials on device (i, 0), in column order, cut into C pieces,
 piece j copied to device (i, j); the pieces are put back in row order on
-the mesh's first device.
+the mesh's first device.  After initialize_distributed block (i, j) is
+rank i * C + j: the all-gather runs over the R ranks of column block j,
+the reduce-scatter over the C ranks of row block i (nccl's
+reduce_scatter, which sums in its own order; gloo has none, so there the
+C partials are all-gathered and added in column order, as in one
+process), and the ranks' pieces are all-gathered so that y comes back
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from cvr_tpu_torch import _native
@@ -41,7 +48,11 @@ from cvr_tpu_torch.ops.spmv_routed import (
     spmv_routed,
     to_device_routed,
 )
-from cvr_tpu_torch.parallel.dist import concat_rows, local_csrs
+from cvr_tpu_torch.parallel.dist import (
+    gather_rows,
+    local_csrs,
+    world_devices,
+)
 from cvr_tpu_torch.parallel.dist_routed import _local_artifact, forced_planes
 from cvr_tpu_torch.parallel.partition import (
     partition_balance,
@@ -53,9 +64,18 @@ WIN = 1024
 
 @dataclass(frozen=True)
 class Mesh2D:
-    """An R x C mesh: block (i, j) runs on devices[i][j]."""
+    """An R x C mesh: block (i, j) runs on devices[i][j].
+
+    In a run of ranks (``group`` the world) block (i, j) is rank i * C +
+    j, ``rank`` is this process's, ``row_axis`` the group of the R ranks
+    of its column block (x's all-gather) and ``col_axis`` that of the C
+    ranks of its row block (the partial ys' reduce-scatter)."""
 
     devices: tuple[tuple[torch.device, ...], ...]
+    group: object = None
+    rank: int | None = None
+    row_axis: object = None
+    col_axis: object = None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -65,12 +85,35 @@ class Mesh2D:
     def size(self) -> int:
         return self.shape[0] * self.shape[1]
 
+    @property
+    def local(self) -> tuple[int, ...]:
+        """The blocks (row-major) this process holds."""
+        return (tuple(range(self.size)) if self.group is None
+                else (self.rank,))
+
 
 def make_mesh2d(R: int, C: int, devices=None) -> Mesh2D:
-    """An R x C mesh over the first R * C of ``devices`` (row-major),
+    """An R x C mesh.  After initialize_distributed, over the world's R * C
+    ranks (rank i * C + j holds block (i, j)), with the groups of its two
+    axes.  Otherwise over the first R * C of ``devices`` (row-major),
     which may repeat one device; by default the visible CUDA devices, and
     it raises where there is none (``devices=["cpu"] * 4`` runs a 2 x 2
     mesh on the CPU)."""
+    if devices is None and dist.is_available() and dist.is_initialized():
+        if dist.get_world_size() != R * C:
+            raise ValueError(f"make_mesh2d: a {R} x {C} mesh in a world of "
+                             f"{dist.get_world_size()} ranks")
+        rank = dist.get_rank()
+        # every rank makes every group, in one order
+        cols = [dist.new_group([i * C + j for i in range(R)])
+                for j in range(C)]
+        rows = [dist.new_group([i * C + j for j in range(C)])
+                for i in range(R)]
+        devs = world_devices()
+        return Mesh2D(tuple(tuple(devs[i * C : (i + 1) * C])
+                            for i in range(R)),
+                      group=dist.group.WORLD, rank=rank,
+                      row_axis=cols[rank % C], col_axis=rows[rank // C])
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -92,7 +135,7 @@ class Dist2DRoutedMatrix:
     """Each (row block, column block)'s SELL-R planes on its device."""
 
     planes: tuple[dict, ...]  # per block, row-major (i * C + j): JAX's names
-    blocks: tuple[SellRoutedDevice, ...]  # row-major
+    blocks: tuple[SellRoutedDevice | None, ...]  # row-major, held ones
     meta: dict  # the shared geometry
     bounds: np.ndarray  # [R + 1] global row bounds
     shape: tuple[int, int]
@@ -129,7 +172,8 @@ def _col_block(rows: CSRMatrix, j: int, C: int, nwin_u: int) -> CSRMatrix:
 def dist_routed_pack_2d(csr: CSRMatrix, mesh: Mesh2D,
                         split_len: int | None = None) -> Dist2DRoutedMatrix:
     """Pack every (row block, cyclic column block) under one geometry and
-    upload each block to its device."""
+    upload each block to its device (in a run of ranks, this rank's
+    only)."""
     CH, SEGW, TB, YB = rp.CH, rp.SEGW, rp.TB, rp.YB
     R, C = mesh.shape
     nrows, ncols = csr.shape
@@ -176,7 +220,7 @@ def dist_routed_pack_2d(csr: CSRMatrix, mesh: Mesh2D,
 
 def _assemble(planes, meta, bounds, shape, nnz, mesh: Mesh2D, balance,
               nwin_u: int) -> Dist2DRoutedMatrix:
-    """Upload each block's planes to its device."""
+    """Upload each block this process holds to its device."""
     R, C = mesh.shape
     if len(planes) != R * C:
         raise ValueError(f"{len(planes)} blocks on a {R} x {C} mesh")
@@ -185,10 +229,11 @@ def _assemble(planes, meta, bounds, shape, nnz, mesh: Mesh2D, balance,
     if rows_max % C:
         raise ValueError("the local y length must be a multiple of C")
     devs = [d for row in mesh.devices for d in row]
+    own = set(mesh.local)
     blocks = tuple(
         to_device_routed(_local_artifact(meta, pl, (rows_max, nwin_u * WIN),
-                                         0), dev)
-        for pl, dev in zip(planes, devs))
+                                         0), dev) if b in own else None
+        for b, (pl, dev) in enumerate(zip(planes, devs)))
     return Dist2DRoutedMatrix(
         planes=tuple(planes), blocks=blocks, meta=dict(meta), bounds=bounds,
         shape=tuple(shape),
@@ -213,7 +258,8 @@ def from_reference(jdm, mesh: Mesh2D) -> Dist2DRoutedMatrix:
 
 def dist_spmv_routed_2d(dm: Dist2DRoutedMatrix,
                         x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x on the R x C mesh; y on the mesh's first device.
+    """y = A @ x on the R x C mesh; y whole on the mesh's first device (in
+    a run of ranks, on every rank's).
 
     x (ncols,) may lie on any device; its cyclic windows are cut into the
     column blocks, each block into R pieces (piece i of block j on device
@@ -228,10 +274,15 @@ def dist_spmv_routed_2d(dm: Dist2DRoutedMatrix,
     xw = xp.view(nwin_u * C, WIN)
     w = nwin_u * WIN // R  # one row piece of a column block
     devs = dm.mesh.devices
-    # piece i of column block j, on device (i, j)
-    pieces = [[xw[j::C].reshape(-1)[i * w : (i + 1) * w].to(devs[i][j])
-               for j in range(C)] for i in range(R)]
+
+    def piece(i, j):  # piece i of column block j, on device (i, j)
+        return xw[j::C].reshape(-1)[i * w : (i + 1) * w].to(devs[i][j])
+
     py = dm.rows_max // C  # one piece of a row block's y
+    rows = np.diff(dm.bounds)
+    if dm.mesh.group is not None:
+        return _ranks_spmv(dm, piece, py, rows)
+    pieces = [[piece(i, j) for j in range(C)] for i in range(R)]
     ys = []
     for i in range(R):
         partial = None
@@ -242,10 +293,30 @@ def dist_spmv_routed_2d(dm: Dist2DRoutedMatrix,
             partial = y if partial is None else partial + y
         # the reduce-scatter: piece j on device (i, j), cut to the row
         # block's own rows
-        n = int(dm.bounds[i + 1] - dm.bounds[i])
+        n = int(rows[i])
         ys += [partial[j * py : min((j + 1) * py, n)].to(devs[i][j])
                for j in range(C) if j * py < n]
-    return concat_rows(devs[0][0], ys)
+    return torch.cat([y.to(devs[0][0]) for y in ys])
+
+
+def _ranks_spmv(dm: Dist2DRoutedMatrix, piece, py: int, rows) -> torch.Tensor:
+    """This rank's block of dist_spmv_routed_2d, and y put together from
+    every rank's piece."""
+    mesh, (R, C) = dm.mesh, dm.mesh.shape
+    i, j = divmod(mesh.rank, C)
+    xj = gather_rows(piece(i, j), mesh.row_axis)
+    y = spmv_routed(dm.blocks[mesh.rank], xj)
+    if dist.get_backend(mesh.col_axis) == "gloo":
+        parts = gather_rows(y, mesh.col_axis).view(C, -1)
+        partial = parts[0]
+        for k in range(1, C):  # column order, as in one process
+            partial = partial + parts[k]
+        mine = partial[j * py : (j + 1) * py]
+    else:
+        mine = y.new_empty(py)
+        dist.reduce_scatter_tensor(mine, y, group=mesh.col_axis)
+    g = gather_rows(mine, mesh.group).view(R, C * py)
+    return torch.cat([g[r, : int(n)] for r, n in enumerate(rows)])
 
 
 def dist_spmv_routed_2d_jit(dm: Dist2DRoutedMatrix):

@@ -54,6 +54,7 @@ from cvr_tpu_torch.parallel.dist import (
     Mesh,
     concat_rows,
     local_csrs,
+    on_shards,
     replicate_or_gather,
 )
 from cvr_tpu_torch.parallel.dist_routed import _local_artifact, forced_planes
@@ -81,7 +82,7 @@ class DistBellMatrix:
     device."""
 
     planes: tuple[dict, ...]  # per shard: name -> host array (JAX's names)
-    shards: tuple[BellShard, ...]
+    shards: tuple[BellShard | None, ...]  # the held ones
     meta: dict  # k, reach, d, pre, ncand, TBb, R_sub, spill (its geometry)
     bounds: np.ndarray  # [D + 1] global row bounds (1024-aligned)
     shape: tuple[int, int]
@@ -168,15 +169,16 @@ def _spill_planes(bms, bounds, ncols: int, rows_nat: int):
 def _assemble(planes, meta, bounds, shape, nnz, mesh: Mesh,
               balance) -> DistBellMatrix:
     """Upload each shard's BELL planes, spill artifact and spill row map
-    to its device."""
+    to its device, for the shards this process holds."""
     D = mesh.size
     if len(planes) != D:
         raise ValueError(f"{len(planes)} shards on a mesh of {D} devices")
     bounds = np.asarray(bounds, dtype=np.int64)
     rows_nat = max(int(b) for b in np.diff(bounds))
     spill = meta["spill"]
-    shards = []
-    for d, (pl, dev) in enumerate(zip(planes, mesh.devices)):
+
+    def upload(d):
+        pl, dev = planes[d], mesh.devices[d]
         sp = sp_map = None
         if spill is not None:
             spl = {k[3:]: v for k, v in pl.items()
@@ -185,14 +187,15 @@ def _assemble(planes, meta, bounds, shape, nnz, mesh: Mesh,
                 spill, spl, (int(spill["rows_max"]), int(shape[1])), 0), dev)
             sp_map = torch.from_numpy(
                 pl["sp_map"].astype(np.int64)).to(dev)
-        shards.append(BellShard(
+        return BellShard(
             li=torch.from_numpy(np.ascontiguousarray(pl["li"])).to(dev),
             vals=torch.from_numpy(np.ascontiguousarray(pl["vals"])).to(dev),
-            lo=int(bounds[d]), spill=sp, sp_map=sp_map))
+            lo=int(bounds[d]), spill=sp, sp_map=sp_map)
+
     return DistBellMatrix(
-        planes=tuple(planes), shards=tuple(shards), meta=dict(meta),
-        bounds=bounds, shape=tuple(shape), nnz=int(nnz), mesh=mesh, rows_max=rows_nat,
-        balance=balance,
+        planes=tuple(planes), shards=tuple(on_shards(mesh, upload)),
+        meta=dict(meta), bounds=bounds, shape=tuple(shape), nnz=int(nnz),
+        mesh=mesh, rows_max=rows_nat, balance=balance,
     )
 
 
@@ -267,19 +270,21 @@ def shard_gather_args(dm: DistBellMatrix, d: int, x: torch.Tensor) -> tuple:
 def dist_spmv_bell(dm: DistBellMatrix, x: torch.Tensor,
                    x_sharded: bool = False) -> torch.Tensor:
     """y = A @ x across the mesh, K9 and the spill's routed SpMV on each
-    shard; y on the mesh's first device.  x_sharded=True all-gathers a
-    row-sharded x first."""
+    shard; y whole on the mesh's home device.  x_sharded=True all-gathers
+    a row-sharded x first."""
     xs = replicate_or_gather(x.to(torch.float32).contiguous(), dm.mesh,
                              dm.shape[1], x_sharded)
-    ys = []
-    for d, (sh, xi) in enumerate(zip(dm.shards, xs)):
+
+    def shard(d):
+        sh, xi = dm.shards[d], xs[d]
         y = bk.bell_gather_mac(*shard_gather_args(dm, d, xi)).reshape(-1)
         if sh.spill is not None:
             if y.shape[0] <= dm.rows_max:  # room for the dropped row
                 y = F.pad(y, (0, 1))
             y.index_add_(0, sh.sp_map, spmv_routed(sh.spill, xi))
-        ys.append(y[: int(dm.bounds[d + 1] - dm.bounds[d])])
-    return concat_rows(dm.mesh.devices[0], ys)
+        return y[: int(dm.bounds[d + 1] - dm.bounds[d])]
+
+    return concat_rows(dm.mesh, on_shards(dm.mesh, shard), dm.bounds)
 
 
 def dist_spmv_bell_jit(dm: DistBellMatrix, x_sharded: bool = False):

@@ -23,14 +23,19 @@ import torch
 from cvr_tpu_torch.formats.bsr import B, bsr_pack
 from cvr_tpu_torch.formats.csr import CSRMatrix
 from cvr_tpu_torch.ops.spmm_bsr import BsrDevice, spmm_bsr_fused
-from cvr_tpu_torch.parallel.dist import Mesh, concat_rows, replicate_or_gather
+from cvr_tpu_torch.parallel.dist import (
+    Mesh,
+    concat_rows,
+    on_shards,
+    replicate_or_gather,
+)
 
 
 @dataclass
 class DistBsrMatrix:
     """Brick planes of each row-block range, each shard's on its device."""
 
-    shards: tuple[BsrDevice, ...]  # each shard's own row blocks, bricks
+    shards: tuple[BsrDevice | None, ...]  # held: own row blocks, bricks
     rb_bounds: np.ndarray  # [D + 1] global row-block bounds
     shape: tuple[int, int]
     nnz: int
@@ -55,16 +60,18 @@ def _real_bricks(vals: np.ndarray, brow: np.ndarray, nrb: int) -> int:
 def _assemble(vals, brow, bcol, rb_bounds, shape, nnz, mesh: Mesh):
     """Upload each shard's own bricks (local row blocks; the padding to
     the largest shard's count stays on the host) and its row blocks'
-    brick ranges to its device; K12 computes the shard's own rows."""
+    brick ranges to its device, for the shards this process holds; K12
+    computes the shard's own rows."""
     D = mesh.size
     if vals.shape[0] != D:
         raise ValueError(f"{vals.shape[0]} shards on a mesh of {D} devices")
     rb_bounds = np.asarray(rb_bounds, dtype=np.int64)
     nrb_local = np.diff(rb_bounds)
     nrows, ncols = (int(v) for v in shape)
-    shards = []
     row_bounds = np.minimum(rb_bounds * B, nrows)
-    for d, dev in enumerate(mesh.devices):
+
+    def upload(d):
+        dev = mesh.devices[d]
         nrb = int(nrb_local[d])
         k = _real_bricks(vals[d], brow[d], nrb)
         row_start = np.searchsorted(brow[d][:k], np.arange(nrb + 1))
@@ -73,15 +80,17 @@ def _assemble(vals, brow, bcol, rb_bounds, shape, nnz, mesh: Mesh):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
                 dev)
 
-        shards.append(BsrDevice(
+        return BsrDevice(
             vals=put(vals[d][:k], np.float32),
             brick_row=put(brow[d][:k], np.int32),
             brick_col=put(bcol[d][:k], np.int32),
             row_start=put(row_start, np.int64),
             shape=(int(row_bounds[d + 1] - row_bounds[d]), ncols), nnz=nnz,
-            nrb=nrb, ncb=-(-ncols // B)))
+            nrb=nrb, ncb=-(-ncols // B))
+
     return DistBsrMatrix(
-        shards=tuple(shards), rb_bounds=rb_bounds, shape=(nrows, ncols),
+        shards=tuple(on_shards(mesh, upload)), rb_bounds=rb_bounds,
+        shape=(nrows, ncols),
         nnz=int(nnz), mesh=mesh,
         nrb_local_max=max(1, int(nrb_local.max())), ncb=-(-ncols // B),
     )
@@ -132,15 +141,16 @@ def from_reference(jdm, mesh: Mesh) -> DistBsrMatrix:
 
 def dist_spmm_bsr(dm: DistBsrMatrix, X: torch.Tensor,
                   x_sharded: bool = False, precision=None) -> torch.Tensor:
-    """Y = A @ X across the mesh, K12 on each shard; Y on the mesh's first
-    device.  X (ncols, K) is replicated, or row-sharded and all-gathered
+    """Y = A @ X across the mesh, K12 on each shard; Y whole on the mesh's
+    home device.  X (ncols, K) is replicated, or row-sharded and all-gathered
     (x_sharded=True).  ``precision`` is accepted for the JAX package's
     signature: K12 always computes at float32 grade (3xTF32), its
     Precision.HIGHEST."""
     Xs = replicate_or_gather(X.to(torch.float32), dm.mesh, dm.shape[1],
                              x_sharded)
-    return concat_rows(dm.mesh.devices[0], [spmm_bsr_fused(sd, Xi)
-                                 for sd, Xi in zip(dm.shards, Xs)])
+    bounds = np.minimum(dm.rb_bounds * B, dm.shape[0])
+    return concat_rows(dm.mesh, on_shards(dm.mesh, lambda i: spmm_bsr_fused(
+        dm.shards[i], Xs[i])), bounds)
 
 
 def dist_spmm_bsr_jit(dm: DistBsrMatrix, x_sharded: bool = False):

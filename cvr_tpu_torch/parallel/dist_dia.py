@@ -30,6 +30,7 @@ from cvr_tpu_torch.ops.spmv_dia import DiaDevice, spmv_dia
 from cvr_tpu_torch.parallel.dist import (
     Mesh,
     concat_rows,
+    on_shards,
     replicate_or_gather,
 )
 
@@ -38,7 +39,7 @@ from cvr_tpu_torch.parallel.dist import (
 class DistDiaMatrix:
     """Row-sharded band planes, each shard's on its mesh device."""
 
-    shards: tuple[DiaDevice, ...]  # bands (nd, pre + rows_max) each
+    shards: tuple[DiaDevice | None, ...]  # held: bands (nd, pre + rows_max)
     pre: tuple[int, ...]  # zero rows in front of each shard's bands
     offsets: tuple  # the diagonals, shared by all shards
     bounds: np.ndarray  # [D + 1] row bounds (equal split)
@@ -53,13 +54,13 @@ class DistDiaMatrix:
 
     def bands(self, d: int) -> torch.Tensor:
         """Shard d's band planes (nd, rows_max), as the JAX package stacks
-        them."""
+        them (a shard this process holds)."""
         return self.shards[d].bands[:, self.pre[d]:]
 
 
 def _assemble(bands, offsets, nrows, shape, nnz, mesh: Mesh):
-    """Upload each shard's (nd, rows_max) bands to its device with its
-    ``pre`` zero rows in front."""
+    """Upload each shard's (nd, rows_max) bands to its device (the shards
+    this process holds) with its ``pre`` zero rows in front."""
     D = mesh.size
     if bands.shape[0] != D:
         raise ValueError(f"{bands.shape[0]} shards on a mesh of {D} devices")
@@ -67,16 +68,17 @@ def _assemble(bands, offsets, nrows, shape, nnz, mesh: Mesh):
     bounds = np.minimum(np.arange(D + 1, dtype=np.int64) * rows_max, nrows)
     offs = np.asarray(offsets, dtype=np.int64)
     base = max(-int(offs.min(initial=0)), 0)
-    shards, pre = [], []
-    for d, dev in enumerate(mesh.devices):
-        p = min(int(bounds[d]), base)
-        b = np.zeros((offs.shape[0], p + rows_max), dtype=np.float32)
-        b[:, p:] = bands[d]
-        shards.append(DiaDevice(
-            bands=torch.from_numpy(b).to(dev),
-            offsets=torch.from_numpy(offs.copy()).to(dev),
-            shape=(p + rows_max, int(shape[1])), nnz=nnz))
-        pre.append(p)
+    pre = [min(int(b), base) for b in bounds[:-1]]
+
+    def upload(d):
+        b = np.zeros((offs.shape[0], pre[d] + rows_max), dtype=np.float32)
+        b[:, pre[d]:] = bands[d]
+        dev = mesh.devices[d]
+        return DiaDevice(bands=torch.from_numpy(b).to(dev),
+                         offsets=torch.from_numpy(offs.copy()).to(dev),
+                         shape=(pre[d] + rows_max, int(shape[1])), nnz=nnz)
+
+    shards = on_shards(mesh, upload)
     return DistDiaMatrix(
         shards=tuple(shards), pre=tuple(pre),
         offsets=tuple(int(o) for o in offs), bounds=bounds,
@@ -108,16 +110,17 @@ def from_reference(jdm, mesh: Mesh) -> DistDiaMatrix:
 
 def dist_spmv_dia(dm: DistDiaMatrix, x: torch.Tensor,
                   x_sharded: bool = False) -> torch.Tensor:
-    """y = A @ x across the mesh, K8 on each shard; y on the mesh's first
-    device.  x_sharded=True all-gathers a row-sharded x (padded to a
+    """y = A @ x across the mesh, K8 on each shard; y whole on the mesh's
+    home device.  x_sharded=True all-gathers a row-sharded x (padded to a
     multiple of the mesh size) first."""
     xs = replicate_or_gather(x.to(torch.float32), dm.mesh, dm.shape[1],
                              x_sharded)
-    ys = []
-    for d, (sd, xi) in enumerate(zip(dm.shards, xs)):
+
+    def shard(d):
         p, lo, hi = dm.pre[d], int(dm.bounds[d]), int(dm.bounds[d + 1])
-        ys.append(spmv_dia(sd, xi[lo - p:])[p : p + hi - lo])
-    return concat_rows(dm.mesh.devices[0], ys)
+        return spmv_dia(dm.shards[d], xs[d][lo - p:])[p : p + hi - lo]
+
+    return concat_rows(dm.mesh, on_shards(dm.mesh, shard), dm.bounds)
 
 
 def dist_spmv_dia_jit(dm: DistDiaMatrix, x_sharded: bool = False):

@@ -38,6 +38,7 @@ from cvr_tpu_torch.parallel.dist import (
     Mesh,
     concat_rows,
     local_csrs,
+    on_shards,
     replicate_or_gather,
 )
 from cvr_tpu_torch.parallel.partition import (
@@ -55,7 +56,7 @@ class DistLaneMatrix:
     shard's own part on its device."""
 
     planes: tuple[dict, ...]  # per shard: name -> host array (JAX's names)
-    shards: tuple[LaneDevice, ...]
+    shards: tuple[LaneDevice | None, ...]  # the held ones
     meta: dict  # S_lane, nslices: the shared geometry
     bounds: np.ndarray
     shape: tuple[int, int]
@@ -128,9 +129,9 @@ def _assemble(planes, meta, bounds, shape, nnz, mesh: Mesh,
         raise ValueError(f"{len(planes)} shards on a mesh of {D} devices")
     bounds = np.asarray(bounds, dtype=np.int64)
     rows = np.diff(bounds)
-    shards = tuple(_shard_device(pl, meta, int(n), int(shape[1]), int(nnz),
-                                 dev)
-                   for pl, n, dev in zip(planes, rows, mesh.devices))
+    shards = tuple(on_shards(mesh, lambda i: _shard_device(
+        planes[i], meta, int(rows[i]), int(shape[1]), int(nnz),
+        mesh.devices[i])))
     return DistLaneMatrix(
         planes=tuple(planes), shards=shards, meta=dict(meta), bounds=bounds,
         shape=tuple(shape), nnz=int(nnz), mesh=mesh,
@@ -175,13 +176,13 @@ def from_reference(jdm, mesh: Mesh) -> DistLaneMatrix:
 
 def dist_spmm_lane(dm: DistLaneMatrix, X: torch.Tensor,
                    x_sharded: bool = False) -> torch.Tensor:
-    """Y = A @ X across the mesh, K13 on each shard; Y on the mesh's first
-    device.  X (ncols, K) is replicated, or row-sharded and all-gathered
-    (x_sharded=True)."""
+    """Y = A @ X across the mesh, K13 on each shard; Y whole on the mesh's
+    home device.  X (ncols, K) is replicated, or row-sharded and
+    all-gathered (x_sharded=True)."""
     Xs = replicate_or_gather(X.to(torch.float32), dm.mesh, dm.shape[1],
                              x_sharded)
-    return concat_rows(dm.mesh.devices[0], [spmm_lane(sd, Xi)
-                                 for sd, Xi in zip(dm.shards, Xs)])
+    return concat_rows(dm.mesh, on_shards(dm.mesh, lambda i: spmm_lane(
+        dm.shards[i], Xs[i])), dm.bounds)
 
 
 def dist_spmm_lane_jit(dm: DistLaneMatrix, x_sharded: bool = False):

@@ -31,6 +31,7 @@ from cvr_tpu_torch.ops.spmm_pmm import PmmDevice, PmmPlan, pmm_plan
 from cvr_tpu_torch.parallel.dist import (
     Mesh,
     concat_rows,
+    on_shards,
     replicate_or_gather,
 )
 from cvr_tpu_torch.parallel.partition import (
@@ -60,7 +61,7 @@ class DistPmmMatrix:
     """Row-sharded PMM plans, each shard's entries on its device."""
 
     plans: tuple[PmmPlan, ...]  # per shard, its local rows
-    shards: tuple[PmmDevice, ...]
+    shards: tuple[PmmDevice | None, ...]  # the held ones
     meta: dict  # nseg: the most segments the JAX kernel runs on a shard
     bounds: np.ndarray
     shape: tuple[int, int]
@@ -97,8 +98,8 @@ def _assemble(plans, bounds, shape, nnz, mesh: Mesh,
         raise ValueError(f"{len(plans)} shards on a mesh of {D} devices")
     bounds = np.asarray(bounds, dtype=np.int64)
     rows_max = max(int(b) for b in np.diff(bounds))
-    shards = tuple(spmm_pmm.to_device_pmm(p, dev)
-                   for p, dev in zip(plans, mesh.devices))
+    shards = tuple(on_shards(mesh, lambda i: spmm_pmm.to_device_pmm(
+        plans[i], mesh.devices[i])))
     meta = {"nseg": max(tpu_segments(p) for p in plans)}
     return DistPmmMatrix(
         plans=tuple(plans), shards=shards, meta=meta, bounds=bounds,
@@ -128,8 +129,8 @@ def from_reference(jdm, mesh: Mesh, jplans) -> DistPmmMatrix:
 
 def dist_spmm_pmm(dm: DistPmmMatrix, X: torch.Tensor,
                   x_sharded: bool = False) -> torch.Tensor:
-    """Y = A @ X across the mesh, K14 on each shard; Y on the mesh's first
-    device.  X (ncols, K <= 128) is replicated, or row-sharded and
+    """Y = A @ X across the mesh, K14 on each shard; Y whole on the mesh's
+    home device.  X (ncols, K <= 128) is replicated, or row-sharded and
     all-gathered (x_sharded=True)."""
     if X.shape[1] > 128:
         raise NotImplementedError(
@@ -139,8 +140,8 @@ def dist_spmm_pmm(dm: DistPmmMatrix, X: torch.Tensor,
     Xs = replicate_or_gather(X.to(torch.float32), dm.mesh, dm.shape[1],
                              x_sharded)
     rows = np.diff(dm.bounds)  # a plan of an empty shard has one row
-    return concat_rows(dm.mesh.devices[0], [spmm_pmm.spmm_pmm(sd, Xi)[:n]
-                                 for sd, Xi, n in zip(dm.shards, Xs, rows)])
+    return concat_rows(dm.mesh, on_shards(dm.mesh, lambda i: (
+        spmm_pmm.spmm_pmm(dm.shards[i], Xs[i])[:rows[i]])), dm.bounds)
 
 
 def dist_spmm_pmm_jit(dm: DistPmmMatrix, x_sharded: bool = False):

@@ -51,6 +51,7 @@ from cvr_tpu_torch.parallel.dist import (
     RingPermute,
     concat_rows,
     local_csrs,
+    on_shards,
     replicate_or_gather,
 )
 from cvr_tpu_torch.parallel.partition import (
@@ -69,8 +70,8 @@ class DistRoutedMatrix:
     """Row-sharded SELL-R planes, each shard's on its mesh device."""
 
     planes: tuple[dict, ...]  # per shard: name -> host array (JAX's names)
-    shards: tuple[SellRoutedDevice, ...]  # per shard, on its device
-    seg_ring: tuple[torch.Tensor, ...] | None  # per shard, ring packs
+    shards: tuple[SellRoutedDevice | None, ...]  # per shard held
+    seg_ring: tuple[torch.Tensor | None, ...] | None  # ring packs
     meta: dict  # shared geometry (T, S_pad, nslices, ...)
     bounds: np.ndarray  # [D + 1] global row bounds
     shape: tuple[int, int]
@@ -187,7 +188,9 @@ def dist_routed_pack(
     overlap: bool = False,
 ) -> DistRoutedMatrix:
     """Partition rows by nnz, SELL-R-pack each shard under one forced
-    geometry and upload each shard's planes to its mesh device.
+    geometry and upload each shard's planes to its mesh device (in a run
+    of ranks every rank packs every shard, since the geometry unifies
+    them all, and uploads its own).
 
     split_len default: ``max(1024, 16 * mean_row_len)``.  No hot planes
     are built.  ``overlap=True`` also bakes the ring schedule into every
@@ -302,7 +305,7 @@ def _local_artifact(meta: dict, pl: dict, shape, nnz: int) -> SellRouted:
 
 def _assemble(planes, meta, bounds, shape, nnz, mesh: Mesh,
               balance) -> DistRoutedMatrix:
-    """Upload each shard's planes to its device."""
+    """Upload each shard this process holds to its device."""
     D = mesh.size
     if len(planes) != D:
         raise ValueError(f"{len(planes)} shards on a mesh of {D} devices")
@@ -311,20 +314,15 @@ def _assemble(planes, meta, bounds, shape, nnz, mesh: Mesh,
     if int(meta["y_n"]) != rows_max:
         raise ValueError("the y-route length must be the largest shard's rows")
     part_nnz = np.asarray(balance["part_nnz"]) if balance else np.zeros(D)
-    shards = tuple(
-        to_device_routed(
-            _local_artifact(meta, pl, (rows_max, shape[1]),
-                            int(part_nnz[i])), dev)
-        for i, (pl, dev) in enumerate(zip(planes, mesh.devices))
-    )
+    shards = tuple(on_shards(mesh, lambda i: to_device_routed(
+        _local_artifact(meta, planes[i], (rows_max, shape[1]),
+                        int(part_nnz[i])), mesh.devices[i])))
     ring = "ring_cnt" in meta
     if ring and sum(meta["ring_cnt"]) * rp.TB != int(meta["T"]):
         raise ValueError("the ring steps must cover every tile block")
-    seg_ring = tuple(
-        torch.from_numpy(np.ascontiguousarray(pl["seg_ring"],
-                                              dtype=np.int32)).to(dev)
-        for pl, dev in zip(planes, mesh.devices)
-    ) if ring else None
+    seg_ring = tuple(on_shards(mesh, lambda i: torch.from_numpy(
+        np.ascontiguousarray(planes[i]["seg_ring"], dtype=np.int32)).to(
+            mesh.devices[i]))) if ring else None
     return DistRoutedMatrix(
         planes=tuple(planes), shards=shards, seg_ring=seg_ring, meta=meta,
         bounds=bounds, shape=tuple(shape), nnz=int(nnz), mesh=mesh,
@@ -352,8 +350,8 @@ def dist_spmv_routed(
     x_sharded: bool = False,
     overlap: bool = False,
 ) -> torch.Tensor:
-    """y = A @ x across the mesh with the routed pipeline per shard; y on
-    the mesh's first device.
+    """y = A @ x across the mesh with the routed pipeline per shard; y
+    whole on the mesh's home device (its first, or every rank's).
 
     x_sharded=True all-gathers a row-sharded x (padded to a multiple of
     the mesh size, so any ncols works) before the per-shard SpMV.
@@ -375,9 +373,9 @@ def dist_spmv_routed(
                 "overlap requires dist_routed_pack(..., overlap=True)")
         return _dist_spmv_routed_overlap(dm, x)
     xs = replicate_or_gather(x, dm.mesh, dm.shape[1], x_sharded)
-    return concat_rows(dm.mesh.devices[0], [
-        spmv_routed(sd, xi)[:n]
-        for sd, xi, n in zip(dm.shards, xs, np.diff(dm.bounds))])
+    rows = np.diff(dm.bounds)
+    return concat_rows(dm.mesh, on_shards(dm.mesh, lambda i: spmv_routed(
+        dm.shards[i], xs[i])[:rows[i]]), dm.bounds)
 
 
 def _dist_spmv_routed_overlap(dm: DistRoutedMatrix,
@@ -395,27 +393,30 @@ def _dist_spmv_routed_overlap(dm: DistRoutedMatrix,
     # gathered-x buffer rows: every table slice (k_lo+c)*segw8 + segw8+8
     # of a referenced segment lies inside
     XGR = max(int(m["n_segs"]) * segw * 8 + 8, ncols_pad // 128)
-    devs = dm.mesh.devices
+    mesh = dm.mesh
+    devs = mesh.devices
     x = F.pad(x.to(torch.float32), (0, ncols_pad - x.shape[0]))
     # the row-sharded input: piece i on shard i's device
-    cur = [x[i * Wr * 128 : (i + 1) * Wr * 128].reshape(Wr, 128).to(d)
-           for i, d in enumerate(devs)]
+    cur = on_shards(mesh, lambda i: x[i * Wr * 128 : (i + 1) * Wr * 128]
+                    .reshape(Wr, 128).to(devs[i]))
     # zeros where a piece has not arrived yet
-    xg = [torch.zeros((XGR, 128), dtype=torch.float32, device=d)
-          for d in devs]
-    g1 = [torch.empty((8, T, 128), dtype=torch.float32, device=d)
-          for d in devs]
-    k_lo = [ring_table_base(RingSpec(D, i, Wr, cnt), segw) for i in range(D)]
-    ring = RingPermute(dm.mesh, (Wr, 128))
+    xg = on_shards(mesh, lambda i: torch.zeros(
+        (XGR, 128), dtype=torch.float32, device=devs[i]))
+    g1 = on_shards(mesh, lambda i: torch.empty(
+        (8, T, 128), dtype=torch.float32, device=devs[i]))
+    k_lo = on_shards(mesh, lambda i: ring_table_base(RingSpec(D, i, Wr, cnt),
+                                                     segw))
+    ring = RingPermute(mesh, (Wr, 128))
     for s in range(D):
-        for i in range(D):
+        for i in mesh.local:
             p = (i - s) % D
             xg[i][p * Wr : (p + 1) * Wr] = cur[i]
         # start the move before the expand, which runs while it is on its way
         nxt = ring.start(cur) if s < D - 1 else cur
         if cnt[s]:
             o0, o1 = int(off[s]), int(off[s + 1])
-            for i, sd in enumerate(dm.shards):
+            for i in mesh.local:
+                sd = dm.shards[i]
                 expand_ring(sd.w8[o0 * TB : o1 * TB],
                             sd.gcls[o0 * TB // 8 : o1 * TB // 8],
                             dm.seg_ring[i][o0:o1], sd.li, xg[i], o0,
@@ -425,9 +426,9 @@ def _dist_spmv_routed_overlap(dm: DistRoutedMatrix,
         cur = nxt
     # after the last step every shard's buffer holds all of x
     ncols = dm.shape[1]
-    return concat_rows(dm.mesh.devices[0], [
-        route_post_expand(sd, g, xgi.view(-1)[:ncols])[:n]
-        for sd, g, xgi, n in zip(dm.shards, g1, xg, np.diff(dm.bounds))])
+    rows = np.diff(dm.bounds)
+    return concat_rows(mesh, on_shards(mesh, lambda i: route_post_expand(
+        dm.shards[i], g1[i], xg[i].view(-1)[:ncols])[:rows[i]]), dm.bounds)
 
 
 def dist_spmv_routed_jit(

@@ -42,6 +42,7 @@ from cvr_tpu_torch.parallel.dist import (
     Mesh,
     concat_rows,
     local_csrs,
+    on_shards,
     replicate_or_gather,
 )
 from cvr_tpu_torch.parallel.partition import (
@@ -61,7 +62,7 @@ class DistWindowMatrix:
     """Row-sharded, spliced SELL-W planes, each shard's on its device."""
 
     planes: tuple[dict, ...]  # per shard: name -> host array (JAX's names)
-    shards: tuple[SellWindowDevice, ...]
+    shards: tuple[SellWindowDevice | None, ...]  # the held ones
     bounds: np.ndarray  # [D + 1] global row bounds
     ycall_rows: tuple  # shared (start, rows) per reduce group
     shape: tuple[int, int]
@@ -160,15 +161,15 @@ def _shard_window(pl: dict, meta: dict, nrows: int, ncols: int) -> SellWindow:
 def _assemble(planes, meta, bounds, shape, nnz, mesh: Mesh,
               balance) -> DistWindowMatrix:
     """Upload each shard's own rows of its spliced planes and its slice
-    table to its device."""
+    table to its device (the shards this process holds)."""
     D = mesh.size
     if len(planes) != D:
         raise ValueError(f"{len(planes)} shards on a mesh of {D} devices")
     bounds = np.asarray(bounds, dtype=np.int64)
     rows = np.diff(bounds)
-    shards = tuple(
-        to_device_window(_shard_window(pl, meta, int(n), int(shape[1])), dev)
-        for pl, n, dev in zip(planes, rows, mesh.devices))
+    shards = tuple(on_shards(mesh, lambda i: to_device_window(
+        _shard_window(planes[i], meta, int(rows[i]), int(shape[1])),
+        mesh.devices[i])))
     return DistWindowMatrix(
         planes=tuple(planes), shards=shards, bounds=bounds,
         ycall_rows=tuple(meta["ycall_rows"]), shape=tuple(shape),
@@ -236,12 +237,12 @@ def from_reference(jdm, mesh: Mesh) -> DistWindowMatrix:
 
 def dist_spmv_window(dm: DistWindowMatrix, x: torch.Tensor,
                      x_sharded: bool = False) -> torch.Tensor:
-    """y = A @ x across the mesh, K10 on each shard; y on the mesh's first
-    device.  x_sharded=True all-gathers a row-sharded x first."""
+    """y = A @ x across the mesh, K10 on each shard; y whole on the mesh's
+    home device.  x_sharded=True all-gathers a row-sharded x first."""
     xs = replicate_or_gather(x.to(torch.float32), dm.mesh, dm.shape[1],
                              x_sharded)
-    return concat_rows(dm.mesh.devices[0], [spmv_window(sd, xi)
-                                 for sd, xi in zip(dm.shards, xs)])
+    return concat_rows(dm.mesh, on_shards(dm.mesh, lambda i: spmv_window(
+        dm.shards[i], xs[i])), dm.bounds)
 
 
 def dist_spmv_window_jit(dm: DistWindowMatrix, x_sharded: bool = False):

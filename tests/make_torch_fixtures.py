@@ -12,6 +12,11 @@ sets it up for the tests, and writes:
     each mode, y (6000,) float32 under the mode's name (each interpret-mode
     call takes 11-17 s).
 
+  * torch_ref_multiprocess.npz: the JAX package's dist_* of every path
+    of tests/torch_ranks.py on 2 and 4 devices, its y (Y) under
+    test_torch_multiprocess.jax_key (the routed SpMV all-gathered and on
+    the ring, the 2-D mesh at 2 x 2 on 4).
+
   * jax_<name>.npz for each name of chip_smoke.JAX_FIXTURES: the JAX
     package's pack of the fixture's matrix (made by the port's generator,
     the same arrays), saved by the JAX package's own save (save_routed
@@ -25,7 +30,8 @@ stay tied to the package; test_torch_artifacts.py holds each jax_*.npz
 against the port's save of its own pack.  Rerun this after a change to
 the JAX package's routed SpMV, its savers, or the matrices.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py [dist | jax]
+    JAX_PLATFORMS=cpu python tests/make_torch_fixtures.py \
+        [dist | multiprocess | jax]
 """
 
 import os
@@ -61,6 +67,14 @@ def dist_routed_ring() -> None:
     print(f"{RING_FIXTURE}: {sorted(ys)}, {ys['replicated'].shape}")
 
 
+def multiprocess() -> None:
+    from test_torch_multiprocess import FIXTURE, SIZES, jax_ys
+
+    ys = {k: v for D in SIZES for k, v in jax_ys(D).items()}
+    np.savez_compressed(FIXTURE, **ys)
+    print(f"{FIXTURE}: {sorted(ys)}")
+
+
 def jax_fixtures() -> None:
     import chip_smoke
     import cvr_tpu.formats.sell_routed as jsr
@@ -82,8 +96,10 @@ def jax_fixtures() -> None:
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["dist", "jax"]
+    which = sys.argv[1:] or ["dist", "multiprocess", "jax"]
     if "dist" in which:
         dist_routed_ring()
+    if "multiprocess" in which:
+        multiprocess()
     if "jax" in which:
         jax_fixtures()

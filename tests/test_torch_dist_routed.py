@@ -290,16 +290,16 @@ def test_overlap_needs_a_ring_pack_and_sharded_x():
 
 def test_make_mesh_needs_a_card():
     """make_mesh() takes the CUDA devices and raises where there are none,
-    never falling back to the CPU; the multi-process entry is not
-    ported."""
+    never falling back to the CPU; so does the multi-process entry under
+    nccl, naming the gloo backend."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdist.make_mesh()
     mesh = tdist.make_mesh(2, devices=["cpu"] * 4)
     assert mesh.size == 2 and mesh.devices == (torch.device("cpu"),) * 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdist.initialize_distributed()
+    with pytest.raises(ValueError, match="--backend gloo"):
+        tdist.initialize_distributed("127.0.0.1:1", 2, 0, backend="nccl")
 
 
 def test_to_device_routed_defaults_to_the_card():
