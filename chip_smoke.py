@@ -92,9 +92,9 @@ Phases, each printed on its own lines:
      tiles); then K15 on every ring step of every shard against its plain
      version, bit for bit, with its time alone, its bound and its
      torch.take, shard 0's K1, K3, K4 in each mode as in [3] (K4 also
-     against the staged y-route), and K3 on every other shard as in [3]
-     (each shard of a forced pack holds a slice of up to 1,024 plane rows),
-     with its launches, time alone and bound summed over the shards;
+     against the staged y-route), and K3 on every other shard against
+     its plain version, untimed (each shard of a forced pack holds a
+     slice of up to 1,024 plane rows), with its launches over the shards;
   9. the route library's device API on [2]'s matrix, pack and tensors:
      (a) [2]'s y stream through K5, middle_pass on the y-route's flat
      planes (K16) and K5, bit for bit against K4's one pass; (b)
@@ -169,7 +169,8 @@ Phases, each printed on its own lines:
      under deterministic algorithms (printed), times by CUDA events and
      device time beside the one-card path of the same matrix; shard 0's
      kernel launches against their plain versions as in [3] and the
-     path's kernel on every other shard, summed (in the replicated mode:
+     path's kernel on every other shard against its plain version,
+     untimed (in the replicated mode:
      the all-gathered x is checked equal to x, so the kernels' inputs are
      the same); then dryrun_multichip(4), the JAX dry run's ten paths, on
      the card;
@@ -183,18 +184,42 @@ Phases, each printed on its own lines:
      (deterministic algorithms) equal to [8]'s recorded one, the time by
      CUDA events, rank 0's device time, the exchange alone and [8]'s
      one-process time beside it, and rank 0's kernel launches (K1, K3,
-     K4, K15 on its ring steps) against their plain versions as in [3];
+     K4 of the x_sharded mode, K15 on its ring steps; [8] holds the ring
+     pack's K3 and K4) against their plain versions as in [3];
      [14]'s 2-D mesh on 2 x 2 ranks (its digest [14]'s); the multi-host
      script's window, dia, xla, bell and lane impls on the smaller
      matrices of their generators, each rank's y bit for bit that of the
      single-process mesh of 4 shards of the card; then ``python -m
      cvr_tpu_torch.multihost --impl routed`` as 4 gloo ranks and alone,
      each exiting 0;
+ 16. the tools (bench/sweep, spmm, profile_passes, comm_model, parity),
+     the routed pack without the native library, and soc-LJ-full: (a)
+     soc-LJ-full (R-MAT 23, edge factor 9: 8,388,608 rows, 74,366,358
+     nnz, the JAX package's record) through run_spmv_benchmark(impl
+     "auto"), which must pick the routed path packed by the native
+     library: its route tiles and split-row extras beside the record's,
+     its launches over the harness's calls, its report, y of a random x
+     at the float64 golden, its time by CUDA events and device time by
+     kernel beside cuSPARSE's CSR SpMV, its generation, pack and upload
+     seconds, and every kernel of the path against its plain version as
+     in [3]; (b) the sweep's default suite with impls auto, sell-xla,
+     sell and csr, two packs a run, every run verified; (c) R-MAT 18
+     packed without the native library (the tests' switch; the route's
+     coloring alone still in the library), its pack seconds beside the
+     native pack's, its SpMV at the golden and within the contract of the
+     native pack's y, its kernels against their plain versions; (d)
+     profile_passes' per-pass table of routed (web-Google-like), window
+     (fem-like), dia and bsr (banded-2M, K 128) from one trace each; (e)
+     ``spmm --quick`` (K12 at K 128) at the golden, then comm_model and
+     parity over (a)'s and (b)'s rows, each table printed.  The
+     generators' cache (CVR_TPU_CACHE) and the tools' files live in a
+     temporary directory removed at the end;
  13. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
-``--phases 1,2,12`` runs the build, the main path and [12] alone, and
-``--phases 15`` the build and [15] (the
+``--phases 1,2,12`` runs the build, the main path and [12] alone,
+``--phases 16`` the build and [16], and ``--phases 15`` the build and
+[15] (the
 default runs every phase; [0], [1] and [13] always run, [3] with [2], [8]
 and [9] need [2], [14] reuses [2]'s pack where [2] ran, and [10]'s check
 runs when [2], [4], [5], [6] and [8] all ran).  The full-size matrices
@@ -209,10 +234,12 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
+import importlib
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -225,11 +252,20 @@ from scipy.sparse.linalg import spsolve
 import torch
 
 from cvr_tpu_torch import _native, cli, multihost
+from cvr_tpu_torch.bench import comm_model as bench_comm
+from cvr_tpu_torch.bench import harness as bench_harness
 from cvr_tpu_torch.bench import models as bench_models
+from cvr_tpu_torch.bench import parity as bench_parity
+from cvr_tpu_torch.bench import profile_passes as bench_passes
+from cvr_tpu_torch.bench import spmm as bench_spmm
+from cvr_tpu_torch.bench import sweep as bench_sweep
 from cvr_tpu_torch.bench import synthetic as syn
+from cvr_tpu_torch.bench.bounds import HBM_BYTES_PER_S, bound
 from cvr_tpu_torch.bench.harness import (
+    SECOND,
+    by_kernel,
     device_ms,
-    is_event,
+    event_of,
     run_spmv_benchmark,
     time_iterations,
 )
@@ -264,6 +300,7 @@ from cvr_tpu_torch.models import (
 from cvr_tpu_torch.models.gnn import params_from_reference
 from cvr_tpu_torch.models.pagerank import pagerank_routed, pagerank_sell
 from cvr_tpu_torch.ops import _build, kernels
+from cvr_tpu_torch.ops import route as troute
 from cvr_tpu_torch.ops import dia_kernels as dk
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops import route_planes as rp
@@ -298,6 +335,7 @@ from cvr_tpu_torch.parallel.dist_routed import (
     dist_spmv_routed,
 )
 from cvr_tpu_torch.parallel.dryrun import dryrun_multichip
+from cvr_tpu_torch.utils.report import append_jsonl, append_result
 
 ITERS = 100
 KERNEL_ITERS = 20
@@ -308,9 +346,6 @@ EXACT = ("expand", "route_middle", "route_small", "tileperm", "route_m3",
 # its data input among its arguments
 GATHERS = {"expand": 4, "route_middle": 0, "route_small": 0, "tileperm": 0,
            "route_m3": 0, "route_flat": 0, "groupperm": 0, "expand_ring": 4}
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, 80 GB HBM3
-F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
-TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 FORCE_HOT = {"CVR_HOT": "1"}
 
 # name, matrix, split_len, YB (None: the default), hot, environment of the
@@ -564,43 +599,10 @@ def record_y(label, fn) -> str:
     return got
 
 
-# kernels of ours whose device events are not named "<kernel>_kernel": K5
-# and K17 launch one instantiation each of tileperm_kernel, K2 one of two
-# bodies (staged, or split: route_middle_m1_kernel first): kernel -> the
-# names (a part of them) of its first pass's device events (the profiler
-# demangles kernel names)
-EVENTS = {"tileperm": ("tileperm_kernel<false>",),
-          "groupperm": ("tileperm_kernel<true>",),
-          "route_middle": ("route_middle_kernel", "route_middle_m1_kernel")}
-
-
-# kernels of ours whose wrapper may launch a second pass (adding a split
-# item's partials; K2's split body's chunk select): kernel -> the second
-# pass's device events' name
-SECOND = {"reduce_slices": "reduce_slices_combine_kernel",
-          "lane_reduce": "lane_reduce_combine_kernel",
-          "pmm_spmm": "pmm_spmm_combine_kernel",
-          "reduce_stream": "reduce_stream_combine_kernel",
-          "route_middle": "route_middle_select_kernel"}
 # kernels whose output must repeat bit for bit from launch to launch
 # (sums in a fixed order, split sums added in a fixed order, no float
 # atomics)
 REPEAT = (*SECOND, "window_reduce")
-
-
-def event_of(name: str) -> tuple[str, ...]:
-    """The names (a part of them) of kernel ``name``'s first pass's device
-    events."""
-    return EVENTS.get(name, (f"{name}_kernel",))
-
-
-def by_kernel(per) -> dict[str, float]:
-    """Device ms by kernel of ours (both passes where it has two), from
-    device_ms's ms by event name."""
-    return {k: sum(v for n, v in per.items()
-                   if is_event(n, event_of(k))
-                   or (k in SECOND and SECOND[k] in n))
-            for k in kernels.KERNELS}
 
 
 def device_split(per, ours) -> str:
@@ -1037,98 +1039,6 @@ def row_scale_args(name, args):
     return (xh.abs(), hidx, hvals.abs(), *rest)
 
 
-def bound(name, args, out) -> tuple[float, str]:
-    """The least time (ms) the card could take for the kernel's work, and
-    what sets it: each input byte read once and each output byte written
-    once over the HBM rate, or the float32 operations over the card's
-    rate outside the tensor cores (one multiply and one add per stored
-    element, and per column of X for an SpMM kernel: BSR counts its dense
-    bricks, lane the plane rows its slots sum, PMM its entries).  BSR's
-    f32-grade product runs on the tensor cores as 3xTF32: three TF32
-    passes over its bricks at the TF32 rate.  The
-    reduces read only the plane rows their slice tables name (this run's
-    data); K3 reads, per element of those rows, its value and its composed
-    index (in place of the route middle's planes, p3 and the M3 plane),
-    one g1 element at most per element (at most g1's size in all), and its
-    piece tables; the unfused
-    reduce reads its plan's piece tables (in place of emit), and per
-    element of those rows its value, p3 entry and one gx element (its
-    gemit is not read); K4 its index and the ysp
-    elements it names (none for a -1); K14 its entries (8 B each), its work plan's tables
-    (segment offsets, units, combine table: on the card they take the
-    place of the row offsets, which it does not read) and the X rows its
-    entries name; K13 the plane rows its slots name and the X rows they
-    name, K12 the X rows of the column blocks its bricks name, K8 the x
-    entries its rows' diagonals reach and K9 the x prefix it may read
-    (a shard of [14] reads a part of x or X)."""
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    ops, rate = 0, F32_OPS_PER_S
-    if name == "route_small":  # the ysp elements the index reaches
-        ysp, src, _n = args
-        nbytes = (int(torch.unique(src[src >= 0]).numel()) + src.numel()) * 4
-    if name == "reduce_stream":
-        emit, _gemit, vals, gx, p3, nys, plan = args
-        row0, row1, _ = rk.reduce_stream_table(emit, nys)
-        used = int((row1.long() - row0.long()).sum()) * 8 * 128
-        nbytes = (4 * (plan.split.pieces.numel() + plan.split.combine.numel())
-                  + used * (4 + 2 + 4))
-        ops = 2 * used
-    if name == "reduce_slices":
-        g1, _vals, plan, _nys = args
-        used = int((plan.row1.long() - plan.row0.long()).sum()) * 8 * 128
-        nbytes = (used * (4 + 4) + min(used, g1.numel()) * 4
-                  + 4 * (plan.split.pieces.numel()
-                         + plan.split.combine.numel()))
-        ops = 2 * used
-    # (row0, row1) index and the planes of each reduce
-    reduces = {"reduce_hot": (3, 4, slice(1, 3)),
-               "window_reduce": (5, 6, slice(0, 2))}
-    if name in reduces:
-        i0, i1, planes = reduces[name]
-        used = int((args[i1].long() - args[i0].long()).sum()) * 8 * 128
-        for t in args[planes]:
-            if t.dim() == 3:  # read only the used plane elements
-                nbytes -= t.numel() * t.element_size()
-                nbytes += min(used, t.numel()) * t.element_size()
-        ops = 2 * used
-    elif name == "dia_spmv":  # the x entries its rows' diagonals reach
-        bands, offsets, x = args
-        offs = offsets.tolist()
-        reach = (min(x.numel(), bands.shape[1] + max(offs))
-                 - max(min(offs), 0))
-        nbytes += (max(reach, 0) - x.numel()) * 4
-        ops = 2 * bands.numel()
-    elif name == "bell_gather_mac":  # the x prefix it may read
-        nbytes += (args[5] - args[2].numel()) * 4
-        ops = 2 * args[0].numel()
-    elif name == "dia_spmm":
-        ops = 2 * args[0].numel() * out.shape[1]
-    elif name == "bsr_spmm":  # three TF32 passes
-        _vals, _brow, bcol, _row_start, X, _nrows = args
-        xrows = min(int(torch.unique(bcol).numel()) * 128, X.shape[0])
-        nbytes += (xrows - X.shape[0]) * X.shape[1] * 4
-        ops, rate = 3 * 2 * args[0].numel() * out.shape[1], TF32_OPS_PER_S
-    elif name == "lane_reduce":  # the named plane rows, the X rows they name
-        cols, vals, row0, row1, X, _split = args
-        _, rows = rk.slice_rows(row0, row1)
-        used = rows.numel() * 1024
-        xrows = int(torch.unique(cols.view(-1, 1024)[rows]).numel())
-        nbytes += ((used - vals.numel()) * 8
-                   + (xrows - X.shape[0]) * X.shape[1] * 4)
-        ops = 2 * used * out.shape[1]
-    elif name == "pmm_spmm":  # the X rows its entries name
-        col, val, rowptr, X, work = args
-        nbytes = sum(t.numel() * t.element_size() for t in (
-            col, val, work.segptr, work.units, work.combine))
-        nbytes += int(torch.unique(col).numel()) * X.shape[1] * 4
-        ops = 2 * col.numel() * out.shape[1]
-    nbytes += out.numel() * out.element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def library_call(name, args, want=None):
     """One PyTorch call computing the kernel's function on the same
     inputs, checked to give the kernel's output; None where no single
@@ -1364,15 +1274,12 @@ def check_path(tag, path, cases, launches, path_dms, device, library=None,
             for name, which, args in cases]
 
 
-def check_case(tag, path, name, which, args, launches, path_dms, device,
-               lib_ms=None):
-    """One kernel launch against its plain version at the same inputs,
-    with its times, bound and library call (``lib_ms`` where the caller
-    measured it, else library_call's, by CUDA events and device time);
-    ``launches`` and ``path_dms`` (device ms by kernel) come from the
-    path's own run and trace.  Returns the kernels-JSON row."""
-    wrapper, plain, replaces = kernels.KERNELS[name]
-    label = f"{name} ({which})" if which else name
+def against_plain(name, label, args):
+    """One launch of kernel ``name`` against its plain version at the same
+    inputs (EXACT kernels bit for bit, the others within 1e-6 of the row
+    scale; REPEAT kernels also against a second launch): (its output,
+    whether it agrees, the verdict, the max abs error)."""
+    wrapper, plain, _ = kernels.KERNELS[name]
     got, want = wrapper(*args), plain(*args)
     if name in EXACT:
         same = torch.equal(got, want)
@@ -1387,6 +1294,30 @@ def check_case(tag, path, name, which, args, launches, path_dms, device,
             raise AssertionError(f"{label}: two launches on the same inputs "
                                  "differ")
         verdict += "; two launches equal bit for bit"
+    return got, same, verdict, err
+
+
+def check_plain(tag, name, which, args) -> None:
+    """against_plain alone, without times, bound or library call: the
+    check of a kernel launch on shards 1 .. of a row-sharded path, whose
+    timings shard 0's launch gives (printed, raises where it disagrees)."""
+    label = f"{name} ({which})" if which else name
+    _, same, verdict, err = against_plain(name, label, args)
+    print(f"{tag} {label}: {verdict}, max abs err {err:.3e} (not timed)")
+    if not same:
+        raise AssertionError(f"{label} disagrees with its plain version")
+
+
+def check_case(tag, path, name, which, args, launches, path_dms, device,
+               lib_ms=None):
+    """One kernel launch against its plain version at the same inputs,
+    with its times, bound and library call (``lib_ms`` where the caller
+    measured it, else library_call's, by CUDA events and device time);
+    ``launches`` and ``path_dms`` (device ms by kernel) come from the
+    path's own run and trace.  Returns the kernels-JSON row."""
+    wrapper, plain, replaces = kernels.KERNELS[name]
+    label = f"{name} ({which})" if which else name
+    got, same, verdict, err = against_plain(name, label, args)
     ms = time_iterations(lambda: wrapper(*args), KERNEL_ITERS, device) * 1e3
     plain_ms = time_iterations(lambda: plain(*args), KERNEL_ITERS,
                                device) * 1e3
@@ -2039,24 +1970,19 @@ def dist_mode(tag, dm, mode, xd, golden, scale, device):
 
 def shard_reduces(tag, path, dm, xd, launches, ours, device, shard0):
     """K3 on every shard but 0 (whose row is among ``shard0``) against its
-    plain version, as check_case; every shard of a forced pack holds a
-    slice of up to 1,024 plane rows, split into pieces.  Prints K3's
-    launches, device time alone and bound summed over the shards.
-    Returns the kernels-JSON rows of shards 1 .."""
-    rows = []
+    plain version (check_plain: shard 0's launch carries the times);
+    every shard of a forced pack holds a slice of up to 1,024 plane rows,
+    split into pieces.  Prints K3's launches over the shards and its time
+    in the path's trace.  Returns no rows."""
     for i, s in enumerate(dm.shards[1:], 1):
         g1 = rk.expand(s.w8, s.gcls, s.seg_blk, s.li, xd, s.segw, s.n_segs)
-        rows.append(check_case(tag, path, "reduce_slices", f"shard {i}",
-                               k3_args(s, g1), launches, ours, device))
-    every = [r for r in shard0 if r["name"] == "reduce_slices"] + rows
+        check_plain(tag, "reduce_slices", f"shard {i}", k3_args(s, g1))
     splits = [second_pass(s.red_plan.split) for s in dm.shards]
     print(f"{tag} reduce_slices over the {dm.n_shards} shards: "
           f"{dm.n_shards + sum(splits)} launches (second passes on shards "
-          f"{[i for i, k in enumerate(splits) if k]}), device time alone "
-          f"{sum(r['device_ms'] for r in every):.4f} ms, bound "
-          f"{sum(r['bound_ms'] for r in every):.4f} ms, in the path's trace "
+          f"{[i for i, k in enumerate(splits) if k]}), in the path's trace "
           f"{ours['reduce_slices']:.4f} ms")
-    return rows
+    return []
 
 
 def dist_paths(device, main_sd, main_coo):
@@ -3526,8 +3452,9 @@ def dist_format_kernels(tag, path, label, dm, csr, xd, launches, ours,
                         main, one_sd, device):
     """Shard 0's kernel launches against their plain versions (with times,
     bound and library call, as [3]), then the path's main kernel on every
-    other shard (block), summed over the shards as [8] sums K3, and
-    against the one-card artifact ``one_sd``'s launch (dist_fill)."""
+    other shard (block) against its plain version (check_plain), and the
+    shards' launches against the one-card artifact ``one_sd``'s launch
+    (dist_fill)."""
     cases = dist_shard_cases(tag, path, dm, 0, xd)
     library = library_whole(main, dist_shard_csr(path, dm, csr, 0), xd,
                             device) if path != "dist2d" else {}
@@ -3536,23 +3463,15 @@ def dist_format_kernels(tag, path, label, dm, csr, xd, launches, ours,
     for r in rows:
         r["launch"] = f"shard 0 {r['launch']}".strip()
     first = "reduce_slices" if path == "dist2d" else main
-    every = [r for r in rows if r["name"] == first]
     shard_args = [next(a for n, _, a in cases if n == first)]
     for d in range(1, len(dist_shards(path, dm))):
         args = next(a for n, w, a in dist_shard_cases(
             f"{tag} shard {d}", path, dm, d, xd) if n == first)
         shard_args.append(args)
-        lib = library_whole(first, dist_shard_csr(path, dm, csr, d), xd,
-                            device) if path != "dist2d" else {}
-        row = check_case(tag, label, first, f"shard {d}", args, launches,
-                         ours, device, lib.get(first))
-        rows.append(row)
-        every.append(row)
-    print(f"{tag} {first} over the {len(every)} shards: "
-          f"{launches[first]} launches, device time alone "
-          f"{sum(r['device_ms'] for r in every):.4f} ms, bound "
-          f"{sum(r['bound_ms'] for r in every):.4f} ms, in the path's "
-          f"trace {ours[first]:.4f} ms")
+        check_plain(tag, first, f"shard {d}", args)
+    print(f"{tag} {first} over the {len(shard_args)} shards: "
+          f"{launches[first]} launches, in the path's trace "
+          f"{ours[first]:.4f} ms")
     one_args = next(a for n, _, a in kernel_cases(f"{tag} one-card", one_sd,
                                                   xd) if n == first)
     dist_fill(tag, first, one_args, shard_args, device)
@@ -3875,10 +3794,10 @@ def rank_routed(tag, csr, mesh, xd, golden, scale, lead, dist_ms):
             if ring_mode:
                 rows.append(check_ring_kernel(tag, path, dm, xd, launches,
                                               ours, device))
-            if check:
+            if check and not ring_mode:
                 for r in check_kernels(f"{tag} {mode}", path,
                                        dm.shards[0], xd, launches, ours,
-                                       device, ring=ring_mode):
+                                       device):
                     r["launch"] = f"rank 0 {r['launch']}".strip()
                     rows.append(r)
         torch.distributed.barrier()  # rank 0's kernel checks
@@ -4033,7 +3952,292 @@ def rank_paths(device, coo):
     return res[0]["rows"]
 
 
-PHASES = (2, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 15)
+# Phase [16]: the JAX package's record of soc-LJ-full (results_r3.jsonl:30,
+# impl auto): rows, nnz and the routed stream's padded_nnz (T * 1024)
+SOC_LJ_FULL = (8_388_608, 74_366_358, 81_788_928)
+SWEEP_IMPLS = ("auto", "sell-xla", "sell", "csr")
+NUMPY_PACK = ("rmat18", lambda: syn.rmat_matrix(18, 8, seed=42))
+# the tools' inputs at full size: impl, the full_size matrix
+PROFILED = (("routed", "web_google_like"), ("window", "fem_like"),
+            ("dia", "banded_2m"), ("bsr", "banded_2m"))
+# the comm model's links: NVLink 4 of an H100 SXM5, 18 links of 25 GB/s a
+# direction (the data sheet's 900 GB/s both ways; not measured here)
+NVLINK = ("25e9", "18")
+
+
+@contextlib.contextmanager
+def harness_capture(got):
+    """Record what run_spmv_benchmark packs (its CSR and artifact) and
+    uploads (the device artifact, and the upload's seconds): the first
+    upload call; spmv's own calls (with the device artifact) pass
+    through untouched."""
+    # the module (cvr_tpu_torch.ops.spmv, the attribute, is its function)
+    spmv_module = importlib.import_module("cvr_tpu_torch.ops.spmv")
+    pack, up = bench_harness.pack_impl, spmv_module.upload
+
+    def pack_impl(csr, *args, **kw):
+        out = pack(csr, *args, **kw)
+        got["csr"], got["packed"] = csr, out[0]
+        return out
+
+    def upload(A, device="cuda"):
+        if "sd" in got:
+            return up(A, device)
+        t0 = time.perf_counter()
+        got["sd"] = up(A, device)
+        torch.cuda.synchronize()
+        got["upload_s"] = time.perf_counter() - t0
+        return got["sd"]
+
+    bench_harness.pack_impl, spmv_module.upload = pack_impl, upload
+    try:
+        yield
+    finally:
+        bench_harness.pack_impl, spmv_module.upload = pack, up
+
+
+def spmv_times(tag, sd, xd, device):
+    """One SpMV's ms by CUDA events and its device ms by kernel (a
+    trace), printed; returns the device ms by kernel of ours."""
+    ms = time_iterations(lambda: spmv(sd, xd), ITERS, device) * 1e3
+    per = device_ms(lambda: spmv(sd, xd), KERNEL_ITERS, "expand_kernel")
+    dev = sum(per.values())
+    ours = by_kernel(per)
+    print(f"{tag} spmv: {ms:.4f} ms/iter over {ITERS} iters (CUDA events); "
+          f"device time {device_split(per, ours)} ms/iter, busy "
+          f"{100 * dev / ms:.1f}%")
+    return ours
+
+
+def vector_golden(csr, x):
+    """Float64 golden y and row scale of the host vector x (scipy)."""
+    golden, scale = spmm_golden(csr, x[:, None])
+    return golden[:, 0], scale[:, 0]
+
+
+def soc_lj_full(device, out) -> list[dict]:
+    """[16a]: soc-LJ-full at full size through the bench harness (impl
+    auto, the user's entry), which must pick the routed path packed by
+    the native library; its launches over the harness's calls, its
+    report (appended to ``out``), the golden on a random x, times beside
+    cuSPARSE, and every kernel of the path against its plain version."""
+    tag = "[16a]"
+    t0 = time.perf_counter()
+    coo = syn.soc_livejournal_full()
+    gen_s = time.perf_counter() - t0
+    print(f"{tag} soc_livejournal_full: {coo.shape[0]}x{coo.shape[1]}, "
+          f"{coo.nnz} nnz, generated in {gen_s:.2f} s (the JAX package's "
+          f"record: {SOC_LJ_FULL[0]} rows, {SOC_LJ_FULL[1]} nnz)")
+    if (coo.shape[0], coo.nnz) != SOC_LJ_FULL[:2]:
+        raise AssertionError(f"{tag} not the recorded matrix")
+    got = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with harness_capture(got):
+        r = run_spmv_benchmark(coo, name="soc-LJ-full", impl="auto",
+                               iters=ITERS, pack_repeats=1, device=device)
+    torch.cuda.synchronize()
+    run_launches = kernels.launches()
+    run_s = time.perf_counter() - t0
+    del coo
+    r.print_report(threads_label="auto")
+    append_result(r, out)
+    append_jsonl(r, out.with_suffix(".jsonl"))
+    csr, sr, sd, upload_s = (got["csr"], got["packed"], got["sd"],
+                             got["upload_s"])
+    if not r.verified or not isinstance(sr, SellRouted):
+        raise AssertionError(f"{tag} the harness picked "
+                             f"{type(sr).__name__} or failed to verify")
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in sr.convert_phases.items())
+    print(f"{tag} pack {r.preproc_s:.3f} s ({phases}); upload "
+          f"{upload_s:.3f} s; the harness's run {run_s:.1f} s")
+    if "stream" not in sr.convert_phases or "expand_tiles" in \
+            sr.convert_phases:
+        raise AssertionError(f"{tag} the pack did not run on the native "
+                             "library")
+    print(f"{tag} {geometry(sr)}")
+    print(f"{tag} T {sr.T} route tiles ({sr.T * 1024} stream slots), "
+          f"{sr.extra_src.shape[0]} split-row extras; the JAX package's "
+          f"record: padded_nnz {SOC_LJ_FULL[2]} (T "
+          f"{SOC_LJ_FULL[2] // 1024})")
+    calls = ITERS + 4  # the harness: 3 warm-up calls, ITERS, then y
+    want = {k: n * calls for k, n in expected_launches(sd).items()}
+    print(f"{tag} launches over the harness's {calls} SpMVs: "
+          f"{ {k: n for k, n in run_launches.items() if n} }")
+    if run_launches != want:
+        raise AssertionError(f"{tag} launches {run_launches}, the pack "
+                             f"needs {want}")
+    del sr
+    got.clear()
+    x = np.random.default_rng(0).standard_normal(csr.shape[1]).astype(
+        np.float32)
+    xd = torch.from_numpy(x).to(device)
+    kernels.reset_launches()
+    y = spmv(sd, xd)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    golden, scale = vector_golden(csr, x)
+    ok, nbad, maxrel = verify(y.cpu().numpy(), golden, rtol=1e-6,
+                              row_scale=scale)
+    print(f"{tag} one SpMV of a random x: launches "
+          f"{ {k: n for k, n in launches.items() if n} }, golden (rtol "
+          f"1e-6, row-scaled) {'PASS' if ok else 'FAIL'}, {nbad} bad rows, "
+          f"max rel {maxrel:.3e}")
+    if not ok or launches != expected_launches(sd):
+        raise AssertionError(f"{tag} disagrees with the golden or skipped "
+                             "a kernel")
+    ours = spmv_times(tag, sd, xd, device)
+    cusparse_ms(tag, csr, xd, golden, scale, device)
+    print(f"{tag} generation {gen_s:.2f} s, pack {r.preproc_s:.2f} s, "
+          f"upload {upload_s:.3f} s")
+    del csr, golden, scale, y
+    rows = check_kernels(tag, "soc_lj_full", sd, xd, launches, ours, device)
+    del sd, xd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sweep_tools(device, out) -> None:
+    """[16b]: the sweep's default suite in this process, four impls, two
+    packs a run, appended to ``out``; every run must verify."""
+    rows = bench_sweep.run_suite(bench_sweep.default_suite(), SWEEP_IMPLS,
+                                 out=out, pack_repeats=2, device=device)
+    print(bench_sweep.summary(rows))
+    if len(rows) != 3 * len(SWEEP_IMPLS) or not all(r.verified
+                                                     for r in rows):
+        raise AssertionError("[16b] a sweep run failed or did not verify")
+
+
+@contextlib.contextmanager
+def native_hidden():
+    """The tests' switch: _native.available() false, so the routed pack
+    takes its numpy path; the route's Euler coloring alone still runs in
+    the library (the pure-Python coloring takes about a minute a million
+    elements), as in tests/test_torch_routed_fallback.py."""
+    available, color = _native.available, troute.euler_color_py
+    _native.available = lambda: False
+    troute.euler_color_py = _native.euler_color_native
+    try:
+        yield
+    finally:
+        _native.available, troute.euler_color_py = available, color
+
+
+def numpy_pack(device) -> list[dict]:
+    """[16c]: the routed pack without the native library, on R-MAT 18:
+    its pack seconds beside the native pack's, its SpMV's launches, y at
+    the golden and within the contract of the native pack's y, and its
+    kernels against their plain versions."""
+    tag = "[16c]"
+    name, make = NUMPY_PACK
+    csr = make().to_csr()
+    t0 = time.perf_counter()
+    native = sell_pack_routed(csr)
+    native_s = time.perf_counter() - t0
+    with native_hidden():
+        t0 = time.perf_counter()
+        sr = sell_pack_routed(csr)
+        numpy_s = time.perf_counter() - t0
+    if "expand_tiles" not in sr.convert_phases or "stream" not in \
+            native.convert_phases:
+        raise AssertionError(f"{tag} the packs did not take their paths")
+    for what, A, secs in (("native", native, native_s),
+                          ("numpy", sr, numpy_s)):
+        phases = ", ".join(f"{k} {v:.3f}" for k, v in
+                           A.convert_phases.items())
+        print(f"{tag} {name} {what} pack {secs:.3f} s ({phases}): "
+              f"{geometry(A)}")
+    x = np.random.default_rng(0).standard_normal(csr.shape[1]).astype(
+        np.float32)
+    xd = torch.from_numpy(x).to(device)
+    sd, sd_native = upload(sr, device), upload(native, device)
+    kernels.reset_launches()
+    y = spmv(sd, xd)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    golden, scale = vector_golden(csr, x)
+    yn = y.cpu().numpy()
+    ok, nbad, maxrel = verify(yn, golden, rtol=1e-6, row_scale=scale)
+    ok2, nbad2, maxrel2 = verify(yn, spmv(sd_native, xd).cpu().numpy(),
+                                 rtol=1e-6, row_scale=scale)
+    print(f"{tag} numpy pack's SpMV: launches "
+          f"{ {k: n for k, n in launches.items() if n} }, golden "
+          f"{'PASS' if ok else 'FAIL'} ({nbad} bad, max rel {maxrel:.3e}), "
+          f"the native pack's y {'PASS' if ok2 else 'FAIL'} ({nbad2} bad, "
+          f"max rel {maxrel2:.3e})")
+    if not (ok and ok2) or launches != expected_launches(sd):
+        raise AssertionError(f"{tag} the numpy pack's SpMV disagrees")
+    ours = spmv_times(tag, sd, xd, device)
+    return check_kernels(tag, f"numpy_pack_{name}", sd, xd, launches, ours,
+                         device)
+
+
+def profiled_passes(device, main_sd=None) -> None:
+    """[16d]: bench/profile_passes's table for each impl at full size,
+    on the full_size matrices (routed on [2]'s pack ``main_sd`` where [2]
+    ran); its passes must be the kernels launched, each with a device
+    time."""
+    csrs = {}
+    for impl, name in PROFILED:
+        if name not in csrs:
+            csrs[name] = full_size(name).to_csr()
+        given = {}
+        if impl == "routed" and main_sd is not None:
+            x = np.random.default_rng(0).standard_normal(
+                main_sd.shape[1]).astype(np.float32)
+            given = {"sd": main_sd, "x": torch.from_numpy(x).to(device)}
+        res = bench_passes.profile(impl, csrs[name], device,
+                                   iters=KERNEL_ITERS, **given)
+        print(f"[16d] {impl} on {name}:")
+        for line in res["text"].splitlines():
+            print(f"[16d]   {line}")
+        names = {r["name"] for r in res["rows"]}
+        timed = torch.device(device).type != "cuda" or all(
+            r["device_ms"] is not None for r in res["rows"])
+        if names != set(res["launches"]) or not timed:
+            raise AssertionError(f"[16d] {impl}: passes {sorted(names)}, "
+                                 f"launched {res['launches']}")
+
+
+def spmm_comm_parity(device, out) -> None:
+    """[16e]: ``spmm --quick`` (banded-200K, K 128, K12) at the golden,
+    then the comm model's and the parity table over [16a]'s and [16b]'s
+    rows (``out``'s JSONL)."""
+    spmm_out = out.with_name("spmm_h100.jsonl")
+    kernels.reset_launches()
+    bench_spmm.main(["--quick", "--out", str(spmm_out), "--device",
+                     str(device)])
+    row = json.loads(spmm_out.read_text().splitlines()[-1])
+    if row["max_rel_err"] > 1e-6 or not kernels.launches()["bsr_spmm"]:
+        raise AssertionError(f"[16e] spmm --quick: {row}")
+    jsonl = str(out.with_suffix(".jsonl"))
+    links = ["--link-bw", NVLINK[0], "--links", NVLINK[1]]
+    print(f"[16e] comm model over {jsonl} (NVLink links of the data sheet):")
+    if bench_comm.main([jsonl, *links]) != 0:
+        raise AssertionError("[16e] comm_model failed")
+    if bench_parity.main([jsonl, *links]) != 0:
+        raise AssertionError("[16e] parity failed")
+
+
+def tools_paths(device, scratch, main_sd=None) -> list[dict]:
+    """Phase [16]: soc-LJ-full at full size, the sweep, the routed pack
+    without the native library, the per-pass profiles (``main_sd``: [2]'s
+    pack, or None), then spmm, comm_model and parity, each through its
+    tool.  Their CSV and JSONL go to ``scratch``."""
+    out = Path(scratch) / "results_h100.csv"
+    rows = []
+    for part, run in (("a", lambda: soc_lj_full(device, out)),
+                      ("b", lambda: sweep_tools(device, out)),
+                      ("c", lambda: numpy_pack(device)),
+                      ("d", lambda: profiled_passes(device, main_sd)),
+                      ("e", lambda: spmm_comm_parity(device, out))):
+        t0 = time.perf_counter()
+        rows += run() or []
+        print(f"[16{part}] took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+PHASES = (2, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 15, 16)
 # phases that run on [2]'s pack and tensors, and [10]'s, whose digests
 # they record
 NEEDS_2 = (8, 9)
@@ -4059,8 +4263,8 @@ def main(argv=None) -> int:
     ap.add_argument("--y-digests", action="store_true",
                     help="print y_digests (a JSON object) and stop")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases to run, e.g. 1,2,12 "
-                    "(default: all)")
+                    help="comma-separated phases to run, e.g. 1,2,12 or "
+                    "16 (default: all, 2-16)")
     args = ap.parse_args(argv)
     phases = phase_set(args.phases)
     if not torch.cuda.is_available():
@@ -4074,6 +4278,19 @@ def main(argv=None) -> int:
     print(f"[0] device: {kind}")
     print(f"[0] nvidia-smi: {smi}")
     print(f"[0] phases: {sorted(phases)}")
+    # the generators' cache and the tools' files live for this run only
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    (scratch / "tools").mkdir()
+    os.environ["CVR_TPU_CACHE"] = str(scratch / "cache")
+    try:
+        return run_phases(args, phases, kind, smi, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def run_phases(args, phases, kind, smi, scratch) -> int:
+    """main's phases, once the card is known (``scratch``: this run's
+    temporary directory)."""
     build()
     if args.y_digests:
         print(json.dumps(y_digests("cuda")))
@@ -4083,21 +4300,29 @@ def main(argv=None) -> int:
     print(f"[2] web_google_like: {coo.shape[0]}x{coo.shape[1]}, {coo.nnz} "
           f"nnz, generated in {time.perf_counter() - t0:.2f} s")
     rows = []
+    t0 = time.perf_counter()
     if 2 in phases:
         sr, sd, xd, launches, _ms, spmv_dms, _lib = main_path(coo, "cuda")
         rows += check_kernels("[3]", "web_google_like", sd, xd, launches,
                               spmv_dms, "cuda")
         del xd
+        print(f"[2]/[3] took {time.perf_counter() - t0:.1f} s")
     if 4 in phases or 5 in phases:
+        t0 = time.perf_counter()
         walks = check_geometries("cuda") if 4 in phases else None
+        print(f"[4] took {time.perf_counter() - t0:.1f} s")
         if 5 in phases:
+            t0 = time.perf_counter()
             rows += fsm_path("cuda", walks)
+            print(f"[5] took {time.perf_counter() - t0:.1f} s")
     for p, run in ((6, lambda: format_paths("cuda")),
                    (7, lambda: spmm_paths("cuda")),
                    (8, lambda: dist_paths("cuda", sd, coo)),
                    (9, lambda: route_api("cuda", sr, sd, coo))):
         if p in phases:
+            t0 = time.perf_counter()
             rows += run()
+            print(f"[{p}] took {time.perf_counter() - t0:.1f} s")
     if set(DIGEST_PHASES) <= phases:
         if set(Y_SHA256) != set(PARENT_Y_SHA256):
             raise AssertionError(f"[10] the routed y's {sorted(Y_SHA256)} "
@@ -4109,7 +4334,9 @@ def main(argv=None) -> int:
                    (12, lambda: loaded_paths("cuda", coo, f"{kind}; nvidia-smi: {smi}")),
                    (14, lambda: dist_formats("cuda", sd if 2 in phases
                                              else None)),
-                   (15, lambda: rank_paths("cuda", coo))):
+                   (15, lambda: rank_paths("cuda", coo)),
+                   (16, lambda: tools_paths("cuda", scratch / "tools",
+                                            sd if 2 in phases else None))):
         if p in phases:
             t0 = time.perf_counter()
             rows += run()

@@ -62,16 +62,25 @@ class BenchResult:
     max_rel_err: float | None = None
     nrows: int = 0
     ncols: int = 0
+    # the first pack's time where pack_repeats > 1 (preproc_s is then the
+    # least over the repeats: the first pack also pays the host's first
+    # touch of its memory)
+    preproc_first_s: float | None = None
     device: str = ""
 
     def print_report(self, threads_label: str | None = None) -> None:
         """The greppable report; its ``[threads: ...]`` tag names the
-        device unless ``threads_label`` is given (``cli compare`` gives
-        the impl)."""
+        device unless ``threads_label`` is given (``cli compare`` and the
+        sweep give the impl)."""
         label = self.device if threads_label is None else threads_label
+        first = (
+            f" (min over repeats; first run {self.preproc_first_s * 1e3:.3f} ms)"
+            if self.preproc_first_s is not None
+            else ""
+        )
         print(
             f"[file: {self.name}] [threads: {label}] "
-            f"Pre-processing Time: {self.preproc_s * 1e3:.3f} ms"
+            f"Pre-processing Time: {self.preproc_s * 1e3:.3f} ms{first}"
         )
         print(
             f"[file: {self.name}] [threads: {label}] "
@@ -229,8 +238,79 @@ def is_event(event: str, names) -> bool:
                                     else names))
 
 
+# kernels of ours whose device events are not named "<kernel>_kernel": K5
+# and K17 launch one instantiation each of tileperm_kernel, K2 one of two
+# bodies (staged, or split: route_middle_m1_kernel first): kernel -> the
+# names (a part of them) of its first pass's device events (the profiler
+# demangles kernel names)
+EVENTS = {"tileperm": ("tileperm_kernel<false>",),
+          "groupperm": ("tileperm_kernel<true>",),
+          "route_middle": ("route_middle_kernel", "route_middle_m1_kernel")}
+
+
+# kernels of ours whose wrapper may launch a second pass (adding a split
+# item's partials; K2's split body's chunk select): kernel -> the second
+# pass's device events' name
+SECOND = {"reduce_slices": "reduce_slices_combine_kernel",
+          "lane_reduce": "lane_reduce_combine_kernel",
+          "pmm_spmm": "pmm_spmm_combine_kernel",
+          "reduce_stream": "reduce_stream_combine_kernel",
+          "route_middle": "route_middle_select_kernel"}
+
+
+def event_of(name: str) -> tuple[str, ...]:
+    """The names (a part of them) of kernel ``name``'s first pass's device
+    events."""
+    return EVENTS.get(name, (f"{name}_kernel",))
+
+
+def by_kernel(per) -> dict[str, float]:
+    """Device ms by kernel of ours (both passes where it has two), from
+    device_ms's ms by event name."""
+    from cvr_tpu_torch.ops import kernels
+
+    return {k: sum(v for n, v in per.items()
+                   if is_event(n, event_of(k))
+                   or (k in SECOND and SECOND[k] in n))
+            for k in kernels.KERNELS}
+
+
 # the impls' other names, as the JAX harness takes them
 IMPL_ALIASES = {"routed": "sell-routed", "window": "sell-window"}
+# the impls that pack a format (pack_impl)
+PACKED_IMPLS = ("sell-xla", "auto", "sell-routed", "dia", "bell",
+                "sell-window")
+
+
+def impl_name(impl: str) -> str:
+    """The PACKED_IMPLS name ``impl`` runs, or "csr": as in the JAX
+    harness, "routed" and "window" name "sell-routed" and "sell-window",
+    and every other name that starts with "sell" (``sell``, ``sell-c128``)
+    runs the plain SELL planes, as "sell-xla" does."""
+    impl = IMPL_ALIASES.get(impl, impl)
+    if impl in PACKED_IMPLS or impl == "csr":
+        return impl
+    if impl.startswith("sell"):
+        return "sell-xla"
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def _timed_pack(fn, repeats: int = 1):
+    """Run the pack ``repeats`` times; return (result, least seconds,
+    first seconds).  The previous repeat's result is dropped before each
+    pack, so that two never live at once on a full-scale matrix."""
+    best = float("inf")
+    first = None
+    out = None
+    for _ in range(max(1, repeats)):
+        out = None
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        if first is None:
+            first = dt
+        best = min(best, dt)
+    return out, best, first
 
 
 def pack_impl(csr, impl: str, C: int | None = None, sigma: int = 0):
@@ -270,17 +350,21 @@ def run_spmv_benchmark(
     device="cuda",
     verify_result: bool = True,
     x: np.ndarray | None = None,
+    pack_repeats: int = 1,
 ) -> BenchResult:
     """End to end: convert (timed) -> SpMV iterations (timed) -> verify.
 
     impl "sell-xla" (the default, as in the JAX harness): the plain SELL
-    planes (``sell_pack``) through ``sell_spmv``, torch ops; "auto":
+    planes (``sell_pack``) through ``sell_spmv``, torch ops, as every
+    other name that starts with "sell" ("sell", "sell-c128"); "auto":
     ``pack_auto``'s format (DIA, BELL, SELL-W, the routed path, or above
     its cap the plain SELL planes); "sell-routed", "dia", "bell",
     "sell-window": that format's pack and SpMV ("sell-routed" with the
     hub-column hybrid where its gate fires; "routed" and "window" name
     them too); "csr": plain torch CSR.  C (None: 1024) and sigma reach
-    the SELL pack of "sell-xla".
+    the plain SELL pack.  ``pack_repeats`` packs that many times: the
+    result's preproc_s is the least, preproc_first_s the first (None at
+    1).
     """
     from cvr_tpu_torch.ops.spmv import spmv, upload
     from cvr_tpu_torch.ops.spmv_ref import (
@@ -289,18 +373,25 @@ def run_spmv_benchmark(
         spmv_row_scale,
         verify,
     )
+    from cvr_tpu_torch.utils import memarena
 
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' for a CPU run")
     chip = detect_chip(dev)
+    name_run = impl_name(impl)
+    # a lazily backed host makes cold numpy temporaries ~100x slow
+    # (utils/memarena.py): warm the allocator arena before the pack timer
+    memarena.warm()
+    memarena.wait()
     csr = coo.to_csr()
     nnz = csr.nnz
     if x is None:
         x = np.ones(csr.shape[1], dtype=np.float32)
     xd = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
 
-    if impl == "csr":
+    if name_run == "csr":
+        preproc_first = None
         t0 = time.perf_counter()
         rowptr = torch.from_numpy(csr.rowptr).to(dev)
         cols = torch.from_numpy(csr.cols.astype(np.int64)).to(dev)
@@ -313,18 +404,14 @@ def run_spmv_benchmark(
 
         def fn():
             return spmv_csr_torch(rowptr, cols, vals, xd, nrows)
-    elif IMPL_ALIASES.get(impl, impl) in ("sell-xla", "auto", "sell-routed",
-                                          "dia", "bell", "sell-window"):
-        t0 = time.perf_counter()
-        packed, padded = pack_impl(csr, IMPL_ALIASES.get(impl, impl), C,
-                                   sigma)
-        preproc = time.perf_counter() - t0
+    else:
+        (packed, padded), preproc, preproc_first = _timed_pack(
+            lambda: pack_impl(csr, name_run, C, sigma), pack_repeats)
         sd = upload(packed, dev)
+        del packed
 
         def fn():
             return spmv(sd, xd)
-    else:
-        raise ValueError(f"unknown impl {impl!r}")
 
     spmv_s = time_iterations(fn, iters, dev)
     y = fn().cpu().numpy()
@@ -351,5 +438,6 @@ def run_spmv_benchmark(
         max_rel_err=max_rel,
         nrows=csr.shape[0],
         ncols=csr.shape[1],
+        preproc_first_s=preproc_first if pack_repeats > 1 else None,
         device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     )

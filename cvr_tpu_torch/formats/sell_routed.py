@@ -13,8 +13,9 @@ On top of the SELL planes (cvr_tpu_torch.formats.sell) the pack compiles:
   * a **y-route** carrying per-slice lane sums back to natural row order,
     with split-row extra segments combined by a small scatter-add.
 
-The whole route runs at pack time in the native library and leaves static
-index planes, so the device passes have no data-dependent control flow.
+The whole route runs at pack time in the native library (without it,
+in the JAX package's numpy path) and leaves static index planes, so the
+device passes have no data-dependent control flow.
 With ``hot="auto"`` (the default) the hub-column hybrid
 (cvr_tpu_torch.formats.hot) may first move the hottest columns' elements
 into hot planes.  This is the host layer of the port; it builds the same
@@ -553,14 +554,18 @@ def pack_routed(
     by routed_stream_phase (the distributed pack builds every shard's
     first, to unify the per-step counts).
 
-    Requires the native library: the stream build and the route compile
-    are native passes (the reference's numpy fallback is not ported).
+    The stream build and the route compile are native passes.  Without
+    the native library the pack takes the JAX package's numpy path
+    (_pack_routed_numpy: no zone layout, every pack under the route tile
+    cap); ``ring`` and ``stream`` still require the library.
     """
     from cvr_tpu_torch import _native
     from cvr_tpu_torch.ops import route_planes as rp
 
     if sm.C != TILE:
         raise ValueError("routed path requires C == 1024")
+    if ring is None and stream is None and not _native.available():
+        return _pack_routed_numpy(sm, max_T, force)
     st = stream if stream is not None else routed_stream_phase(sm, force)
     pt = st.pt
     if max_T is not None and st.T > max_T:
@@ -600,6 +605,166 @@ def pack_routed(
     sr.ring_cnt = ring_cnt
     sr.ring_nsegtab = ring_nsegtab
     return sr
+
+
+def _pack_routed_numpy(sm: SellMatrix, max_T: int | None,
+                       force: RoutedForce | None) -> SellRouted:
+    """pack_routed without the native library, the JAX package's numpy
+    path array for array: the plain layout plan (no zone), the expand
+    schedule cut by vectorised numpy (phase "expand_tiles"), the route of
+    the source stream onto the plane compiled by ops/route.plan_route
+    (phase "route_plan": its coloring is pure Python without the
+    library), stage 1 fused into the expand plane and the middle's planes
+    (phase "fuse_planes"), then the shared tail."""
+    from cvr_tpu_torch.ops import route_planes as rp
+    from cvr_tpu_torch.ops.route import plan_route
+
+    pt = PhaseTimer()
+    CH, YB, TB = rp.CH, rp.YB, rp.TB
+    S = sm.n_slots
+    ncols = sm.shape[1]
+    # rows are length-sorted, so the zero-width slices (all-empty rows)
+    # are the trailing ones; the artifact drops them from nslices
+    widths_all = np.diff(sm.slice_offsets)
+    nslices = int((widths_all > 0).sum())
+    if (widths_all[nslices:] != 0).any():
+        raise AssertionError("zero-width slices must be trailing")
+    nslices = max(nslices, 1)
+    nslices_u = nslices
+    if force is not None and force.nslices is not None:
+        if force.nslices < nslices:
+            raise ValueError("force.nslices below natural slice count")
+        nslices_u = force.nslices
+    offs = sm.slice_offsets.astype(np.int64)
+    rmap, ycall_rows, regions, S_padded = _plan_layout(
+        offs, nslices, S, YB, CH, nslices_u=nslices_u, force=force
+    )
+    N_plane = S_padded * TILE
+    force_T = 0 if force is None or force.T is None else int(force.T)
+
+    with pt.phase("expand_tiles"):
+        # columns at padded plane positions: inserted rows carry col 0 and
+        # val 0 (trash on the route's dest side)
+        cols_pad = np.zeros((S_padded, TILE), dtype=np.int64)
+        cols_pad[rmap] = sm.cols_plane.astype(np.int64)
+        cols_flat = cols_pad.reshape(-1)
+        order = np.argsort(cols_flat, kind="stable")  # the source stream
+        sc = cols_flat[order]
+        # cut at every aligned 1024-column window boundary, then every
+        # 1024 elements within a window
+        wins = sc >> 10
+        nwin = int(wins[-1]) + 1 if sc.shape[0] else 0
+        wb = np.searchsorted(sc, np.arange(nwin + 1) * 1024)
+        wcnt = np.diff(wb)
+        nz = wcnt > 0
+        tiles_per_win = -(-wcnt[nz] // TILE)
+        T_src = int(tiles_per_win.sum())
+        # per tile: its window and its start in the stream
+        win_of_tile = np.repeat(np.flatnonzero(nz), tiles_per_win)
+        cum = np.cumsum(tiles_per_win)
+        first_of_win = np.zeros(nz.sum(), dtype=np.int64)
+        first_of_win[1:] = cum[:-1]
+        k_in_win = np.arange(T_src, dtype=np.int64) - np.repeat(
+            first_of_win, tiles_per_win
+        )
+        win_idx = np.searchsorted(np.flatnonzero(nz), win_of_tile)
+        tile_start = wb[:-1][nz][win_idx] + k_in_win * TILE
+        tile_end = np.minimum(tile_start + TILE, wb[1:][nz][win_idx])
+
+    with pt.phase("route_plan"):
+        # x-table segments: blocks of TB tiles share a segment, so each
+        # segment's tile range is padded to a TB multiple
+        nwin_total = -(-max(ncols, 1) // 1024)
+        segw = min(rp.SEGW, _round_up(nwin_total, 8))
+        n_segs = -(-nwin_total // segw)
+        seg_of_tile = (win_of_tile // segw).astype(np.int64)
+        seg_counts = np.bincount(seg_of_tile, minlength=n_segs)
+        seg_padded = -(-seg_counts // TB) * TB
+        seg_new_start = np.zeros(n_segs, dtype=np.int64)
+        np.cumsum(seg_padded[:-1], out=seg_new_start[1:])
+        seg_old_start = np.zeros(n_segs, dtype=np.int64)
+        np.cumsum(seg_counts[:-1], out=seg_old_start[1:])
+        tile_new = (np.arange(T_src, dtype=np.int64)
+                    - seg_old_start[seg_of_tile] + seg_new_start[seg_of_tile])
+        T_src_p = int(seg_padded.sum())
+
+        T = _round_up(max(T_src_p, S_padded), 1024)
+        if force_T:
+            if force_T < T:
+                raise ValueError(f"force.T {force_T} < required T {T}")
+            T = force_T
+        _check_T(T)
+        if max_T is not None and T > max_T:
+            raise ValueError(f"the routed stream needs T={T} route tiles, "
+                             f"above the cap of {max_T}")
+        # source stream arrays, filler slots -1
+        src_pos = np.full(T * TILE, -1, dtype=np.int64)
+        li_flat = np.zeros(T * TILE, dtype=np.int16)
+        # w8: segment-relative sublane bases (128-column granularity);
+        # aligned windows are the *8 case, every tile in gather class 8
+        w8_arr = np.zeros(T, dtype=np.int32)
+        w8_arr[tile_new] = ((win_of_tile - seg_of_tile * segw) * 8).astype(
+            np.int32)
+        gcls = np.full(T // 8, 8, dtype=np.int32)
+        seg_blk = np.zeros(T // TB, dtype=np.int32)
+        seg_end_blk = (seg_new_start + seg_padded) // TB
+        for sg in range(n_segs):
+            seg_blk[seg_new_start[sg] // TB : seg_end_blk[sg]] = sg
+        tlen = tile_end - tile_start
+        tile_of_el = np.repeat(tile_new, tlen)
+        starts_rep = np.repeat(tile_start, tlen)
+        j_in_tile = np.arange(int(tlen.sum()), dtype=np.int64) - np.repeat(
+            np.cumsum(tlen) - tlen, tlen)
+        stream_idx = tile_of_el * TILE + j_in_tile
+        el = starts_rep + j_in_tile  # index into the sorted stream
+        src_pos[stream_idx] = order[el]
+        li_flat[stream_idx] = (
+            sc[el] - win_of_tile[np.repeat(np.arange(T_src, dtype=np.int64),
+                                           tlen)] * 1024
+        ).astype(np.int16)
+        # fillers keep the offset of their tile's last real column
+        short = np.flatnonzero(tlen < TILE)
+        fill_tiles, fill_len = tile_new[short], tlen[short]
+        if fill_tiles.shape[0]:
+            last_li = li_flat[fill_tiles * TILE + (fill_len - 1)]
+            pads = TILE - fill_len
+            ft_rep = np.repeat(fill_tiles, pads)
+            base_rep = np.repeat(fill_len, pads)
+            jj = np.arange(int(pads.sum()), dtype=np.int64) - np.repeat(
+                np.cumsum(pads) - pads, pads)
+            li_flat[ft_rep * TILE + base_rep + jj] = np.repeat(last_li, pads)
+        # perm: dest position (plane) -> source stream position
+        perm = np.empty(T * TILE, dtype=np.int64)
+        stream_of_plane = np.empty(N_plane, dtype=np.int64)
+        real = src_pos >= 0
+        stream_of_plane[src_pos[real]] = np.flatnonzero(real)
+        perm[:N_plane] = stream_of_plane
+        trash_src = np.flatnonzero(~real)
+        perm[N_plane:] = trash_src[: T * TILE - N_plane]
+        if perm[N_plane:].shape[0] != trash_src.shape[0]:
+            raise AssertionError("filler/trash count mismatch")
+        plan = plan_route(perm)
+        if plan.n_tiles != T:
+            raise AssertionError(f"route of {plan.n_tiles} tiles, not {T}")
+
+    with pt.phase("fuse_planes"):
+        # stage 1 fused into the expand plane: the element emitted at
+        # color q of tile a reads li at the pre-stage-1 offset s1[a, q]
+        s1 = plan.s1.astype(np.int64)
+        li_fused = np.take_along_axis(li_flat.reshape(T, TILE), s1, axis=1)
+        li_ss = np.ascontiguousarray(
+            li_fused.reshape(T, 8, 128).transpose(1, 0, 2))
+        mid = rp.middle_planes(plan)
+        # stage 3 plane restricted to the real dest tiles (plane rows)
+        p3 = plan.s3[:S_padded].astype(np.int16)
+        p3_ss = np.ascontiguousarray(
+            p3.reshape(S_padded, 8, 128).transpose(1, 0, 2))
+
+    return _pack_routed_tail(
+        sm, pt, force, offs, rmap, nslices_u, S_padded, ycall_rows, regions,
+        w8_arr, li_ss, seg_blk, mid, p3_ss, T, n_segs, segw,
+        int((~real).sum()), gcls, None, None, None,
+    )
 
 
 def group_padded_rmap(offs, nslices: int, S: int, group_slices: int,

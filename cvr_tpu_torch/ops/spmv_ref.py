@@ -45,6 +45,20 @@ def spmv_csr_torch(
     return y.index_add_(0, row_ids, contrib)
 
 
+def spmv_coo_torch(
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    x: torch.Tensor,
+    nrows: int,
+) -> torch.Tensor:
+    """Plain torch COO SpMV (entries in any order): gather, multiply,
+    ``index_add_`` by row."""
+    contrib = vals.view(-1, *[1] * (x.dim() - 1)) * x[cols]
+    y = torch.zeros((nrows, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    return y.index_add_(0, rows, contrib)
+
+
 def spmv_row_scale(csr: CSRMatrix, x: np.ndarray) -> np.ndarray:
     """Per-row magnitude scale s_r = sum_j |a_rj| |x_j| (float64).
 

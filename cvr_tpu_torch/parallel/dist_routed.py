@@ -165,14 +165,22 @@ def _shard_packs(csr: CSRMatrix, D: int, split_len: int | None = None,
     with pt.phase("unify_T"):
         T_u = S_pad_u
         n_segs = -(-nwin_total // segw)
-        for sm in sms:
-            rmap, _, _, _, _ = group_padded_rmap(
-                sm.slice_offsets.astype(np.int64), sm.nslices, sm.n_slots,
-                YB, CH, n_groups=n_ycalls, rcp_override=rcp_u,
-            )
-            T_src_p, _ = _native.stream_count2_native(
-                rmap, sm.cols_plane, S_pad_u, segw * 8 * n_segs, segw, TB)
-            T_u = max(T_u, T_src_p)
+        if _native.available():
+            for sm in sms:
+                rmap, _, _, _, _ = group_padded_rmap(
+                    sm.slice_offsets.astype(np.int64), sm.nslices,
+                    sm.n_slots, YB, CH, n_groups=n_ycalls,
+                    rcp_override=rcp_u,
+                )
+                T_src_p, _ = _native.stream_count2_native(
+                    rmap, sm.cols_plane, S_pad_u, segw * 8 * n_segs, segw,
+                    TB)
+                T_u = max(T_u, T_src_p)
+        else:
+            # the JAX package's bound without the library: the stream holds
+            # S_pad_u * 1024 elements, each nonempty window adds at most
+            # one partial tile, and each segment pads to a TB multiple
+            T_u = max(T_u, S_pad_u + nwin_total + n_segs * TB)
         T_u = -(-T_u // TILE) * TILE
     force = RoutedForce(rcp=rcp_u, nslices=nslices_u, T=T_u,
                         nrows_out=rows_max, n_extras=n_extras_u)

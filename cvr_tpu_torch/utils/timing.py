@@ -1,4 +1,5 @@
-"""Wall-clock phase timing for the converters (host side).
+"""Wall-clock timing for the host side: a start/stop Timer and the
+PhaseTimer the converters accumulate their named phases in.
 
 Pre-processing time is a first-class reported metric, so every converter
 accumulates its named phases in a PhaseTimer.  Device time is measured
@@ -10,6 +11,33 @@ from __future__ import annotations
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+
+@dataclass
+class Timer:
+    """A simple start/stop wall-clock timer (seconds); ``elapsed``
+    accumulates over start/stop pairs, and the timer is a context
+    manager."""
+
+    elapsed: float = 0.0
+    _t0: float | None = None
+
+    def start(self) -> "Timer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def stop(self) -> float:
+        if self._t0 is None:
+            raise RuntimeError("Timer.stop() without start()")
+        self.elapsed += time.perf_counter() - self._t0
+        self._t0 = None
+        return self.elapsed
+
+    def __enter__(self) -> "Timer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
 
 
 @dataclass
@@ -31,3 +59,9 @@ class PhaseTimer:
     @property
     def total(self) -> float:
         return sum(self.phases.values())
+
+    def report(self) -> str:
+        """One line per phase in ms, then the total."""
+        lines = [f"  {k:<24s} {v * 1e3:10.3f} ms" for k, v in self.phases.items()]
+        lines.append(f"  {'total':<24s} {self.total * 1e3:10.3f} ms")
+        return "\n".join(lines)

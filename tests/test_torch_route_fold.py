@@ -309,13 +309,10 @@ def test_formats_export_the_reference_names():
 
 # the JAX subpackages' names not ported yet, and the ones the port gives
 # under another name
-SUBPACKAGE_GAPS = {
-    "io": {"load_suitesparse"},
-    "ops": {"spmv_coo_jnp"},
-    "utils": {"Timer", "append_result", "append_jsonl"},
-}
+SUBPACKAGE_GAPS = {"io": set(), "ops": set(), "utils": set()}
 OPS_RENAMED = {"sell_spmv_xla": "sell_spmv", "sell_spmm_xla": "sell_spmm",
-               "spmv_csr_jnp": "spmv_csr_torch"}
+               "spmv_csr_jnp": "spmv_csr_torch",
+               "spmv_coo_jnp": "spmv_coo_torch"}
 
 
 @pytest.mark.parametrize("sub", sorted(SUBPACKAGE_GAPS))

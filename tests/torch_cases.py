@@ -54,7 +54,8 @@ def rmat(scale, edge_factor, seed):
     return (
         jsyn.rmat_matrix(scale=scale, edge_factor=edge_factor, seed=seed,
                          cache=False),
-        tsyn.rmat_matrix(scale=scale, edge_factor=edge_factor, seed=seed),
+        tsyn.rmat_matrix(scale=scale, edge_factor=edge_factor, seed=seed,
+                         cache=False),
     )
 
 
