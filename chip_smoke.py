@@ -214,12 +214,29 @@ Phases, each printed on its own lines:
      parity over (a)'s and (b)'s rows, each table printed.  The
      generators' cache (CVR_TPU_CACHE) and the tools' files live in a
      temporary directory removed at the end;
+ 17. the headline entry, python -m cvr_tpu_torch.bench (root bench.py's
+     counterpart) and cvr_tpu_torch.entry (__graft_entry__'s): (a) its
+     --quick runs (rmat13: sell-routed at 200 iterations, sell-xla, csr,
+     and sell-routed with --pack-repeats 2), each a subprocess that must
+     exit 0 with "Verification: PASS", bench.py's four-key JSON object as
+     the last line of stdout, rounded from the GFLOPS of the BenchResult
+     it prints on stderr, whose device is the card (and, at two packs,
+     the first pack's seconds); (b) its full default run (web-Google-like,
+     sell-routed, 100 iterations) once, on the generator cache that
+     full_size wrote, its GFLOPS, SpMV and pack seconds beside [2]'s; (c)
+     entry("cuda") in this process: launches against the pack's, y at the
+     float64 golden, every kernel launch against its plain version as in
+     [3] (rows under path entry), then ``python -m cvr_tpu_torch.entry
+     entry``, which must exit 0; (d) the --quick default in this process
+     (its pack fires the hub-column gate: K7), its launches over the
+     harness's calls and its kernels against their plain versions (path
+     bench_quick_rmat13);
  13. a JSON line of the kernels of every path, then the last line
      {"ok": true, "device": {...}}.
 
 ``--phases 1,2,12`` runs the build, the main path and [12] alone,
-``--phases 16`` the build and [16], and ``--phases 15`` the build and
-[15] (the
+``--phases 16`` the build and [16], ``--phases 15`` the build and [15],
+and ``--phases 17`` the build and [17] (the
 default runs every phase; [0], [1] and [13] always run, [3] with [2], [8]
 and [9] need [2], [14] reuses [2]'s pack where [2] ran, and [10]'s check
 runs when [2], [4], [5], [6] and [8] all ran).  The full-size matrices
@@ -252,6 +269,7 @@ from scipy.sparse.linalg import spsolve
 import torch
 
 from cvr_tpu_torch import _native, cli, multihost
+from cvr_tpu_torch import entry as flagship
 from cvr_tpu_torch.bench import comm_model as bench_comm
 from cvr_tpu_torch.bench import harness as bench_harness
 from cvr_tpu_torch.bench import models as bench_models
@@ -562,6 +580,8 @@ PARENT_Y_SHA256 = {
 }
 Y_SHA256 = {}  # this run's, by label (record_y)
 DIST_MS = {}  # [8]'s ms per SpMV (CUDA events) by (matrix, mode), for [15]
+# drive's pack seconds and ms per SpMV (CUDA events) by "tag name", for [17]
+DRIVEN = {}
 
 
 def y_digest(fn) -> str:
@@ -826,6 +846,7 @@ def drive(tag, name, coo, device, reaches, pack=sell_pack_routed,
         record_y(f"{tag} {name}", lambda: spmv(sd, xd))
 
     ms = time_iterations(lambda: spmv(sd, xd), ITERS, device) * 1e3
+    DRIVEN[f"{tag} {name}"] = pack_s, ms
     print(f"{tag} spmv: {ms:.4f} ms/iter over {ITERS} iters, "
           f"{2 * A.nnz / ms / 1e6:.3f} GFLOPS (2*nnz), "
           f"{A.nnz / ms / 1e6:.3f} Gnnz/s")
@@ -4237,7 +4258,192 @@ def tools_paths(device, scratch, main_sd=None) -> list[dict]:
     return rows
 
 
-PHASES = (2, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 15, 16)
+# Phase [17]: the headline entry, python -m cvr_tpu_torch.bench (root
+# bench.py's counterpart) and cvr_tpu_torch.entry
+bench_entry = importlib.import_module("cvr_tpu_torch.bench.__main__")
+HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline"]
+# (a)'s runs, each a subprocess: the flags after --quick
+HEADLINE_QUICK = ((), ("--impl", "sell-xla"), ("--impl", "csr"),
+                  ("--pack-repeats", "2"))
+HEADLINE_TIMEOUT = 300  # s a run of the entry may take
+GENERATION_LINE = re.compile(r"^\[bench\] .* generated in ([0-9.]+) s$")
+
+
+def headline_run(tag, argv, kind) -> tuple[dict, dict, float]:
+    """``python -m cvr_tpu_torch.bench *argv`` as a subprocess, its
+    stdout printed under ``tag``: it must exit 0 with a verified report,
+    end stdout with bench.py's object, rounded from the GFLOPS of the
+    BenchResult it prints on stderr, whose device is the card.  Returns
+    (that object, the BenchResult, the generation seconds it printed)."""
+    impl = argv[argv.index("--impl") + 1] if "--impl" in argv else \
+        "sell-routed"
+    name = "rmat13" if "--quick" in argv else "web-Google-like"
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "cvr_tpu_torch.bench", *argv],
+                       cwd=Path(__file__).resolve().parent,
+                       capture_output=True, text=True,
+                       timeout=HEADLINE_TIMEOUT)
+    print(f"{tag} python -m cvr_tpu_torch.bench {' '.join(argv)}: exit "
+          f"{p.returncode}, {time.perf_counter() - t0:.1f} s")
+    for line in p.stdout.splitlines():
+        print(f"{tag} | {line}")
+    if p.returncode != 0:
+        print(f"{tag} its stderr ends: {p.stderr[-2000:]}")
+        raise AssertionError(f"{tag} the entry exited {p.returncode}")
+    head = json.loads(p.stdout.strip().splitlines()[-1])
+    err = p.stderr.splitlines()
+    res = json.loads(next(line for line in reversed(err)
+                          if line.startswith("{")))
+    gen = next(float(m.group(1)) for m in map(GENERATION_LINE.match, err) if m)
+    g = res["gflops_2nnz"]
+    knl = bench_entry.CVR_KNL_WEBGRAPH_GFLOPS
+    print(f"{tag} BenchResult (stderr): {json.dumps(res)}")
+    # bench.py rounds vs_baseline from the unrounded GFLOPS: from the
+    # rounded value it may differ in its last digit
+    if (list(head) != HEADLINE_KEYS
+            or head["metric"] != f"SpMV GFLOPS (2*nnz) on {name}, {impl}"
+            or head["unit"] != "GFLOPS" or not head["value"] > 0
+            or head["value"] != round(g, 3)
+            or head["vs_baseline"] != round(g / knl, 3)
+            or f"[file: {name}] Verification: PASS" not in p.stdout
+            or res["verified"] is not True or res["device"] != kind):
+        raise AssertionError(f"{tag} not bench.py's output: {head}, {res}")
+    return head, res, gen
+
+
+def headline_quick_kernels(tag, device) -> list[dict]:
+    """bench's --quick default (sell-routed on rmat13) in this process,
+    json-only: its launches over the harness's calls, and every kernel
+    of the path (K7 too: the hub-column gate fires on rmat13) against its
+    plain version at the harness's pack, as in [3]."""
+    got = {}
+    out = io.StringIO()
+    kernels.reset_launches()
+    with harness_capture(got), contextlib.redirect_stdout(out):
+        rc = bench_entry.main(["--quick", "--json-only", "--device",
+                               str(device)])
+    torch.cuda.synchronize()
+    run_launches = kernels.launches()
+    print(f"{tag} in process: exit {rc}, {out.getvalue().strip()}")
+    sr, sd, csr = got["packed"], got["sd"], got["csr"]
+    print(f"{tag} {geometry(sr)}")
+    calls = 200 + 4  # the harness: 3 warm-up calls, 200, then y
+    want = {k: n * calls for k, n in expected_launches(sd).items()}
+    print(f"{tag} launches over the harness's {calls} SpMVs: "
+          f"{ {k: n for k, n in run_launches.items() if n} }")
+    if rc != 0 or run_launches != want or not want["reduce_hot"]:
+        raise AssertionError(f"{tag} launches {run_launches}, the pack "
+                             f"needs {want}")
+    x = np.random.default_rng(0).standard_normal(csr.shape[1]).astype(
+        np.float32)
+    xd = torch.from_numpy(x).to(device)
+    kernels.reset_launches()
+    y = spmv(sd, xd)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    golden, scale = vector_golden(csr, x)
+    ok, nbad, maxrel = verify(y.cpu().numpy(), golden, rtol=1e-6,
+                              row_scale=scale)
+    print(f"{tag} one SpMV of a random x: golden (rtol 1e-6, row-scaled) "
+          f"{'PASS' if ok else 'FAIL'}, {nbad} bad rows, max rel "
+          f"{maxrel:.3e}")
+    if not ok or launches != expected_launches(sd):
+        raise AssertionError(f"{tag} disagrees with the golden")
+    ours = spmv_times(tag, sd, xd, device)
+    return check_kernels(tag, "bench_quick_rmat13", sd, xd, launches, ours,
+                         device)
+
+
+def headline_flagship(tag, device) -> list[dict]:
+    """entry(device): the flagship routed SpMV in this process, its
+    launches against the pack's, y at the float64 golden and every kernel
+    launch against its plain version as in [3]; then ``python -m
+    cvr_tpu_torch.entry entry``, which must exit 0."""
+    fn, (sd, xd) = flagship.entry(device)
+    kernels.reset_launches()
+    y = fn(sd, xd)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    csr = syn.rmat_matrix(scale=12, edge_factor=8, seed=0).to_csr()
+    golden, scale = vector_golden(csr, xd.cpu().numpy())
+    yn = y.cpu().numpy()
+    ok, nbad, maxrel = verify(yn, golden, rtol=1e-6, row_scale=scale)
+    print(f"{tag} entry({device!r}): y {yn.shape}, launches "
+          f"{ {k: n for k, n in launches.items() if n} } (the pack needs "
+          f"{ {k: n for k, n in expected_launches(sd).items() if n} }), "
+          f"golden (rtol 1e-6, row-scaled) {'PASS' if ok else 'FAIL'}, "
+          f"{nbad} bad rows, max rel {maxrel:.3e}")
+    if (not ok or yn.shape != (csr.shape[0],) or not np.isfinite(yn).all()
+            or launches != expected_launches(sd)):
+        raise AssertionError(f"{tag} entry() disagrees with the golden or "
+                             "skipped a kernel")
+    ours = spmv_times(tag, sd, xd, device)
+    rows = check_kernels(tag, "entry", sd, xd, launches, ours, device)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "cvr_tpu_torch.entry",
+                        "entry"], cwd=Path(__file__).resolve().parent,
+                       capture_output=True, text=True,
+                       timeout=HEADLINE_TIMEOUT)
+    print(f"{tag} python -m cvr_tpu_torch.entry entry: exit "
+          f"{p.returncode}, {time.perf_counter() - t0:.1f} s: "
+          f"{p.stdout.strip()}")
+    if p.returncode != 0 or p.stdout.strip() != \
+            f"entry(): OK ({csr.shape[0]},)":
+        print(f"{tag} its stderr ends: {p.stderr[-2000:]}")
+        raise AssertionError(f"{tag} python -m cvr_tpu_torch.entry entry "
+                             f"exited {p.returncode}")
+    return rows
+
+
+def headline_paths(device, kind) -> list[dict]:
+    """Phase [17]: (a) the entry's --quick runs (HEADLINE_QUICK), each a
+    subprocess; (b) its full default run (web-Google-like, sell-routed,
+    100 iterations) on the generator cache full_size wrote, beside [2];
+    (c) entry(device) in this process and ``python -m
+    cvr_tpu_torch.entry entry``; (d) the --quick default in this process,
+    its kernels against their plain versions."""
+    torch.cuda.empty_cache()  # the runs of (a) and (b) share the card
+    t0 = time.perf_counter()
+    for flags in HEADLINE_QUICK:
+        head, res, _ = headline_run("[17a]", ["--quick", *flags], kind)
+        print(f"[17a] headline: {json.dumps(head)}; spmv {res['spmv_s']} "
+              f"s, pack {res['preproc_s']} s, first pack "
+              f"{res['preproc_first_s']}")
+        if ("--pack-repeats" in flags) != \
+                (res["preproc_first_s"] is not None):
+            raise AssertionError(f"[17a] preproc_first_s "
+                                 f"{res['preproc_first_s']}")
+    print(f"[17a] took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cache = Path(os.environ["CVR_TPU_CACHE"])
+    cached = sorted(cache.iterdir())
+    head, res, gen = headline_run("[17b]", [], kind)
+    if not cached or sorted(cache.iterdir()) != cached:
+        raise AssertionError(f"[17b] the run did not read the cache "
+                             f"full_size wrote ({cached})")
+    print(f"[17b] headline: {json.dumps(head)}; web-Google-like generated "
+          f"in {gen} s (read from the cache full_size wrote)")
+    two = DRIVEN.get("[2] web_google_like")
+    beside = "[2] not run" if two is None else (
+        f"[2]: {two[1] / 1e3} s by CUDA events, "
+        f"{2 * res['nnz'] / two[1] / 1e6} GFLOPS (2*nnz); pack {two[0]} s")
+    print(f"[17b] spmv {res['spmv_s']} s, {res['gflops_2nnz']} GFLOPS "
+          f"(2*nnz), vs_baseline {head['vs_baseline']}, pack "
+          f"{res['preproc_s']} s; {beside}")
+    print(f"[17b] took {time.perf_counter() - t0:.1f} s")
+
+    rows = []
+    for part, run in (("c", lambda: headline_flagship("[17c]", device)),
+                      ("d", lambda: headline_quick_kernels("[17d]",
+                                                           device))):
+        t0 = time.perf_counter()
+        rows += run()
+        print(f"[17{part}] took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+PHASES = (2, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17)
 # phases that run on [2]'s pack and tensors, and [10]'s, whose digests
 # they record
 NEEDS_2 = (8, 9)
@@ -4264,7 +4470,7 @@ def main(argv=None) -> int:
                     help="print y_digests (a JSON object) and stop")
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run, e.g. 1,2,12 or "
-                    "16 (default: all, 2-16)")
+                    "17 (default: all, 2-17)")
     args = ap.parse_args(argv)
     phases = phase_set(args.phases)
     if not torch.cuda.is_available():
@@ -4336,7 +4542,8 @@ def run_phases(args, phases, kind, smi, scratch) -> int:
                                              else None)),
                    (15, lambda: rank_paths("cuda", coo)),
                    (16, lambda: tools_paths("cuda", scratch / "tools",
-                                            sd if 2 in phases else None))):
+                                            sd if 2 in phases else None)),
+                   (17, lambda: headline_paths("cuda", kind))):
         if p in phases:
             t0 = time.perf_counter()
             rows += run()
