@@ -43,6 +43,7 @@ from cvr_tpu_torch.formats.bell import BellInfeasible
 from cvr_tpu_torch.formats.bsr import BsrInfeasible
 from cvr_tpu_torch.formats.dia import DiaInfeasible
 from cvr_tpu_torch.formats.sell_window import WindowInfeasible
+from cvr_tpu_torch.utils.profiling import load_npz, span
 
 # A format's refusal of a matrix: ``compare`` prints it and goes on.
 # Anything else (a kernel that does not build or launch, a bad artifact)
@@ -143,7 +144,7 @@ def sniff_packed(path) -> str:
     """The artifact kind of a saved ``.npz``, from its keys, in the JAX
     CLI's order (a file with none of its keys is the plain SELL planes),
     the SpMM plans' kinds after them."""
-    keys = set(np.load(path).files)
+    keys = set(load_npz(path).files)
     for key, kind in (("bell_meta", "bell"), ("mid_kind", "sell-routed"),
                       ("bands", "dia"), ("w10", "sell-window"),
                       ("lane_meta", "lane"), ("pmm_meta", "pmm"),
@@ -165,14 +166,15 @@ def load_packed(path, fmt: str = "auto"):
     from cvr_tpu_torch.ops.spmm_lane import load_lane
     from cvr_tpu_torch.ops.spmm_pmm import load_pmm
 
-    kind = FORMAT_ALIASES.get(fmt, fmt)
-    if kind == "auto":
-        kind = sniff_packed(path)
-    load = {"bell": load_bell, "sell-routed": load_routed,
-            "dia": DiaMatrix.load, "sell-window": SellWindow.load,
-            "lane": load_lane, "pmm": load_pmm,
-            "bsr": BsrMatrix.load}.get(kind, SellMatrix.load)
-    return kind, load(path)
+    with span("load"):
+        kind = FORMAT_ALIASES.get(fmt, fmt)
+        if kind == "auto":
+            kind = sniff_packed(path)
+        load = {"bell": load_bell, "sell-routed": load_routed,
+                "dia": DiaMatrix.load, "sell-window": SellWindow.load,
+                "lane": load_lane, "pmm": load_pmm,
+                "bsr": BsrMatrix.load}.get(kind, SellMatrix.load)
+        return kind, load(path)
 
 
 def _spmv_prepacked(args, coo) -> int:

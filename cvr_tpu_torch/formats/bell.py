@@ -23,6 +23,7 @@ import time
 import numpy as np
 
 from cvr_tpu_torch.formats.csr import CSRMatrix
+from cvr_tpu_torch.utils.profiling import load_npz
 
 # Largest |col - row| a plane entry may have: li stays below 2048 (a
 # window of 16 x 128 columns).
@@ -252,7 +253,7 @@ def load_bell(path) -> BellMatrix:
 
     from cvr_tpu_torch.formats.sell_routed import load_routed
 
-    z = np.load(path)
+    z = load_npz(path)
     m = [int(v) for v in z["bell_meta"]]
     raw = z["bell_spill"]
     smap = z["bell_spill_map"]

@@ -20,6 +20,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from cvr_tpu_torch.formats.csr import CSRMatrix
+from cvr_tpu_torch.utils.profiling import load_npz
 from cvr_tpu_torch.utils.timing import PhaseTimer
 
 B = 128  # brick edge
@@ -69,7 +70,7 @@ class BsrMatrix:
 
     @staticmethod
     def load(path) -> "BsrMatrix":
-        z = np.load(path)
+        z = load_npz(path)
         return BsrMatrix(
             vals=z["vals"], brick_row=z["brick_row"],
             brick_col=z["brick_col"],

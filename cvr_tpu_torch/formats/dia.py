@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from cvr_tpu_torch.formats.csr import CSRMatrix
+from cvr_tpu_torch.utils.profiling import load_npz
 from cvr_tpu_torch.utils.timing import PhaseTimer
 
 
@@ -56,7 +57,7 @@ class DiaMatrix:
 
     @staticmethod
     def load(path) -> "DiaMatrix":
-        z = np.load(path)
+        z = load_npz(path)
         return DiaMatrix(
             offsets=z["offsets"], bands=z["bands"],
             shape=tuple(int(v) for v in z["shape"]), nnz=int(z["nnz"]),

@@ -28,6 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from cvr_tpu_torch.formats.csr import CSRMatrix
+from cvr_tpu_torch.utils.profiling import load_npz
 from cvr_tpu_torch.utils.timing import PhaseTimer
 
 DEFAULT_C = 1024
@@ -92,7 +93,7 @@ class SellMatrix:
 
     @staticmethod
     def load(path) -> "SellMatrix":
-        z = np.load(path)
+        z = load_npz(path)
         return SellMatrix(
             **{k: z[k] for k in ("vals_plane", "cols_plane",
                                  "slice_offsets", "slot_slice", "perm",

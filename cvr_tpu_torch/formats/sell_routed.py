@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from cvr_tpu_torch.formats.sell import SellMatrix
+from cvr_tpu_torch.utils.profiling import load_npz
 from cvr_tpu_torch.utils.timing import PhaseTimer
 
 TILE = 1024
@@ -1115,7 +1116,7 @@ def load_routed(path) -> SellRouted:
     values that mean none."""
     from cvr_tpu_torch.formats.hot import HotPlanes
 
-    z = np.load(path)
+    z = load_npz(path)
     if "gcls" in z:
         w8, gcls = z["w8"], z["gcls"]
     else:

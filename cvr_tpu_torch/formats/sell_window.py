@@ -26,6 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from cvr_tpu_torch.formats.csr import CSRMatrix
+from cvr_tpu_torch.utils.profiling import load_npz
 from cvr_tpu_torch.utils.timing import PhaseTimer
 
 TILE = 1024
@@ -103,7 +104,7 @@ class SellWindow:
         the JAX package does."""
         from cvr_tpu_torch.formats.sell_routed import y_route_from_npz
 
-        z = np.load(path)
+        z = load_npz(path)
         W = int(z["W"])
         return SellWindow(
             vals_ss=z["vals_ss"], li=z["li"], w10=z["w10"],

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from cvr_tpu_torch.ops import route_planes as rp
+from cvr_tpu_torch.utils.profiling import span
 
 SOURCE = "cvr_tpu_torch/csrc/route_kernels.cu"
 
@@ -164,7 +165,7 @@ def _launch(fn: str, device: torch.device, *args) -> None:
     from cvr_tpu_torch.ops import _build
 
     lib = _build.load()
-    with torch.cuda.device(device):
+    with span("launch", fn), torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
     if rc != 0:

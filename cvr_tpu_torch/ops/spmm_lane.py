@@ -27,6 +27,7 @@ import torch
 
 from cvr_tpu_torch.formats.sell import SellMatrix
 from cvr_tpu_torch.ops import lane_kernels as lk
+from cvr_tpu_torch.utils.profiling import load_npz, span, spanned
 
 RB = 8  # plane rows per step of the reference kernel
 SB = 8  # slices per output block
@@ -77,7 +78,7 @@ def save_lane(lp: LanePlan, path) -> None:
 
 def load_lane(path) -> LanePlan:
     """Read a lane plan that either package saved."""
-    z = np.load(path)
+    z = load_npz(path)
     m = [int(v) for v in z["lane_meta"]]
     return LanePlan(
         cols_l=z["lane_cols"], vals_l=z["lane_vals"], emit_l=z["lane_emit"],
@@ -206,14 +207,15 @@ def to_device_lane(lp: LanePlan, device="cuda") -> LaneDevice:
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
     nslots = -(-lp.nslices // SB) * SB + 1
-    row0, row1 = (put(a, np.int32) for a in lane_table(lp.emit_l, lp.ob,
-                                                       nslots))
+    row0, row1 = (put(a, np.int32) for a in spanned(
+        "upload.plan", lane_table, lp.emit_l, lp.ob, nslots))
     return LaneDevice(
         cols_l=put(lp.cols_l, np.int32),
         vals_l=put(lp.vals_l, np.float32),
         row0=row0,
         row1=row1,
-        split=lk.lane_split(row0, row1),
+        split=spanned("upload.plan", lk.lane_split, row0, row1,
+                      sync=device),
         first_pos=put(lp.first_pos, np.int64),
         extra_pos=put(lp.extra_pos, np.int64),
         extra_row=put(lp.extra_row, np.int64),
@@ -231,8 +233,11 @@ def kernel_args(sd: LaneDevice, X: torch.Tensor) -> tuple:
 def spmm_lane(sd: LaneDevice, X: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for dense X (ncols, K) on sd's device; any K in one
     launch."""
-    ys = lk.lane_reduce(*kernel_args(sd, X.to(torch.float32).contiguous()))
-    y = ys[sd.first_pos]
-    if sd.extra_pos.shape[0]:
-        y.index_add_(0, sd.extra_row, ys[sd.extra_pos])
+    with span("lane.reduce"):
+        ys = lk.lane_reduce(*kernel_args(sd,
+                                         X.to(torch.float32).contiguous()))
+    with span("lane.fold"):
+        y = ys[sd.first_pos]
+        if sd.extra_pos.shape[0]:
+            y.index_add_(0, sd.extra_row, ys[sd.extra_pos])
     return y

@@ -29,6 +29,7 @@ import torch
 
 from cvr_tpu_torch.ops import pmm_kernels
 from cvr_tpu_torch.ops.route_kernels import INT32_MAX
+from cvr_tpu_torch.utils.profiling import load_npz
 
 LC_SENTINEL = 128  # local-col value that matches no source lane
 
@@ -102,7 +103,7 @@ def save_pmm(plan: PmmPlan, path) -> None:
 
 def load_pmm(path) -> PmmPlan:
     """Read a PMM plan that either package saved."""
-    z = np.load(path)
+    z = load_npz(path)
     m = [int(v) for v in z["pmm_meta"]]
     return PmmPlan(
         win=z["pmm_win"], rt=z["pmm_rt"], ch=z["pmm_ch"], lc=z["pmm_lc"],

@@ -72,6 +72,7 @@ from cvr_tpu_torch.ops.spmv_window import (
     spmv_window,
     to_device_window,
 )
+from cvr_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -176,7 +177,8 @@ def upload(A, device="cuda"):
     else is returned as it is."""
     for host, up in _UPLOAD:
         if isinstance(A, host):
-            return up(A, device)
+            with span("upload"):
+                return up(A, device)
     return A
 
 
@@ -196,13 +198,14 @@ def spmv(A, x, device="cuda") -> torch.Tensor:
     an artifact.  A host artifact is uploaded to ``device`` first (on each
     call: ``upload`` it once to reuse it); x (numpy or torch) goes to the
     artifact's device."""
-    if isinstance(A, CSRMatrix):
-        return _csr(A, x, device)
-    A = upload(A, device)
-    for kind, run in _SPMV:
-        if isinstance(A, kind):
-            x = torch.as_tensor(x, dtype=torch.float32).to(_device_of(A))
-            return run(A, x)
+    with span("spmv"):
+        if isinstance(A, CSRMatrix):
+            return _csr(A, x, device)
+        A = upload(A, device)
+        for kind, run in _SPMV:
+            if isinstance(A, kind):
+                x = torch.as_tensor(x, dtype=torch.float32).to(_device_of(A))
+                return run(A, x)
     raise TypeError(f"unsupported matrix type {type(A)}")
 
 
@@ -214,13 +217,14 @@ def spmm(A, X, impl: str = "auto", device="cuda") -> torch.Tensor:
     artifact's device.  BSR runs K12 unless ``impl="bsr-xla"`` asks for
     the torch-ops path (``spmm_bsr``); the routed, SELL-W and BELL
     artifacts run one SpMV per column."""
-    if isinstance(A, CSRMatrix):
-        return _csr(A, X, device)
-    A = upload(A, device)
-    for kind, run in _SPMM:
-        if isinstance(A, kind):
-            X = torch.as_tensor(X, dtype=torch.float32).to(_device_of(A))
-            if kind is BsrDevice and impl == "bsr-xla":
-                return spmm_bsr(A, X)
-            return run(A, X)
+    with span("spmm"):
+        if isinstance(A, CSRMatrix):
+            return _csr(A, X, device)
+        A = upload(A, device)
+        for kind, run in _SPMM:
+            if isinstance(A, kind):
+                X = torch.as_tensor(X, dtype=torch.float32).to(_device_of(A))
+                if kind is BsrDevice and impl == "bsr-xla":
+                    return spmm_bsr(A, X)
+                return run(A, X)
     raise TypeError(f"unsupported matrix type {type(A)}")

@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from cvr_tpu_torch.formats.sell_routed import SellRouted
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops import route_planes as rp
+from cvr_tpu_torch.utils.profiling import span, spanned
 
 
 @dataclass(frozen=True)
@@ -292,14 +293,15 @@ def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
     # geometry-padding extras (forced dist shards) add into row nrows_out,
     # out of range: the reference drops them, the port filters them here
     keep = np.asarray(sr.extra_row) < nrows_out
-    red = [put(a) for a in reduce_table(sr.emit, sr.ycall_rows, sr.regions,
-                                        sr.nslices, sr.zone_rows)]
+    red = [put(a) for a in spanned("upload.plan", reduce_table, sr.emit,
+                                   sr.ycall_rows, sr.regions, sr.nslices,
+                                   sr.zone_rows)]
     p3 = put(sr.p3)
     hot = {}
     hp = sr.hot
     if hp is not None:
-        h0, h1, hout, _ = reduce_table(hp.hemit, hp.ycall_rows, hp.regions,
-                                       hp.nslices)
+        h0, h1, hout, _ = spanned("upload.plan", reduce_table, hp.hemit,
+                                  hp.ycall_rows, hp.regions, hp.nslices)
         hot = dict(
             hidx=put(hp.hidx), hvals=put(hp.hvals),
             hot_ids=put(np.asarray(hp.hot_ids, dtype=np.int64)),
@@ -318,8 +320,10 @@ def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
         red_row1=red[1],
         red_out=red[2],
         red_fast=red[3],
-        red_plan=reduce_plan(mid, p3, *red),
-        yroute=route_to_device(sr.y_ra, device, compose=True),
+        red_plan=spanned("upload.plan", reduce_plan, mid, p3, *red,
+                         sync=device),
+        yroute=spanned("upload.plan", route_to_device, sr.y_ra, device,
+                       compose=True, sync=device),
         extra_src=put(np.asarray(sr.extra_src, dtype=np.int64)[keep]),
         extra_row=put(np.asarray(sr.extra_row, dtype=np.int64)[keep]),
         ymask=put(sr.ymask),
@@ -330,7 +334,8 @@ def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
         n_segs=sr.n_segs,
         nslA=sr.nslA,
         yslices=sr.yslices or sr.nslices,
-        stream_plans=stream_plans(sr, device),
+        stream_plans=spanned("upload.plan", stream_plans, sr, device,
+                             sync=device),
         **hot,
     )
 
@@ -338,7 +343,9 @@ def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
 def spmv_routed(sd: SellRoutedDevice, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x via the compiled route; x (ncols,) on sd's device."""
     x = x.to(torch.float32).contiguous()
-    g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, x, sd.segw, sd.n_segs)
+    with span("routed.expand"):
+        g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, x, sd.segw,
+                       sd.n_segs)
     return route_post_expand(sd, g1, x)
 
 
@@ -481,4 +488,7 @@ def route_post_expand(sd: SellRoutedDevice, g1: torch.Tensor,
                       x: torch.Tensor) -> torch.Tensor:
     """The tail of the pipeline after the expand: K3 on g1, then
     y_from_slices."""
-    return y_from_slices(sd, reduce(sd, g1), x)
+    with span("routed.reduce"):
+        ys = reduce(sd, g1)
+    with span("routed.y"):
+        return y_from_slices(sd, ys, x)

@@ -259,13 +259,10 @@ def test_results_and_report_match_reference(first, tmp_path, capsys):
 
 def test_profiling_trace_and_server(tmp_path):
     with profiling.trace("t", trace_dir=tmp_path) as out:
-        with profiling.annotate("region"):
+        with profiling.span("region"):
             torch.ones(8).sum()
     assert Path(out) == tmp_path / "t"
     assert "region" in (tmp_path / "t" / "trace.json").read_text()
-    with pytest.raises(NotImplementedError, match="profiling server"):
-        with profiling.server(9999):
-            pass
 
 
 # --- the harness ------------------------------------------------------------
