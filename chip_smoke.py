@@ -689,9 +689,8 @@ def expected_launches(sd) -> dict[str, int]:
         if sd.spill is not None:
             for k, n in expected_launches(sd.spill).items():
                 want[k] += n
-    else:  # the route is composed into K3's and K4's indices
+    else:  # K1 and the route are composed into K3's and K4's indices
         want.update({
-            "expand": 1,
             "reduce_slices": 1 + second_pass(sd.red_plan.split),
             "route_small": 1,
             "reduce_hot": int(sd.hot_nslices > 0),
@@ -801,7 +800,7 @@ def cusparse_ms(tag, csr, xd, golden, scale, device) -> float:
 
 
 def drive(tag, name, coo, device, reaches, pack=sell_pack_routed,
-          marker="expand_kernel"):
+          marker="route_small_kernel"):
     """Pack (sell_pack_routed with hot="auto", or ``pack``), check the
     branch, upload, one verified SpMV with the launch counts (and, where
     it is routed, y's digest against the parent's), the timed loop, its
@@ -901,30 +900,32 @@ def kernel_cases(tag, sd, xd):
                       for name, which, args in kernel_cases(
                           f"{tag} spill", sd.spill, xd)]
         return cases
-    cases = []
-    args = (sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw, sd.n_segs)
-    cases.append(("expand", "", args))
-    g1 = rk.expand(*args)
-    check_fold(tag, sd, g1)
-    cases.append(("reduce_slices", "", k3_args(sd, g1)))
-    return cases + y_cases(tag, sd, sp.reduce(sd, g1), xd)
+    g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw,
+                   sd.n_segs)
+    check_fold(tag, sd, g1, xd)
+    cases = [("reduce_slices", "", k3_args(sd, xd))]
+    return cases + y_cases(tag, sd, sp.reduce(sd, xd), xd)
 
 
-def k3_args(sd, g1):
-    """K3's arguments at the path's tensors (sp.reduce's call)."""
-    return (g1, sd.vals_ss, sd.red_plan, sd.nslices)
+def k3_args(sd, src):
+    """K3's arguments at the path's tensors (sp.reduce's call): x by the
+    x plan, or the ring's g1 by the g1 plan."""
+    plan = sd.red_plan if src.dim() == 1 else sp.g1_plan(sd)
+    return (src, sd.vals_ss, plan, sd.nslices)
 
 
-def check_fold(tag, sd, g1) -> None:
+def check_fold(tag, sd, g1, xd) -> None:
     """K3's index composed through the route middle against the staged
     chain on the card, bit for bit: the products of the plane rows the
     slices name (vals times g1 by the composed index, against
     reduce_products_plain on the route middle's mstream, K2's output on
     a recursive middle), and K3's sums against K3 run on that mstream by
-    the staged index (the parent design's K3)."""
+    the staged index (the parent design's K3) and against K3 gathering x
+    by the index composed through K1's map too (the SpMV's K3; g1 is K1's
+    output)."""
     m, m3 = sp.middle(sd, g1)
     item, rows = rk.slice_rows(sd.red_row0, sd.red_row1)
-    plan = sd.red_plan
+    plan = sp.g1_plan(sd)
     got = sd.vals_ss[:, rows, :] * rk.gather_or_zero(g1, plan.idx[:, rows, :])
     want = rk.reduce_products_plain(m, m3, sd.vals_ss, sd.p3, rows,
                                     sd.red_fast.bool()[item])
@@ -932,12 +933,14 @@ def check_fold(tag, sd, g1) -> None:
         m3, sd.p3, sd.red_row0, sd.red_row1, sd.red_fast))
     ys, ys_staged = (rk.reduce_slices(g1, sd.vals_ss, plan, sd.nslices),
                      rk.reduce_slices(m, sd.vals_ss, staged, sd.nslices))
+    ys_x = rk.reduce_slices(xd, sd.vals_ss, sd.red_plan, sd.nslices)
     zeros = int((plan.idx[:, rows, :] < 0).sum())
-    same = torch.equal(got, want) and torch.equal(ys, ys_staged)
+    same = (torch.equal(got, want) and torch.equal(ys, ys_staged)
+            and torch.equal(ys, ys_x))
     print(f"{tag} reduce_slices on g1 (middle {sd.mid.kind!r}, {zeros} "
           f"elements read as 0): products and K3's sums "
           f"{'bit-exact with' if same else 'DIFFER from'} the staged "
-          "middle's")
+          "middle's and K3's on x")
     if not same:
         raise AssertionError(f"{tag} K3's composed index is not the staged "
                              "chain")
@@ -1033,8 +1036,8 @@ def row_scale_args(name, args):
     """The kernel's arguments with values and gathered data made
     nonnegative: the plain version then computes the row scale."""
     if name == "reduce_slices":
-        g1, vals, *rest = args
-        return (g1.abs(), vals.abs(), *rest)
+        src, vals, *rest = args
+        return (src.abs(), vals.abs(), *rest)
     if name == "reduce_stream":
         emit, gemit, vals, gx, p3, *rest = args
         return (emit, gemit, vals.abs(), gx.abs(), p3, *rest)
@@ -1165,17 +1168,17 @@ def slice_entry_rows(item, out, nys, n, device):
 def reduce_csr_call(args):
     """K3's library call (library_call): cuSPARSE's CSR SpMV of the
     entries its slices sum, one row per (sublane i, slice, lane), each
-    entry a plane value at the column its composed index names in g1
-    flattened (the elements it reads as 0 left out), times g1 flattened;
-    its output is ys flattened."""
-    g1, vals, plan, nys = args
+    entry a plane value at the column its composed index names in its
+    source flattened (x, or g1; the elements it reads as 0 left out),
+    times the source flattened; its output is ys flattened."""
+    src, vals, plan, nys = args
     item, rows = rk.slice_rows(plan.row0, plan.row1)
-    row = slice_entry_rows(item, plan.out, nys, rows.shape[0], g1.device)
+    row = slice_entry_rows(item, plan.out, nys, rows.shape[0], src.device)
     col = plan.idx[:, rows, :].long()
-    keep = col >= 0
+    keep = (col >= 0) & (col < src.numel())
     return csr_call("reduce_slices", row.expand_as(col)[keep], col[keep],
-                    vals[:, rows, :][keep], (8 * nys * 128, g1.numel()),
-                    g1.reshape(-1), args, lambda y: y.view(8, nys, 128))
+                    vals[:, rows, :][keep], (8 * nys * 128, src.numel()),
+                    src.reshape(-1), args, lambda y: y.view(8, nys, 128))
 
 
 def lane_csr_call(args):
@@ -1268,11 +1271,16 @@ def check_kernels(tag, path, sd, xd, launches, spmv_dms, device,
     of a kernel that is the whole SpMV (cuSPARSE's, measured in drive).
     ``ring``: the path's expand ran as K15's ring steps, which
     check_ring_kernel holds against their plain version; the cases here
-    are the passes after it, on the g1 that K1 gives the same shard."""
+    are the passes after it, K3 on the g1 that K1 gives the same shard
+    by the g1 plan that the ring reads."""
     cases = kernel_cases(tag, sd, xd)
     also = set()
     if ring:
-        cases = [c for c in cases if c[0] != "expand"]
+        g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw,
+                       sd.n_segs)
+        cases = [("reduce_slices", w, k3_args(sd, g1))
+                 if n == "reduce_slices" else (n, w, a)
+                 for n, w, a in cases]
         also = {"expand_ring"}
     return check_path(tag, path, cases, launches, spmv_dms, device,
                       library, also)
@@ -1456,7 +1464,7 @@ def fsm_path(device, walks):
                     and sr.y_ra["mid_planes"]["kind"] == "rec"
                     and sr.mid["kind"] == "rec"),
     )
-    want = {**dict.fromkeys(kernels.KERNELS, 0), "expand": 1,
+    want = {**dict.fromkeys(kernels.KERNELS, 0),
             "route_small": 1, "reduce_hot": 1,
             "reduce_slices": 1 + second_pass(sd.red_plan.split)}
     if launches != want:
@@ -1479,7 +1487,7 @@ def fsm_path(device, walks):
         t = time_iterations(lambda: sp.spmv_routed(s, xd), ITERS, device)
         times.setdefault(label, []).append(t * 1e3)
     per_off = device_ms(lambda: sp.spmv_routed(sd_off, xd), KERNEL_ITERS,
-                        "expand_kernel")
+                        "route_small_kernel")
     print(f"[5] hot=auto (NH {sr.hot.NH}) vs hot=off, ms/iter over {ITERS} "
           f"iters in turns hot, off, off, hot: hot {times['hot']}, off "
           f"{times['off']}; off: pack {pack_off:.3f} s, T {sr_off.T} tiles, "
@@ -1996,8 +2004,7 @@ def shard_reduces(tag, path, dm, xd, launches, ours, device, shard0):
     split into pieces.  Prints K3's launches over the shards and its time
     in the path's trace.  Returns no rows."""
     for i, s in enumerate(dm.shards[1:], 1):
-        g1 = rk.expand(s.w8, s.gcls, s.seg_blk, s.li, xd, s.segw, s.n_segs)
-        check_plain(tag, "reduce_slices", f"shard {i}", k3_args(s, g1))
+        check_plain(tag, "reduce_slices", f"shard {i}", k3_args(s, xd))
     splits = [second_pass(s.red_plan.split) for s in dm.shards]
     print(f"{tag} reduce_slices over the {dm.n_shards} shards: "
           f"{dm.n_shards + sum(splits)} launches (second passes on shards "
@@ -2043,7 +2050,7 @@ def dist_paths(device, main_sd, main_coo):
         if name != "web_google_like":  # [2]'s y
             record_y(f"[8] {name} one-card", one)
         one_ms = time_iterations(one, ITERS, device) * 1e3
-        one_dev = sum(device_ms(one, KERNEL_ITERS, "expand_kernel").values())
+        one_dev = sum(device_ms(one, KERNEL_ITERS, "route_small_kernel").values())
         print(f"[8] {name} one-card spmv_routed: {one_ms:.4f} ms/iter (CUDA "
               f"events), device time {one_dev:.4f} ms/iter, golden max rel "
               f"{maxrel:.3e}")
@@ -2224,6 +2231,7 @@ def unfused_reduce(device, sr, sd, csr, x, xd):
 
     want = expected_launches(sd)
     want["reduce_slices"] = 0
+    want["expand"] = 1
     want["reduce_stream"] = sum(1 + second_pass(plans[j].split)
                                 for j, (_, nr) in enumerate(groups) if nr)
     for k, n in middle_launches(sd.mid).items():
@@ -2587,7 +2595,7 @@ def pagerank_payload(device, coo):
     err_u = float(np.max(np.abs(p_u.cpu().numpy() - p64) / p64))
     unread = bench_models.per_iteration(
         lambda: pagerank_unread(sd, odeg, PAGERANK_ITERS), PAGERANK_ITERS,
-        device, "expand_kernel")
+        device, "route_small_kernel")
     print(f"{tag} the same iterations without the stopping test's read "
           f"(a measurement; ranks max rel {err_u:.3e} from float64): "
           f"{unread['ms']:.4f} ms by CUDA events"
@@ -3271,7 +3279,7 @@ DIST_FORMATS = (
     ("dist_bsr", "fem_like", 64, "bsr_spmm"),
     ("dist_lane", "web_google_like", 128, "lane_reduce"),
     ("dist_pmm", "fsm_like", 32, "pmm_spmm"),
-    ("dist2d", "web_google_like", None, "expand"),
+    ("dist2d", "web_google_like", None, "route_small"),
 )
 DIST_PACKS = {
     "dist_dia": dist_dia.dist_dia_pack,
@@ -3856,7 +3864,7 @@ def rank_phase(rank, main, small, dist_ms):
     fn = functools.partial(dist2d.dist_spmv_routed_2d, dm, xd)
     launches, _, ms, _ = rank_time(f"{tag} dist2d 2 x 2", fn, DIST2D_SHA256,
                                    lead, golden, scale, device)
-    per = lead_device_ms(fn, lead, KERNEL_ITERS, "expand_kernel")
+    per = lead_device_ms(fn, lead, KERNEL_ITERS, "route_small_kernel")
     want = dist_format_launches("dist2d", dm)
     if launches != want:
         raise AssertionError(f"{tag} dist2d launches {launches}, want {want}")
@@ -4021,7 +4029,7 @@ def spmv_times(tag, sd, xd, device):
     """One SpMV's ms by CUDA events and its device ms by kernel (a
     trace), printed; returns the device ms by kernel of ours."""
     ms = time_iterations(lambda: spmv(sd, xd), ITERS, device) * 1e3
-    per = device_ms(lambda: spmv(sd, xd), KERNEL_ITERS, "expand_kernel")
+    per = device_ms(lambda: spmv(sd, xd), KERNEL_ITERS, "route_small_kernel")
     dev = sum(per.values())
     ours = by_kernel(per)
     print(f"{tag} spmv: {ms:.4f} ms/iter over {ITERS} iters (CUDA events); "

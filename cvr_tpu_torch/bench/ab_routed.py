@@ -14,7 +14,8 @@ subprocess imports that root's package, builds its kernels and native
 library, and takes device times from torch.profiler traces:
 
   * on web-Google-like (R-MAT scale 20, 6,162,120 nnz) packed with
-    ``sell_pack_routed``: K1 and K4 per launch at the main path's tensors,
+    ``sell_pack_routed``: K1 (off the SpMV's path where a checkout's K3
+    reads x) and K4 per launch at the main path's tensors,
     K5 (stages 1 and 3) and K16 on its y stream through its flat y-route
     (chip_smoke.py's phase [9a]), K5, K17 and K6 in ``apply_route`` of the
     permutation that sorts its nonzeros by column, compiled at
@@ -29,10 +30,13 @@ library, and takes device times from torch.profiler traces:
     ``dist_routed_pack`` on 4 shards of the one card (K1's kernel: its
     events carry K1's name), and K3 per call (its kernels, a split
     slice's second pass included) at the main path's tensors and at each
-    shard's of the forced 4-shard pack (x replicated);
+    shard's of the forced 4-shard pack (x replicated): by x where a
+    checkout's K3 reads x, with K3 by the plan into g1 beside it (the
+    chain the x plan replaced, built for comparison: ``*_g1_ms``);
   * (``spmv``) on web-Google-like and fsm-like through
     ``sell_pack_routed`` and road-usa-like through ``pack_auto``, whose
-    BELL artifact routes its spill: K3 per call, the x side's route
+    BELL artifact routes its spill: K3 per call (and by the g1 plan, as
+    above: ``*_k3_g1_ms``), the x side's route
     middle per call (K2 where a checkout still runs it), the y-route per
     call (K4, or the staged K5, K2, K6, K5 of a checkout without the
     composed index above 1024 tiles) on a y stream made from a seed, and
@@ -47,7 +51,8 @@ each SpMV's y, taken with torch's deterministic algorithms (index_add_
 adds the split-row extras by atomics otherwise).  It exits 1 if two
 roots' checksums differ or if a root's K3 or K18 is not within 1e-6 of
 the row scale of that root's plain version (K18 sums in another order
-than its parent: no checksum) or K18 differs from a second call.  ``--kernels`` names the ones to time
+than its parent: no checksum), K18 differs from a second call, or K3 by
+the g1 plan differs from K3 by x (``*_equal``).  ``--kernels`` names the ones to time
 (default all).  It needs a CUDA card and imports nothing of JAX.
 """
 
@@ -144,12 +149,13 @@ def _device_per_call(fn, events, iters: int) -> float:
     return total
 
 
-def _k3_case(rk, sp, sd, g1):
+def _k3_case(rk, sp, sd, g1, x):
     """(K3 at the shard's or matrix's tensors as a call, its output, the
     largest error of that output over 1e-6 of the row scale of its plain
-    version: at most 1 when within).  A checkout whose K3 reads the route
-    middle's mstream (sp.reduce(sd, m, m3)) gets it made here, outside
-    the call."""
+    version: at most 1 when within).  K3 reads what the checkout's SpMV
+    gives it: x where its plan says so (``source``), else the expanded
+    stream g1; a checkout whose K3 reads the route middle's mstream
+    (sp.reduce(sd, m, m3)) gets it made here, outside the call."""
     if "m3" in inspect.signature(sp.reduce).parameters:
         m, m3 = sp.middle(sd, g1)
         args = (sd.p3, sd.red_row0, sd.red_row1, sd.red_out, sd.red_fast,
@@ -158,10 +164,12 @@ def _k3_case(rk, sp, sd, g1):
         scale = rk.reduce_slices_plain(m.abs(), m3, sd.vals_ss.abs(), *args)
         fn = lambda: sp.reduce(sd, m, m3)  # noqa: E731
     else:
-        want = rk.reduce_slices_plain(g1, sd.vals_ss, sd.red_plan, sd.nslices)
-        scale = rk.reduce_slices_plain(g1.abs(), sd.vals_ss.abs(),
+        src = x if getattr(sd.red_plan, "source", "g1") == "x" else g1
+        want = rk.reduce_slices_plain(src, sd.vals_ss, sd.red_plan,
+                                      sd.nslices)
+        scale = rk.reduce_slices_plain(src.abs(), sd.vals_ss.abs(),
                                        sd.red_plan, sd.nslices)
-        fn = lambda: sp.reduce(sd, g1)  # noqa: E731
+        fn = lambda: sp.reduce(sd, src)  # noqa: E731
     got = fn()
     ratio = float(((got - want).abs() / (1e-6 * scale + 1e-30)).max())
     return fn, got, ratio
@@ -185,7 +193,7 @@ def _matrix_case(rk, sp, spmv, name, sd, xd, iters) -> dict:
     rsd = getattr(sd, "spill", None) or sd
     g1 = rk.expand(rsd.w8, rsd.gcls, rsd.seg_blk, rsd.li, xd, rsd.segw,
                    rsd.n_segs)
-    fn, ys, ratio = _k3_case(rk, sp, rsd, g1)
+    fn, ys, ratio = _k3_case(rk, sp, rsd, g1, xd)
     ra = rsd.yroute
     ysp = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (8, ra.Tp, 128)).astype(np.float32)).to(xd.device)
@@ -203,7 +211,26 @@ def _matrix_case(rk, sp, spmv, name, sd, xd, iters) -> dict:
     mid = _x_middle(sp, rsd)
     out[f"{name}_xmid_ms"] = 0.0 if mid is None else _device_per_call(
         lambda: mid(g1), None, iters) / 1e3
+    out.update(_g1_chain_ms(sp, rsd, g1, ys, f"{name}_k3_g1", iters))
     return out
+
+
+def _g1_chain_ms(sp, sd, g1, ys, key, iters) -> dict:
+    """Where the checkout's K3 reads x: K3 by the plan into g1 (composed
+    here, outside the call; the chain the x plan replaced, K1's output g1
+    in place) per call (``key``_ms), and whether its sums equal ys, the x
+    plan's, bit for bit."""
+    import torch
+
+    if not hasattr(sp, "g1_plan"):
+        return {}
+    plan = sp.g1_plan(sd)
+
+    def fn():
+        return sp.reduce(sd, g1, plan)
+
+    return {f"{key}_ms": _device_per_call(fn, K3_EVENTS, iters) / 1e3,
+            f"{key}_equal": bool(torch.equal(fn(), ys))}
 
 
 def route_api_cases(rk, sp, rp, sd, g1, csr):
@@ -409,10 +436,11 @@ def worker(root: str, npz: str, iters: int, names) -> dict:
              rk.expand(s.w8, s.gcls, s.seg_blk, s.li, xd, s.segw, s.n_segs))
             for i, s in enumerate(forced.shards)]
         for name, s, g in k3:
-            fn, ys, ratio = _k3_case(rk, sp, s, g)
+            fn, ys, ratio = _k3_case(rk, sp, s, g, xd)
             out[f"{name}_ms"] = _device_per_call(fn, K3_EVENTS, iters) / 1e3
             out[f"{name}_err_over_tol"] = ratio
             out[f"{name}_digest"] = _digest(ys)
+            out.update(_g1_chain_ms(sp, s, g, ys, f"{name}_g1", iters))
         out["reduce_slices_shards_ms"] = sum(
             out[f"reduce_slices_shard{i}_ms"] for i in range(SHARDS))
         del forced
@@ -507,7 +535,7 @@ def main(argv=None) -> int:
         return 1
     bad = [(r["root"], k) for r in rows for k, v in r.items()
            if (k.endswith("_err_over_tol") and not v <= 1.0)
-           or (k.endswith("_repeats") and not v)]
+           or (k.endswith(("_repeats", "_equal")) and not v)]
     if bad:
         print(f"ab_routed: K3 or K18 disagrees with its plain version or "
               f"with itself: {bad}")

@@ -32,9 +32,9 @@ def work(name, args, out) -> tuple[int, int, float]:
     passes over its bricks at the TF32 rate.  The
     reduces read only the plane rows their slice tables name (this run's
     data); K3 reads, per element of those rows, its value and its composed
-    index (in place of the route middle's planes, p3 and the M3 plane),
-    one g1 element at most per element (at most g1's size in all), and its
-    piece tables; the unfused
+    index (in place of K1, the route middle's planes, p3 and the M3
+    plane), the elements of its source the index names (x's columns, or
+    g1's elements on the ring), and its piece tables; the unfused
     reduce reads its plan's piece tables (in place of emit), and per
     element of those rows its value, p3 entry and one gx element (its
     gemit is not read); K4 its index and the ysp
@@ -58,10 +58,13 @@ def work(name, args, out) -> tuple[int, int, float]:
         nbytes = (4 * (plan.split.pieces.numel() + plan.split.combine.numel())
                   + used * (4 + 2 + 4))
         ops = 2 * used
-    if name == "reduce_slices":
-        g1, _vals, plan, _nys = args
-        used = int((plan.row1.long() - plan.row0.long()).sum()) * 8 * 128
-        nbytes = (used * (4 + 4) + min(used, g1.numel()) * 4
+    if name == "reduce_slices":  # the source elements its index names
+        src, _vals, plan, _nys = args
+        _, rows = rk.slice_rows(plan.row0, plan.row1)
+        used = rows.numel() * 8 * 128
+        idx = plan.idx[:, rows].reshape(-1)
+        named = torch.unique(idx[(idx >= 0) & (idx < src.numel())]).numel()
+        nbytes = (used * (4 + 4) + int(named) * 4
                   + 4 * (plan.split.pieces.numel()
                          + plan.split.combine.numel()))
         ops = 2 * used

@@ -147,7 +147,7 @@ def bench_pagerank(iters: int = 50, device="cuda", coo=None,
         return pagerank_routed(sd, out_degree=odeg, tol=0.0,
                                max_iters=iters)
 
-    times = per_iteration(loop, iters, device, "expand_kernel")
+    times = per_iteration(loop, iters, device, "route_small_kernel")
     ranks, its, delta = loop()
     ranks_np = ranks.cpu().numpy()
     top = np.argsort(-ranks_np)[:5]

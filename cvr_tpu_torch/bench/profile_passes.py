@@ -11,9 +11,11 @@ time against the card's memory rate (harness.HBM_BW); then the other
 device work between the kernels (the glue: relayouts, pads, gathers,
 index_add_), the whole call's device ms and its ms by CUDA events.
 
-impls: routed (K1 expand, K3 reduce, K7 on hot planes, K4 y-route),
-window (K10, then K4 where a y-route runs), dia (K8) and bsr (K12, an
-SpMM of ``--rhs`` columns): those of the JAX package's
+impls: routed (K3 reduce from x, K7 on hot planes, K4 y-route; and,
+built on purpose for comparison, the chain K3 by x replaced: K1 expand
+into g1, then K3 by the plan into g1), window (K10, then K4 where a
+y-route runs), dia (K8) and bsr (K12, an SpMM of ``--rhs`` columns):
+those of the JAX package's
 ``scripts/profile_passes.py``.  That script times each pass by the slope
 between two loop lengths of a pass prefix, differencing consecutive
 prefixes (XLA fuses the passes of one jitted call); it is not ported: a
@@ -123,10 +125,8 @@ def passes(impl: str, sd, x) -> list[tuple[str, tuple, torch.Tensor]]:
             y_route(sd.yroute, sp.route_stream(sd.yroute,
                                                window_rows(sd, x)))
     else:
-        g1 = run("expand", rk.expand, (sd.w8, sd.gcls, sd.seg_blk, sd.li, x,
-                                       sd.segw, sd.n_segs))
         ys = run("reduce_slices", rk.reduce_slices,
-                 (g1, sd.vals_ss, sd.red_plan, sd.nslices))
+                 (x, sd.vals_ss, sd.red_plan, sd.nslices))
         ysp = sp.y_stream(sd, ys)
         if sd.hot_nslices:
             ysp[:, : sd.hot_nslices] += run(
@@ -137,14 +137,33 @@ def passes(impl: str, sd, x) -> list[tuple[str, tuple, torch.Tensor]]:
     return out
 
 
+def g1_chain(sd, x):
+    """The routed SpMV's chain before K3 gathered x, built on purpose for
+    comparison: K1 (expand) into g1, then K3 by the plan into g1
+    (spmv_routed.g1_plan, composed here).  Returns (each launch as
+    passes() gives it, the chain as one call)."""
+    from cvr_tpu_torch.ops import route_kernels as rk
+    from cvr_tpu_torch.ops import spmv_routed as sp
+
+    plan = sp.g1_plan(sd)
+    k1 = (sd.w8, sd.gcls, sd.seg_blk, sd.li, x, sd.segw, sd.n_segs)
+    g1 = rk.expand(*k1)
+    k3 = (g1, sd.vals_ss, plan, sd.nslices)
+    launched = [("expand", k1, g1),
+                ("reduce_slices", k3, rk.reduce_slices(*k3))]
+    return launched, lambda: rk.reduce_slices(rk.expand(*k1), sd.vals_ss,
+                                              plan, sd.nslices)
+
+
 def profile(impl: str, csr, device="cuda", rhs: int = 128, iters: int = 20,
             repeats: int = 2, sd=None, x=None) -> dict:
     """The per-pass table of ``impl`` on ``csr`` (packed and uploaded
     here unless ``sd`` and ``x`` are given): a dict with "rows" (per
     kernel: name, launches, device_ms, bytes, gbps, hbm_frac), "glue_ms",
-    "device_ms", "events_ms" and "text", the printed table.  Device times
-    are the least over ``repeats`` traces of ``iters`` calls each (None
-    on the CPU)."""
+    "device_ms", "events_ms" and "text", the printed table; for routed
+    also "g1_chain", the rows of g1_chain's K1 and K3.  Device times are
+    the least over ``repeats`` traces of ``iters`` calls each (None on
+    the CPU)."""
     from cvr_tpu_torch.bench import harness
     from cvr_tpu_torch.bench.bounds import work
     from cvr_tpu_torch.ops import kernels
@@ -166,43 +185,55 @@ def profile(impl: str, csr, device="cuda", rhs: int = 128, iters: int = 20,
         torch.cuda.synchronize(dev)
     launches = {k: n for k, n in kernels.launches().items() if n}
     launched = passes(impl, sd, x)
-    nbytes = {}
-    for name, args, out in launched:
-        nbytes[name] = nbytes.get(name, 0) + work(name, args, out)[0]
     events_ms = harness.time_iterations(fn, iters, dev) * 1e3
-    per_kernel, dev_ms = {}, None
-    if dev.type == "cuda":
+
+    def least(f):
+        """(ms by kernel of ours, device ms) of the least of the traces of
+        ``f``; ({}, None) off the card."""
+        if dev.type != "cuda":
+            return {}, None
         best = None
         for _ in range(max(1, repeats)):
-            per = harness.device_ms(fn, iters, None)
+            per = harness.device_ms(f, iters, None)
             if best is None or sum(per.values()) < sum(best.values()):
                 best = per
-        dev_ms = sum(best.values())
-        per_kernel = harness.by_kernel(best)
+        return harness.by_kernel(best), sum(best.values())
+
+    per_kernel, dev_ms = least(fn)
     bw = harness.HBM_BW[harness.detect_chip(dev)]
-    rows = []
-    for name in dict.fromkeys(n for n, _, _ in launched):
-        ms = per_kernel.get(name)
-        gbps = None if not ms else nbytes[name] / (ms * 1e-3) / 1e9
-        rows.append({
-            "name": name, "launches": launches.get(name, 0),
-            "device_ms": ms, "bytes": nbytes[name], "gbps": gbps,
-            "hbm_frac": None if gbps is None else gbps * 1e9 / bw,
-        })
+
+    def table(launched, per_kernel, counts):
+        nbytes = {}
+        for name, args, out in launched:
+            nbytes[name] = nbytes.get(name, 0) + work(name, args, out)[0]
+        rows = []
+        for name in nbytes:
+            ms = per_kernel.get(name)
+            gbps = None if not ms else nbytes[name] / (ms * 1e-3) / 1e9
+            rows.append({
+                "name": name, "launches": counts.get(name, 0),
+                "device_ms": ms, "bytes": nbytes[name], "gbps": gbps,
+                "hbm_frac": None if gbps is None else gbps * 1e9 / bw,
+            })
+        return rows
+
+    rows = table(launched, per_kernel, launches)
     glue = None if dev_ms is None else dev_ms - sum(per_kernel.values())
 
     def num(v, fmt):
         return "not measured" if v is None else format(v, fmt)
 
+    def lines_of(rows):
+        return [f"{r['name']:<16s} {r['launches']:>8d} "
+                f"{num(r['device_ms'], '.4f'):>12s} "
+                f"{r['bytes'] / 1e6:>10.2f} {num(r['gbps'], '.0f'):>12s} "
+                f"{num(r['hbm_frac'], '.1%'):>12s}" for r in rows]
+
     lines.append(f"device: {harness.detect_chip(dev)}, memory rate "
                  f"{bw / 1e9:.0f} GB/s")
     lines.append(f"{'pass':<16s} {'launches':>8s} {'device ms':>12s} "
                  f"{'MB':>10s} {'GB/s':>12s} {'of HBM':>12s}")
-    for r in rows:
-        lines.append(
-            f"{r['name']:<16s} {r['launches']:>8d} "
-            f"{num(r['device_ms'], '.4f'):>12s} {r['bytes'] / 1e6:>10.2f} "
-            f"{num(r['gbps'], '.0f'):>12s} {num(r['hbm_frac'], '.1%'):>12s}")
+    lines += lines_of(rows)
     lines.append(f"{'glue':<16s} {'':>8s} {num(glue, '.4f'):>12s}")
     lines.append(f"{'full, device':<16s} {'':>8s} {num(dev_ms, '.4f'):>12s}")
     lines.append(f"{'full, events':<16s} {'':>8s} {events_ms:>12.4f}")
@@ -216,9 +247,19 @@ def profile(impl: str, csr, device="cuda", rhs: int = 128, iters: int = 20,
                      f"{2 * nnz / events_ms / 1e6:.2f} GFLOPS(2nnz), "
                      f"{100 * nnz * 8 / (events_ms * 1e-3) / bw:.1f}% of "
                      "naive 8B/nnz roofline")
-    text = "\n".join(lines)
-    return {"impl": impl, "rows": rows, "glue_ms": glue, "device_ms": dev_ms,
-            "events_ms": events_ms, "launches": launches, "text": text}
+    res = {"impl": impl, "rows": rows, "glue_ms": glue, "device_ms": dev_ms,
+           "events_ms": events_ms, "launches": launches}
+    if impl == "routed":
+        chain, chain_fn = g1_chain(sd, x)
+        kernels.reset_launches()
+        chain_fn()
+        counts = {k: n for k, n in kernels.launches().items() if n}
+        res["g1_chain"] = table(chain, least(chain_fn)[0], counts)
+        lines.append("for comparison, K1 + K3 by the g1 plan (not the "
+                     "SpMV's path):")
+        lines += lines_of(res["g1_chain"])
+    res["text"] = "\n".join(lines)
+    return res
 
 
 def main(argv=None) -> int:

@@ -24,13 +24,16 @@
 //                        on the middle layout, tileperm_kernel<true>
 //   K18 reduce_stream <- _reduce_kernel with _emission_sweep (:537, :86)
 //
-// A routed SpMV runs K1, K3, K7 (only where the pack captured hub
-// columns: the hub-column hybrid) and K4.  The TPU stages its route
-// because it gathers only inside VMEM windows; every stage is a static
-// map, so the upload composes them (ops/spmv_routed.py): K3 gathers g1 by
-// an index composed through the x side's route middle (K2's map, or the
-// flat kind's relayout), M3 and stage 3, and K4 gathers the y stream by
-// an index composed through the whole y-route, of any length.  K2, K5 and
+// A routed SpMV runs K3, K7 (only where the pack captured hub columns:
+// the hub-column hybrid) and K4.  The TPU stages its route because it
+// gathers only inside VMEM windows; every stage is a static map, so the
+// upload composes them (ops/spmv_routed.py): K3 gathers x by an index
+// composed through K1's window map, the x side's route middle (K2's map,
+// or the flat kind's relayout), M3 and stage 3, and K4 gathers the y
+// stream by an index composed through the whole y-route, of any length.
+// K1 writes the expanded stream g1 for the route library and the tools;
+// the row-sharded ring's K15 writes it step by step, and its K3 gathers g1
+// by the index composed without K1's map.  K2, K5 and
 // K6 are the staged route, which the route library runs (middle_pass,
 // apply_route of a compiled permutation: K5, K2, K6, K5 over a multiple
 // of 1024 tiles), with K16-K18 (the unfused reduce_stream): K5, K16, K5
@@ -81,8 +84,8 @@ constexpr int kThreads = 256;
 //       ? x[128*((k_lo + seg[t/TB])*segw8 + w8[t]) + idx] : 0
 // with idx = li[i, off_t+t, l] in [0, 1024), and x read as 0 at and past
 // xlen; w8, gcls and seg are indexed by local tile.
-//   K1 (one SpMV's expand): off_t 0, n T, k_lo 0, x the whole x, xlen
-//     ncols.
+//   K1 (the whole stream's expand, which K3's x plan composes in): off_t
+//     0, n T, k_lo 0, x the whole x, xlen ncols.
 //   K15 (one ring step of the row-sharded path's overlapped expand,
 //     _expand_ring_call :477): the step's tile blocks [off, off + cnt)
 //     with the step's slices of w8, gcls and seg_ring, x the shard's
@@ -330,46 +333,64 @@ __global__ void route_middle_select_kernel(const float* __restrict__ m1out,
   __stcs(reinterpret_cast<float4*>(out + e), make_float4(v[0], v[1], v[2], v[3]));
 }
 
-// K3: the x side's route middle + stage M3 + the mstream->stream relayout
-// + stage 3 + the value multiply + per-slice lane sums (the TPU's
-// _reduce_m3_kernel :641 and _reduce_m3_regular_kernel :752, with
-// _emission_sweep :86, after _m1_fused_kernel :1203 and _chunksel_kernel
-// :1094 have written the mstream m).  For plane row R of a slice:
-// c = R>>7, fL = R&127, base = (c>>3)*1024, idx = p3[i,R,l],
-// hi = fast ? i : idx>>7, q = base + ((hi<<7) | (idx&127)),
-// i3 = m3[c&7, q, fL], and
+// K3: K1's window gather + the x side's route middle + stage M3 + the
+// mstream->stream relayout + stage 3 + the value multiply + per-slice lane
+// sums (the TPU's _expand_kernel :343, then _reduce_m3_kernel :641 and
+// _reduce_m3_regular_kernel :752, with _emission_sweep :86, after
+// _m1_fused_kernel :1203 and _chunksel_kernel :1094 have written the
+// mstream m).  For plane row R of a slice: c = R>>7, fL = R&127,
+// base = (c>>3)*1024, idx = p3[i,R,l], hi = fast ? i : idx>>7,
+// q = base + ((hi<<7) | (idx&127)), i3 = m3[c&7, q, fL], and
 //   P[i,R,l] = vals[i,R,l] * m[i3>>7, q, i3&127],
 // where m[e] = g1[f(e)] is the route middle's map of the stream g1, or 0
-// where its chunk select is out of range.
+// where its chunk select is out of range, and g1[e] = x[col(e)] is K1's
+// window map, or 0 where K1's gather class or the end of x gives 0.
 // Slice k sums P over plane rows [row0[k], row1[k]) into ys[i, out[k], l].
 //
 // What bounds it: bytes (4 B of value, 4 B of index and one scattered 4 B
-// read of g1 per plane element) and, in the first design (one thread per
-// lane walking a whole slice), the latency of the chain p3 -> m3 -> m,
-// one row after another: a slice's rows are a serial walk, so the longest slice
-// set the kernel's time (128 plane rows on web-Google-like; 1024 on every
-// shard of the forced 4-shard pack, ~half of a shard's rows).  The design:
-//   * the chain is one streamed int32 index per plane element into g1,
-//     composed at upload from p3, the M3 plane, zone A's aligned stage 3
-//     (fast) and the route middle's map f (reduce_plan): g1[idx[i,R,l]] is
-//     the factor above, or 0 where idx is -1, so a row costs a 16 B index
-//     load, a 16 B value load and four independent gathers, and neither K2
-//     nor the mstream (29-38 MB written and read back) is needed.  The
-//     gathers reach anywhere in g1 (K1 wrote it just before; 29-38 MB
-//     against the 50 MB L2) where they read m inside a 1024-row slab;
+// read of the source per plane element) and, in the first design (one
+// thread per lane walking a whole slice), the latency of the chain
+// p3 -> m3 -> m, one row after another: a slice's rows are a serial walk,
+// so the longest slice set the kernel's time (128 plane rows on
+// web-Google-like; 1024 on every shard of the forced 4-shard pack, ~half
+// of a shard's rows).  The design:
+//   * the chain is one streamed int32 index per plane element, composed at
+//     upload from p3, the M3 plane, zone A's aligned stage 3 (fast), the
+//     route middle's map f (reduce_plan) and K1's window map col
+//     (reduce_plan_x): src[idx[i,R,l]] is the factor above, or 0 where idx
+//     is not in [0, srclen), so a row costs a 16 B index load, a 16 B
+//     value load and four independent gathers, and neither K1, K2, g1 nor
+//     the mstream is needed.  The source is x itself (srclen its length,
+//     so an x shorter or longer than the pack's columns reads what K1
+//     would have read), or, on the row-sharded ring, whose x arrives in
+//     pieces while K15 expands, g1 (srclen 8*T*128; the index composed
+//     without col).  Gathering g1 was the first form here: g1 holds one
+//     copy of x's element per stored entry (0.26 GB at Graph500 scale
+//     21), 5x the 50 MB L2, and a permuted graph's rows read it in random
+//     order, so nearly every gather was a 32 B DRAM sector for 4 useful
+//     bytes; x (8.4 MB there) stays in L2.  The index and the values are
+//     streamed with __ldcs, so that they do not evict x;
 //   * the host cuts every slice into pieces of at most P plane rows
 //     (split_rows, made at upload): one block of 256 threads takes one
 //     piece, warp i its sublane i, each thread 4 lanes; it keeps
-//     kReduceUnroll rows' loads in flight with one accumulator per row of
-//     the unroll, added in a fixed order at the end;
+//     kReduceUnroll rows' loads in flight (a multiple of 4; 16 = P, a
+//     whole piece) and sums into 4 accumulators, row j of the piece into
+//     accumulator j % 4 up to the last whole 4 rows and the rest into the
+//     first, added as (a0 + a1) + (a2 + a3): the order of the first design
+//     (4 rows in flight), whatever kReduceUnroll.  On an H100 at Graph500
+//     scale 21's planes (PERF.md, PR 23): by x 0.4704 / 0.4635 / 0.4574
+//     ms at 4 / 8 / 16 rows in flight (by g1 1.5133 / 1.4523 / 1.3518);
+//     an L2 evict_last hint on the source gathers moved neither by more
+//     than 0.001 ms, so there is none;
 //   * a slice of one piece writes its ys row directly; the pieces of a
 //     longer slice write partial rows, and a second pass
 //     (reduce_slices_combine_kernel) adds them in piece order into ys.
 //     No float atomics: the output's bits repeat run to run.
-// Index arithmetic is 32-bit: the wrapper refuses planes, g1, ys or the
-// partials past 2^31 - 1 elements.
+// Index arithmetic is 32-bit: the wrapper refuses planes, the source, ys
+// or the partials past 2^31 - 1 elements.
 constexpr int kReduceThreads = 256;  // 8 sublanes x 32 threads of 4 lanes
-constexpr int kReduceUnroll = 4;     // plane rows in flight a thread
+constexpr int kReduceUnroll = 16;    // plane rows in flight a thread
+static_assert(kReduceUnroll % 4 == 0, "rows in flight: a multiple of 4");
 
 __device__ __forceinline__ void fma4(float4& a, const float4& v,
                                      const float4& g) {
@@ -396,8 +417,40 @@ __device__ __forceinline__ float4 gather4(const float* __restrict__ data,
                      gather1(data, ix.z), gather1(data, ix.w));
 }
 
+// data[i] for i in [0, n), else 0 (-1, or a column at or past x's end)
+__device__ __forceinline__ float gather_below(const float* __restrict__ data,
+                                              int i, unsigned n) {
+  return static_cast<unsigned>(i) < n ? __ldg(data + i) : 0.f;
+}
+
+__device__ __forceinline__ float4 gather4_below(
+    const float* __restrict__ data, const int4& ix, unsigned n) {
+  return make_float4(gather_below(data, ix.x, n), gather_below(data, ix.y, n),
+                     gather_below(data, ix.z, n), gather_below(data, ix.w, n));
+}
+
+// kRows plane rows from R: their index and value loads all issued before
+// the gathers; row R + u into accumulator u % 4
+template <int kRows>
+__device__ __forceinline__ void reduce_rows(
+    float4 (&acc)[4], const float* __restrict__ src, unsigned srclen,
+    const int32_t* __restrict__ idx, const float* __restrict__ vals,
+    unsigned base, int R) {
+  int4 ix[kRows];
+  float4 v[kRows];
+#pragma unroll
+  for (int u = 0; u < kRows; ++u) {
+    const unsigned e = base + static_cast<unsigned>(R + u) * 128;
+    ix[u] = __ldcs(reinterpret_cast<const int4*>(idx + e));
+    v[u] = __ldcs(reinterpret_cast<const float4*>(vals + e));
+  }
+#pragma unroll
+  for (int u = 0; u < kRows; ++u)
+    fma4(acc[u % 4], v[u], gather4_below(src, ix[u], srclen));
+}
+
 __global__ void __launch_bounds__(kReduceThreads)
-    reduce_slices_kernel(const float* __restrict__ g1,
+    reduce_slices_kernel(const float* __restrict__ src, unsigned srclen,
                          const int32_t* __restrict__ idx,
                          const float* __restrict__ vals,
                          const int32_t* __restrict__ pieces,
@@ -411,28 +464,21 @@ __global__ void __launch_bounds__(kReduceThreads)
   const unsigned i = threadIdx.x >> 5;
   const unsigned lq = (threadIdx.x & 31) * 4;
   const unsigned base = i * S * 128 + lq;
-  float4 acc[kReduceUnroll];
+  float4 acc[4];
 #pragma unroll
-  for (int u = 0; u < kReduceUnroll; ++u) acc[u] = make_float4(0, 0, 0, 0);
+  for (int u = 0; u < 4; ++u) acc[u] = make_float4(0, 0, 0, 0);
   int R = r0;
-  for (; R + kReduceUnroll <= r1; R += kReduceUnroll) {
-    int4 ix[kReduceUnroll];
-    float4 v[kReduceUnroll];
-#pragma unroll
-    for (int u = 0; u < kReduceUnroll; ++u) {
-      const unsigned e = base + static_cast<unsigned>(R + u) * 128;
-      ix[u] = __ldcs(reinterpret_cast<const int4*>(idx + e));
-      v[u] = __ldcs(reinterpret_cast<const float4*>(vals + e));
-    }
-#pragma unroll
-    for (int u = 0; u < kReduceUnroll; ++u)
-      fma4(acc[u], v[u], gather4(g1, ix[u]));
+  for (; R + kReduceUnroll <= r1; R += kReduceUnroll)
+    reduce_rows<kReduceUnroll>(acc, src, srclen, idx, vals, base, R);
+  if constexpr (kReduceUnroll > 4) {
+    for (; R + 4 <= r1; R += 4)
+      reduce_rows<4>(acc, src, srclen, idx, vals, base, R);
   }
-  for (; R < r1; ++R) {  // the piece's last rows % kReduceUnroll
+  for (; R < r1; ++R) {  // the piece's last rows % 4
     const unsigned e = base + static_cast<unsigned>(R) * 128;
     const int4 ix = __ldcs(reinterpret_cast<const int4*>(idx + e));
     const float4 v = __ldcs(reinterpret_cast<const float4*>(vals + e));
-    fma4(acc[0], v, gather4(g1, ix));
+    fma4(acc[0], v, gather4_below(src, ix, srclen));
   }
   const float4 s = add4(add4(acc[0], acc[1]), add4(acc[2], acc[3]));
   float* o = dst >= 0
@@ -874,13 +920,15 @@ int cvr_route_middle_select(const void* m1out, const void* csel, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-int cvr_reduce_slices(const void* g1, const void* idx, const void* vals,
-                      const void* pieces, void* ys, void* part, int npieces,
-                      int S, int nys, int npart, void* stream) {
+int cvr_reduce_slices(const void* src, int srclen, const void* idx,
+                      const void* vals, const void* pieces, void* ys,
+                      void* part, int npieces, int S, int nys, int npart,
+                      void* stream) {
   // one block per piece
   reduce_slices_kernel<<<static_cast<unsigned int>(npieces), kReduceThreads,
                          0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g1), static_cast<const int32_t*>(idx),
+      static_cast<const float*>(src), static_cast<unsigned>(srclen),
+      static_cast<const int32_t*>(idx),
       static_cast<const float*>(vals), static_cast<const int32_t*>(pieces),
       static_cast<float*>(ys), static_cast<float*>(part), S, nys, npart);
   return static_cast<int>(cudaGetLastError());

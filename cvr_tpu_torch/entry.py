@@ -3,8 +3,8 @@
     python -m cvr_tpu_torch.entry entry      # one flagship SpMV on the card
     python -m cvr_tpu_torch.entry [dryrun] [N]   # dryrun_multichip(N), N 8
 
-entry()             -> (fn, example_args): the routed SpMV (K1 expand, K3
-                       reduce_slices, K4 route_small; K7 reduce_hot where
+entry()             -> (fn, example_args): the routed SpMV (K3
+                       reduce_slices from x, K4 route_small; K7 reduce_hot where
                        the hub-column gate fires) on a power-law matrix,
                        the flagship workload, and its arguments on the card.
 dryrun_multichip(n) -> every row-sharded path once on tiny shapes, on a

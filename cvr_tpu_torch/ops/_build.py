@@ -114,8 +114,8 @@ def load():
     lib.cvr_route_middle.argtypes = [p, p, p, p, i32, i32, p]
     lib.cvr_route_middle_m1.argtypes = [p, p, p, i32, p]
     lib.cvr_route_middle_select.argtypes = [p, p, p, i32, i32, p]
-    lib.cvr_reduce_slices.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32,
-                                      p]
+    lib.cvr_reduce_slices.argtypes = [p, i32, p, p, p, p, p, i32, i32, i32,
+                                      i32, p]
     lib.cvr_reduce_slices_combine.argtypes = [p, p, p, i32, i32, i32, p]
     lib.cvr_route_small.argtypes = [p, p, p, i32, p]
     lib.cvr_tileperm.argtypes = [p, p, p, i32, i32, i32, p]

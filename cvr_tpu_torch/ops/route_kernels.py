@@ -26,6 +26,7 @@ stream<->middle and flat<->stream relayouts are plain tensor permutes.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -421,9 +422,13 @@ def slice_sums(P, item, out, nys: int):
 
 
 def gather_or_zero(data, idx):
-    """data's flat elements at the int index idx, 0.0 where idx < 0."""
+    """data's flat elements at the int index idx, 0.0 where idx is not in
+    [0, data.numel()) (-1 in the composed indices, and a column at or past
+    x's end in K3's x plan)."""
+    flat = data.reshape(-1)
     ix = idx.long()
-    return torch.where(ix >= 0, data.reshape(-1)[ix.clamp(min=0)], 0.0)
+    ok = (ix >= 0) & (ix < flat.shape[0])
+    return torch.where(ok, flat[ix.clamp(0, flat.shape[0] - 1)], 0.0)
 
 
 def reduce_index(m3, p3, row0, row1, fast):
@@ -508,17 +513,23 @@ REDUCE_PIECE_ROWS = 16
 @dataclass(frozen=True)
 class ReducePlan:
     """What K3 reads in place of the route middle's planes, p3, the M3
-    plane and the slice table, made at upload (reduce_plan): the composed
-    index into g1 and the pieces; the table (row0, row1, out: slice k
-    sums plane rows [row0[k], row1[k]) into ys[:, out[k]]), which the
-    plain version reads."""
+    plane and the slice table, made at upload (reduce_plan, then
+    reduce_plan_x): the composed index into its source and the pieces;
+    the table (row0, row1, out: slice k sums plane rows [row0[k],
+    row1[k]) into ys[:, out[k]]), which the plain version reads.
 
-    idx: torch.Tensor  # (8, S, 128) int32 into g1, -1 where K2 gave 0
+    ``source`` names what idx indexes, and the wrapper refuses the other:
+    "g1", the flat positions of the expanded stream g1 (8, T, 128) that
+    K1 or the ring's K15 write; "x", the columns of x itself, K1's window
+    map composed in as well, so that no g1 is written."""
+
+    idx: torch.Tensor  # (8, S, 128) int32 into the source, -1: a 0 factor
     split: Split
-    T: int  # the rows of the stream g1 that idx reaches
+    T: int  # the rows of the stream g1 the index was composed through
     row0: torch.Tensor  # (n_items,) int32
     row1: torch.Tensor
     out: torch.Tensor
+    source: str = "g1"
 
 
 def reduce_plan(src, m3, p3, row0, row1, out, fast) -> ReducePlan:
@@ -538,6 +549,38 @@ def reduce_plan(src, m3, p3, row0, row1, out, fast) -> ReducePlan:
                       T=m3.shape[1], row0=row0, row1=row1, out=out)
 
 
+def expand_source(w8, gcls, seg_blk, li, segw: int) -> torch.Tensor:
+    """K1's map, (8, T, 128) int64 on the planes' device: for each element
+    of g1, the column of x that K1 copies there,
+    128*(seg_blk[t/TB]*segw*8 + w8[t]) + li[i,t,l], or -1 where K1 writes 0
+    by the tile group's gather class (li not in [0, 128*gcls[t>>3]), the
+    class taken in [0, 8] as the kernel takes it).  Not cut at ncols: K1
+    reads x as 0 at and past its length, and so does K3 by the x plan."""
+    T = w8.shape[0]
+    idx = li.long()
+    base = seg_blk.long().repeat_interleave(rp.TB)[:T] * (segw * 8)
+    base = (base + w8.long()).view(1, T, 1)
+    lim = 128 * gcls.long().clamp(0, 8).repeat_interleave(8).view(1, T, 1)
+    return torch.where((idx >= 0) & (idx < lim), 128 * base + idx, -1)
+
+
+def reduce_plan_x(plan: ReducePlan, col) -> ReducePlan:
+    """The g1 plan ``plan`` pushed through K1's map ``col``
+    (expand_source): the same pieces and table, the index naming the
+    column of x each factor comes from (-1 stays -1), so that K3 gathers x
+    itself and K1 is not launched.  Raise where a column is past the
+    kernel's 32-bit indices."""
+    if plan.source != "g1" or col.shape != (8, plan.T, 128):
+        raise ValueError("reduce_plan_x: a g1 plan and K1's map over its g1")
+    g = plan.idx.long()
+    xi = torch.where(g >= 0, col.reshape(-1)[g.clamp(min=0)], -1)
+    top = int(xi.max()) if xi.numel() else -1
+    if top > INT32_MAX:
+        raise ValueError(f"reduce_slices: column {top} of x exceeds the "
+                         "kernel's 32-bit indices")
+    return dataclasses.replace(plan, idx=xi.int(), source="x")
+
+
 def reduce_geometry(S: int, T: int, nys: int, npart: int) -> None:
     """Raise where K3's 32-bit index arithmetic cannot reach: planes of S
     rows, a stream g1 of T rows, ys of nys slices or npart partial rows
@@ -549,49 +592,70 @@ def reduce_geometry(S: int, T: int, nys: int, npart: int) -> None:
                              "the kernel's 32-bit indices")
 
 
-def reduce_slices_plain(g1, vals, plan: ReducePlan, nys: int):
+def reduce_slices_plain(src, vals, plan: ReducePlan, nys: int):
     """ys (8, nys, 128): ys[:, out[k], :] = sum over the plane rows
-    [row0[k], row1[k]) of the plan's table of vals times the g1 element
-    the composed index names (0 where it names none).  Bit for bit the
-    staged chain's sums (reduce_products_plain on the route middle's
-    output), since the middle only moves g1's values."""
+    [row0[k], row1[k]) of the plan's table of vals times the element of
+    src (x or g1, as plan.source says) that the composed index names (0
+    where it names none: -1, or a column at or past x's end).  Bit for
+    bit the staged chain's sums (reduce_products_plain on the route
+    middle's output), since K1 and the middle only move x's values."""
     item, rows = slice_rows(plan.row0, plan.row1)
-    P = vals[:, rows, :] * gather_or_zero(g1, plan.idx[:, rows, :])
+    P = vals[:, rows, :] * gather_or_zero(src, plan.idx[:, rows, :])
     return slice_sums(P, item, plan.out, nys)
 
 
-def reduce_slices(g1, vals, plan: ReducePlan, nys: int):
-    """K3: per-slice lane sums ys (8, nys, 128) from the expanded stream
-    g1 (8, T, 128) f32 and the value planes vals (8, S_pad, 128) f32, by
-    the plan made at upload (reduce_plan: the index composed through the
-    route middle, M3 and stage 3, the slices cut into pieces); see
-    reduce_slices_plain.  On the card: two launches, the second adding
-    the split slices' partials."""
+def _check_source(src, plan: ReducePlan) -> None:
+    """Raise unless src is what plan.idx indexes: x (ncols,) for an x
+    plan, g1 (8, plan.T, 128) for a g1 plan."""
+    if plan.source == "x":
+        ok = src.dim() == 1
+    elif plan.source == "g1":
+        ok = src.shape == (8, plan.T, 128)
+    else:
+        raise ValueError(f"reduce_slices: no source {plan.source!r}")
+    if not ok:
+        raise ValueError(f"reduce_slices: the plan indexes {plan.source}, "
+                         f"given a tensor of shape {tuple(src.shape)}")
+
+
+def reduce_slices(src, vals, plan: ReducePlan, nys: int):
+    """K3: per-slice lane sums ys (8, nys, 128) from the plan's source
+    (x (ncols,) f32 for an x plan, the expanded stream g1 (8, T, 128) f32
+    for a g1 plan) and the value planes vals (8, S_pad, 128) f32, by the
+    plan made at upload (reduce_plan: the index composed through the
+    route middle, M3 and stage 3, and for x through K1's window map too,
+    reduce_plan_x; the slices cut into pieces); see reduce_slices_plain.
+    On the card: two launches, the second adding the split slices'
+    partials."""
+    _check_source(src, plan)
     split = plan.split
-    if not _on_card("reduce_slices", g1, vals, plan.idx, split.pieces,
+    if not _on_card("reduce_slices", src, vals, plan.idx, split.pieces,
                     split.combine):
-        return reduce_slices_plain(g1, vals, plan, nys)
-    for t, dt in ((g1, torch.float32), (vals, torch.float32),
+        return reduce_slices_plain(src, vals, plan, nys)
+    for t, dt in ((src, torch.float32), (vals, torch.float32),
                   (plan.idx, torch.int32), (split.pieces, torch.int32),
                   (split.combine, torch.int32)):
         _check_dtype("reduce_slices", t, dt)
-    T, S = g1.shape[1], vals.shape[1]
-    if (g1.shape != (8, T, 128) or vals.shape != (8, S, 128)
-            or plan.idx.shape != vals.shape or plan.T != T):
+    S = vals.shape[1]
+    if vals.shape != (8, S, 128) or plan.idx.shape != vals.shape:
         raise ValueError("reduce_slices: plane shapes disagree with the plan")
-    reduce_geometry(S, T, nys, split.npart)
+    if src.numel() > INT32_MAX:
+        raise ValueError(f"reduce_slices: a source of {src.numel()} "
+                         "elements exceeds the kernel's 32-bit indices")
+    reduce_geometry(S, plan.T if plan.source == "g1" else 0, nys,
+                    split.npart)
     _check_aligned("reduce_slices", vals, plan.idx)
-    ys = torch.zeros((8, nys, 128), dtype=torch.float32, device=g1.device)
+    ys = torch.zeros((8, nys, 128), dtype=torch.float32, device=src.device)
     part = torch.empty((8, split.npart, 128), dtype=torch.float32,
-                       device=g1.device)
+                       device=src.device)
     n = split.pieces.shape[0]
     if n:
-        _launch("cvr_reduce_slices", g1.device, _p(g1), _p(plan.idx),
-                _p(vals), _p(split.pieces), _p(ys), _p(part), n, S, nys,
-                split.npart)
+        _launch("cvr_reduce_slices", src.device, _p(src), src.numel(),
+                _p(plan.idx), _p(vals), _p(split.pieces), _p(ys), _p(part),
+                n, S, nys, split.npart)
         reduce_slices.launches += 1
     if split.combine.shape[0]:
-        _launch("cvr_reduce_slices_combine", g1.device, _p(part),
+        _launch("cvr_reduce_slices_combine", src.device, _p(part),
                 _p(split.combine), _p(ys), split.combine.shape[0], nys,
                 split.npart)
         reduce_slices.launches += 1

@@ -3,8 +3,8 @@ and the route library's device API.
 
 Pipeline (cvr_tpu_torch/formats/sell_routed.py packs the planes):
 
-    g1  = expand(x)                       K1  window gather + route stage 1
-    ys  = reduce_slices(g1, vals, plan)   K3  route middle + M3 + stage 3
+    ys  = reduce_slices(x, vals, plan)    K3  window gather + route stage 1
+                                              + route middle + M3 + stage 3
                                               + x vals + slice sums
     ysp = zone-A fold, pad to the y-route's tiles
     ysp += reduce_hot(x[hot_ids], ...)    K7  hub-column hybrid (hot planes)
@@ -15,13 +15,17 @@ The TPU stages the route because it gathers only inside VMEM windows: the
 x side's middle (M1 + chunk select, then M3 inside the reduce) and the
 y-route's stage 1, middle and stage 3 are passes of their own there.
 Every stage is a static map that the pack fixes, and the card gathers
-from anywhere through its L2, so the upload composes them: K3 reads g1
-by one int32 index per plane element composed through the route middle
-(route_middle's map, or the flat kind's relayout), M3 and stage 3
-(reduce_plan), and K4 reads ysp by one int32 index per output composed
-through the y-route's stages (compose_route).  ``middle`` and
-``staged_route`` keep the staged passes: the chains the composed indices
-are held against.
+from anywhere through its L2, so the upload composes them: K3 reads x by
+one int32 index per plane element composed through K1's window gather
+(expand's map, rk.expand_source), the route middle (route_middle's map,
+or the flat kind's relayout), M3 and stage 3 (reduce_plan, then
+rk.reduce_plan_x), and K4 reads ysp by one int32 index per output
+composed through the y-route's stages (compose_route).  The row-sharded
+ring (parallel/dist_routed.py), whose x arrives in pieces while K15
+expands them, keeps g1: its shards also carry the plan into g1, composed
+without K1's map (g1_plan).  ``middle`` and ``staged_route`` keep the
+staged passes, and K1 (rk.expand) the expanded stream: the chains the
+composed indices are held against.
 
 The unfused reduce the JAX package's routed SpMV specifies runs the whole
 middle first and reduces from the stream (reduce_unfused):
@@ -101,9 +105,9 @@ class SellRoutedDevice:
     red_row1: torch.Tensor
     red_out: torch.Tensor
     red_fast: torch.Tensor
-    # what K3 reads in place of the route middle, p3, the M3 plane and the
-    # table: the index into g1 composed through them, the slices cut into
-    # pieces (reduce_plan)
+    # what K3 reads in place of K1, the route middle, p3, the M3 plane and
+    # the table: the index into x composed through them, the slices cut
+    # into pieces (reduce_plan, rk.reduce_plan_x)
     red_plan: rk.ReducePlan
     yroute: RouteDevice
     extra_src: torch.Tensor  # (n_extra,) int64 padded y-stream positions
@@ -129,6 +133,9 @@ class SellRoutedDevice:
     # the unfused reduce's plans (rk.reduce_stream_plan), one per reduce
     # group, made from the pack's emissions at upload
     stream_plans: tuple[rk.StreamPlan, ...] = ()
+    # K3's plan into g1 (the same pieces), on a ring-scheduled artifact
+    # only: the row-sharded ring's K15 writes g1 (g1_plan)
+    red_plan_g1: rk.ReducePlan | None = None
 
 
 def reduce_table(emit, ycall_rows, regions, nslices: int,
@@ -283,10 +290,13 @@ def stream_plans(sr: SellRouted, device) -> tuple[rk.StreamPlan, ...]:
 
 def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
     """Upload the routed artifact's planes to ``device`` (the card unless
-    the caller asks for another), with K3's plan (reduce_plan: the index
-    into g1 composed through the route middle, M3 and stage 3, and the
-    slices cut into pieces), K4's index (the y-route's stages composed)
-    and K18's plans (stream_plans), made here once."""
+    the caller asks for another), with K3's plan (reduce_plan, then
+    rk.reduce_plan_x: the index into x composed through K1's window map,
+    the route middle, M3 and stage 3, and the slices cut into pieces), K4's
+    index (the y-route's stages composed) and K18's plans (stream_plans),
+    made here once.  A ring-scheduled artifact (``ring_cnt``: a shard of
+    dist_routed_pack(..., overlap=True)) keeps the plan into g1 as well,
+    for the ring, which expands x piece by piece."""
     put = _put(device)
     mid = mid_to_device(sr.mid, device)
     nrows_out = sr.y_ra["n"]
@@ -308,20 +318,26 @@ def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
             hot_row0=put(h0), hot_row1=put(h1), hot_out=put(hout),
             hot_nslices=hp.nslices,
         )
+    w8, gcls, li, seg_blk = (put(a) for a in (sr.w8, sr.gcls, sr.li,
+                                              sr.seg_blk))
+    vals_ss = put(sr.vals_ss)
+    g1_plan = spanned("upload.plan", reduce_plan, mid, p3, *red)
+    red_plan = spanned("upload.plan", lambda: rk.reduce_plan_x(
+        g1_plan, rk.expand_source(w8, gcls, seg_blk, li, sr.segw)),
+        sync=device)
     return SellRoutedDevice(
-        w8=put(sr.w8),
-        gcls=put(sr.gcls),
-        li=put(sr.li),
-        seg_blk=put(sr.seg_blk),
+        w8=w8,
+        gcls=gcls,
+        li=li,
+        seg_blk=seg_blk,
         mid=mid,
-        vals_ss=put(sr.vals_ss),
+        vals_ss=vals_ss,
         p3=p3,
         red_row0=red[0],
         red_row1=red[1],
         red_out=red[2],
         red_fast=red[3],
-        red_plan=spanned("upload.plan", reduce_plan, mid, p3, *red,
-                         sync=device),
+        red_plan=red_plan,
         yroute=spanned("upload.plan", route_to_device, sr.y_ra, device,
                        compose=True, sync=device),
         extra_src=put(np.asarray(sr.extra_src, dtype=np.int64)[keep]),
@@ -336,17 +352,16 @@ def to_device_routed(sr: SellRouted, device="cuda") -> SellRoutedDevice:
         yslices=sr.yslices or sr.nslices,
         stream_plans=spanned("upload.plan", stream_plans, sr, device,
                              sync=device),
+        red_plan_g1=g1_plan if sr.ring_cnt is not None else None,
         **hot,
     )
 
 
 def spmv_routed(sd: SellRoutedDevice, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x via the compiled route; x (ncols,) on sd's device."""
+    """y = A @ x via the compiled route; x (ncols,) on sd's device: K3
+    gathers x by the plan composed at upload, then y_from_slices."""
     x = x.to(torch.float32).contiguous()
-    with span("routed.expand"):
-        g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, x, sd.segw,
-                       sd.n_segs)
-    return route_post_expand(sd, g1, x)
+    return reduce_and_route(sd, x, x)
 
 
 def spmm_routed(sd: SellRoutedDevice, X: torch.Tensor) -> torch.Tensor:
@@ -358,19 +373,34 @@ def spmm_routed(sd: SellRoutedDevice, X: torch.Tensor) -> torch.Tensor:
 
 def middle(sd: SellRoutedDevice, g1: torch.Tensor):
     """The route middle as the TPU stages it, up to the mstream, and the
-    M3 plane its reduce applies: (m, m3).  No SpMV runs it: K3 gathers g1
-    by an index composed through it (mstream_source); the tests and
-    chip_smoke.py hold that index against it."""
+    M3 plane its reduce applies: (m, m3).  No SpMV runs it: K3 gathers x
+    (the ring's K3, g1) by an index composed through it (mstream_source);
+    the tests and chip_smoke.py hold that index against it."""
     if sd.mid.kind == "rec":
         return rk.route_middle(g1, sd.mid.m1, sd.mid.csel), sd.mid.m3
     # flat: the relayout alone; the within-slab perm IS the flat mid plane
     return rk.stream_to_mstream(g1, sd.mid.Tk).contiguous(), sd.mid.mid
 
 
-def reduce(sd: SellRoutedDevice, g1: torch.Tensor):
-    """Per-slice lane sums ys (8, nslices, 128) from the expanded stream
-    g1: K3 by the plan composed at upload."""
-    return rk.reduce_slices(g1, sd.vals_ss, sd.red_plan, sd.nslices)
+def g1_plan(sd: SellRoutedDevice) -> rk.ReducePlan:
+    """K3's plan into the expanded stream g1: the one the upload kept (a
+    ring-scheduled artifact), else composed now from the slice table and
+    the route middle (reduce_plan), as the tools and tests that run the
+    K1 + K3 chain on purpose need it."""
+    if sd.red_plan_g1 is not None:
+        return sd.red_plan_g1
+    return reduce_plan(sd.mid, sd.p3, sd.red_row0, sd.red_row1, sd.red_out,
+                       sd.red_fast)
+
+
+def reduce(sd: SellRoutedDevice, src: torch.Tensor,
+           plan: rk.ReducePlan | None = None):
+    """Per-slice lane sums ys (8, nslices, 128) by K3: from x (ncols,) by
+    the plan composed at upload, or from the expanded stream g1
+    (8, T, 128) by g1_plan; ``plan`` gives the plan instead."""
+    if plan is None:
+        plan = sd.red_plan if src.dim() == 1 else g1_plan(sd)
+    return rk.reduce_slices(src, sd.vals_ss, plan, sd.nslices)
 
 
 def y_stream(sd: SellRoutedDevice, ys: torch.Tensor) -> torch.Tensor:
@@ -484,11 +514,11 @@ def y_from_slices(sd: SellRoutedDevice, ys: torch.Tensor,
     return y
 
 
-def route_post_expand(sd: SellRoutedDevice, g1: torch.Tensor,
-                      x: torch.Tensor) -> torch.Tensor:
-    """The tail of the pipeline after the expand: K3 on g1, then
-    y_from_slices."""
-    with span("routed.reduce"):
-        ys = reduce(sd, g1)
+def reduce_and_route(sd: SellRoutedDevice, src: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    """K3 on its source src (x, or the ring's g1), then y_from_slices; the
+    reduce's span names the source."""
+    with span("routed.reduce", "x" if src.dim() == 1 else "g1"):
+        ys = reduce(sd, src)
     with span("routed.y"):
         return y_from_slices(sd, ys, x)

@@ -9,7 +9,7 @@ windows).  Every block is SELL-R packed under one forced geometry, as the
 1-D path packs its shards (cvr_tpu_torch/parallel/dist_routed.py).
 
 Per SpMV, device (i, j) all-gathers x block j over the row axis (the R
-pieces of block j), runs the port's single-card routed SpMV (K1, K3, K4)
+pieces of block j), runs the port's single-card routed SpMV (K3, K4)
 on its block, and the row block's partial ys are reduce-scattered over
 the column axis.  In one process the all-gather is the concatenation of
 the pieces on each device, and the reduce-scatter is the sum of a row

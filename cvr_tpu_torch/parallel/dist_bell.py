@@ -12,7 +12,7 @@ spill entries go back to global columns, are compressed to their rows
 and are routed-packed under one ``RoutedForce`` across the shards.
 
 x is replicated, or row-sharded and all-gathered.  Each shard runs K9
-``bell_gather_mac`` and then its spill's routed SpMV (K1, K3, K4) on its
+``bell_gather_mac`` and then its spill's routed SpMV (K3, K4) on its
 own device, adds the spill's rows through ``sp_map`` (padding rows point
 past the shard and are dropped), and the shards' y slices are put back
 in row order on the mesh's first device.

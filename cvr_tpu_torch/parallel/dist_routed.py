@@ -42,7 +42,7 @@ from cvr_tpu_torch.ops import route_planes as rp
 from cvr_tpu_torch.ops.route_kernels import expand_ring
 from cvr_tpu_torch.ops.spmv_routed import (
     SellRoutedDevice,
-    route_post_expand,
+    reduce_and_route,
     spmv_routed,
     to_device_routed,
 )
@@ -369,9 +369,11 @@ def dist_spmv_routed(
     each shard writes the piece it holds into its gathered-x buffer,
     starts the copy of that piece to its neighbour, and, while it moves,
     runs K15 over exactly the stream blocks whose windows read pieces
-    received so far (the pack scheduled them contiguously).  The rest of
-    the pipeline (route middle, reduce, y-route) runs once after the
-    ring.
+    received so far (the pack scheduled them contiguously) into the
+    shard's g1.  The rest of the pipeline (K3 gathering g1 by the plan
+    into it that a ring-scheduled shard carries, the y-route) runs once
+    after the ring.  The other two modes run each shard's spmv_routed,
+    whose K3 gathers x itself.
     """
     if overlap:
         if not x_sharded:
@@ -435,7 +437,7 @@ def _dist_spmv_routed_overlap(dm: DistRoutedMatrix,
     # after the last step every shard's buffer holds all of x
     ncols = dm.shape[1]
     rows = np.diff(dm.bounds)
-    return concat_rows(mesh, on_shards(mesh, lambda i: route_post_expand(
+    return concat_rows(mesh, on_shards(mesh, lambda i: reduce_and_route(
         dm.shards[i], g1[i], xg[i].view(-1)[:ncols])[:rows[i]]), dm.bounds)
 
 

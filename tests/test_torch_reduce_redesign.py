@@ -4,18 +4,20 @@ against their plain versions and the JAX package.
 On the card both kernels cut every slice (K3) or slot (K13) into pieces of
 at most P plane rows, planned on the host at upload (split_rows), sum the
 pieces side by side and add a split item's partials in piece order in a
-second pass; K3 gathers g1 by one int32 index per plane element composed
-at upload (reduce_plan: reduce_index through the route middle's map) in
-place of the route middle and the p3 -> M3 -> m chain.  Here, with no
-card: the piece tables cover every item's rows once, in order; the
-composed index followed by a plain gather-multiply of g1 is
+second pass; K3 gathers x by one int32 index per plane element composed
+at upload (reduce_plan: reduce_index through the route middle's map into
+g1, then rk.reduce_plan_x through K1's window map into x) in place of K1,
+the route middle and the p3 -> M3 -> m chain.  Here, with no card: the
+piece tables cover every item's rows once, in order; the composed index
+followed by a plain gather-multiply of g1, and of x, is
 reduce_products_plain on the route middle's mstream bit for bit; the
-kernels' order of summation,
-emulated in torch (each piece's rows into kReduceUnroll accumulators for
-K3 and one per output for K13, the accumulators added as the kernels add
-them, the pieces' partials in piece order), stays within 1e-6 of the row
-scale of the plain versions and of the JAX package (Pallas in interpret
-mode); the wrappers refuse what the kernels' 32-bit indices cannot reach.
+kernels' order of summation, emulated in torch (each piece's rows into
+K3's 4 accumulators and one per output for K13, the accumulators added
+as the kernels add them, the pieces' partials in piece order), stays
+within 1e-6 of the row scale of the plain versions and of the JAX
+package (Pallas in interpret mode); the wrappers refuse what the
+kernels' 32-bit indices cannot reach.  (tests/test_torch_reduce_source.py
+holds K3 by the x plan against K1 then K3 by the g1 plan bit for bit.)
 """
 
 import dataclasses
@@ -42,7 +44,9 @@ from test_torch_route_redesign import _dist_pack
 from test_torch_spmm_kernels import _X, _close
 from torch_cases import CASES, empty_blocks, powerlaw, rmat
 
-K3_UNROLL = 4  # kReduceUnroll of csrc/route_kernels.cu
+# K3's accumulators (csrc/route_kernels.cu: row j of a piece into j % 4 up
+# to the last whole 4 rows, whatever kReduceUnroll, its rows in flight)
+K3_UNROLL = 4
 
 
 @pytest.fixture(autouse=True)
@@ -101,12 +105,12 @@ def _check_cover(row0, row1, out, split):
                                   np.arange(split.npart))
 
 
-def _k3_emulated(g1, idx, vals, split, nys):
+def _k3_emulated(src, idx, vals, split, nys):
     """ys (8, nys, 128) summed as K3 sums on the card: each piece's rows
     into K3_UNROLL accumulators (row j of the unrolled body into
     accumulator j, the last rows % K3_UNROLL into the first), added as
     (a0 + a1) + (a2 + a3); a split slice's partials added in piece
-    order; g1 read as 0 where idx is -1."""
+    order; the source (x or g1) read as 0 where idx is not in range."""
     ys = torch.zeros((8, nys, 128), dtype=torch.float32)
     part = torch.zeros((8, split.npart, 128), dtype=torch.float32)
     for r0, r1, dst in split.pieces.tolist():
@@ -115,7 +119,7 @@ def _k3_emulated(g1, idx, vals, split, nys):
         body = r0 + (r1 - r0) // K3_UNROLL * K3_UNROLL
         for R in range(r0, r1):
             u = (R - r0) % K3_UNROLL if R < body else 0
-            acc[u] = acc[u] + vals[:, R] * rk.gather_or_zero(g1, idx[:, R])
+            acc[u] = acc[u] + vals[:, R] * rk.gather_or_zero(src, idx[:, R])
         s = (acc[0] + acc[1]) + (acc[2] + acc[3])
         if dst >= 0:
             ys[:, dst] = s
@@ -205,7 +209,8 @@ def test_dist_shards_carry_split_reduce_plans():
     """Every shard of the forced 4-shard pack holds a slice wider than
     P rows; each shard's plan covers its slices, splits the wide one, and
     its composed index is reduce_index of the shard's planes through the
-    shard's route middle."""
+    shard's route middle (the g1 plan) and then K1's window map (the x
+    plan, which the shard carries)."""
     dm = _dist_pack()
     for sd in dm.shards:
         t = (sd.red_row0, sd.red_row1, sd.red_out)
@@ -217,7 +222,9 @@ def test_dist_shards_carry_split_reduce_plans():
         m3 = sd.mid.m3 if sd.mid.kind == "rec" else sd.mid.mid
         idx = rk.reduce_index(m3, sd.p3, sd.red_row0, sd.red_row1,
                               sd.red_fast)
-        assert torch.equal(sd.red_plan.idx, _fold(sd, idx))
+        g1_idx = _fold(sd, idx)
+        assert torch.equal(tsp.g1_plan(sd).idx, g1_idx)
+        assert torch.equal(sd.red_plan.idx, _to_x(sd, g1_idx))
 
 
 @functools.cache
@@ -268,13 +275,21 @@ def _fold(sd, idx):
     return tsp.mstream_source(sd.mid).reshape(-1)[idx.long()].int()
 
 
+def _to_x(sd, g1_idx):
+    """The g1 index pushed through K1's window map, into x (-1 stays)."""
+    col = rk.expand_source(sd.w8, sd.gcls, sd.seg_blk, sd.li, sd.segw)
+    g = g1_idx.long()
+    return torch.where(g >= 0, col.reshape(-1)[g.clamp(min=0)], -1).int()
+
+
 @pytest.mark.parametrize("fast", ["packed", "off"])
 @pytest.mark.parametrize("case", ["powerlaw", "uniform_w16"])
 def test_reduce_index_is_the_three_plane_chain(case, fast):
     """m (the staged route middle's mstream) at the composed index times
     vals equals reduce_products_plain bit for bit, with zone A's aligned
     stage 3 as packed and switched off; so does g1 at that index pushed
-    through the route middle's map (K3's plan)."""
+    through the route middle's map (K3's g1 plan), and x at that pushed
+    on through K1's window map (K3's x plan)."""
     _, sd, x = _routed(case)
     g1 = _expand(sd, x)
     m, m3 = tsp.middle(sd, g1)
@@ -291,8 +306,13 @@ def test_reduce_index_is_the_three_plane_chain(case, fast):
     folded = _fold(sd, idx)
     got = sd.vals_ss[:, rows, :] * rk.gather_or_zero(g1, folded[:, rows, :])
     assert torch.equal(got, want)
+    to_x = _to_x(sd, folded)
+    got = sd.vals_ss[:, rows, :] * rk.gather_or_zero(torch.from_numpy(x),
+                                                     to_x[:, rows, :])
+    assert torch.equal(got, want)
     if fast == "packed":
-        assert torch.equal(folded, sd.red_plan.idx)
+        assert torch.equal(folded, tsp.g1_plan(sd).idx)
+        assert torch.equal(to_x, sd.red_plan.idx)
 
 
 # ---------------------------------------------------------------------------
@@ -322,13 +342,15 @@ def _pallas_spmm_lane(case, K):
 @pytest.mark.parametrize("case", ["powerlaw", "uniform_w16"])
 def test_k3_split_sums_match_plain_and_pallas(case, rows):
     """K3's order (pieces of ``rows`` rows, K3_UNROLL accumulators,
-    partials in piece order) against reduce_slices_plain and the JAX
-    package's _reduce_m3_kernel / _reduce_m3_regular_kernel (interpret
-    mode) through the zone-A fold, within 1e-6 of the row scale."""
+    partials in piece order) on x by the x plan against
+    reduce_slices_plain on K1's g1 and the JAX package's
+    _reduce_m3_kernel / _reduce_m3_regular_kernel (interpret mode)
+    through the zone-A fold, within 1e-6 of the row scale."""
     sr, sd, x = _routed(case)
     g1 = _expand(sd, x)
     split = rk.make_split(sd.red_row0, sd.red_row1, sd.red_out, rows, "cpu")
-    ys = _k3_emulated(g1, sd.red_plan.idx, sd.vals_ss, split, sd.nslices)
+    ys = _k3_emulated(torch.from_numpy(x), sd.red_plan.idx, sd.vals_ss,
+                      split, sd.nslices)
     want = tsp.reduce(sd, g1)
     abs_sd = dataclasses.replace(sd, vals_ss=sd.vals_ss.abs())
     scale = tsp.reduce(abs_sd, g1.abs())
@@ -344,8 +366,8 @@ def test_k3_split_sums_on_a_forced_shard():
     sd = dm.shards[0]
     x = np.random.default_rng(2).standard_normal(dm.shape[1]).astype(np.float32)
     g1 = _expand(sd, x)
-    ys = _k3_emulated(g1, sd.red_plan.idx, sd.vals_ss, sd.red_plan.split,
-                      sd.nslices)
+    ys = _k3_emulated(torch.from_numpy(x), sd.red_plan.idx, sd.vals_ss,
+                      sd.red_plan.split, sd.nslices)
     abs_sd = dataclasses.replace(sd, vals_ss=sd.vals_ss.abs())
     _within(ys, tsp.reduce(sd, g1), tsp.reduce(abs_sd, g1.abs()))
 

@@ -487,14 +487,19 @@ def test_profile_passes_lists_the_launched_passes(impl, make, env, counted,
                                  iters=2)
     names = [r["name"] for r in res["rows"]]
     assert set(names) == set(res["launches"])
-    want = {"routed": ["expand", "reduce_slices", "route_small"],
+    want = {"routed": ["reduce_slices", "route_small"],
             "window": ["window_reduce"], "dia": ["dia_spmv"],
             "bsr": ["bsr_spmm"]}[impl]
     if env:
-        want = ["expand", "reduce_slices", "reduce_hot", "route_small"]
+        want = ["reduce_slices", "reduce_hot", "route_small"]
     assert names == want
     assert all(r["bytes"] > 0 and r["device_ms"] is None
                for r in res["rows"])
+    if impl == "routed":  # the chain K3 by x replaced, for comparison
+        chain = res["g1_chain"]
+        assert [(r["name"], r["launches"]) for r in chain] == [
+            ("expand", 1), ("reduce_slices", 1)]
+        assert chain[1]["bytes"] > res["rows"][0]["bytes"] > 0
     assert res["device_ms"] is None and "not measured" in res["text"]
 
 
