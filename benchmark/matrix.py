@@ -1,12 +1,16 @@
 """A configuration's matrix, made from its file and kept in the cache.
 
-The configuration's ``generator`` and its parameters say how to make it
-(``graph500``: ``scale``, ``edgefactor``, the initiator ``A``, ``B``,
-``C`` and the ``seed``); its ``expect`` entry the rows and stored
-entries it must come out with.  The first run of a cell in a checkout
-makes the arrays and writes them, uncompressed, under
-``benchmark/cache/`` (a fixed place inside the checkout, keyed by the
-parameters); later runs read them back.
+The configuration's ``generator`` names a file, ``generators/<name>.py``
+(loaded by path, as a metric's reader is), that says how to make it:
+``PARAMS``, the configuration's keys it takes, in order; ``make(*params)
+-> (rows, cols, vals, n)``, a square n x n matrix, int32 / int32 /
+float32 in CSR order with no duplicates; and ``TINY``, the keys that cut
+a configuration to the size the tests run.  The configuration's
+``expect`` entry gives the rows and stored entries it must come out
+with.  The first run of a cell in a checkout makes the arrays and writes
+them, uncompressed, under ``benchmark/cache/`` (a fixed place inside the
+checkout, keyed by the generator and its parameters); later runs read
+them back.
 """
 
 from __future__ import annotations
@@ -20,9 +24,10 @@ from pathlib import Path
 
 import numpy as np
 
-from benchmark import rmat
+from benchmark import spec
 
-CACHE = Path(__file__).resolve().parent / "cache"
+CACHE = spec.HERE / "cache"
+GENERATORS = spec.HERE / "generators"
 
 
 @dataclass
@@ -52,22 +57,42 @@ def key(entry: dict) -> str:
     return hashlib.sha256(blob).hexdigest()[:16]
 
 
-GENERATORS = {"graph500": ("scale", "edgefactor", "A", "B", "C", "seed")}
+def generator(name: str):
+    """The module of ``generators/<name>.py``, loaded by path; a name
+    with no such file raises ValueError."""
+    path = GENERATORS / f"{name}.py"
+    if "/" in name or name.startswith(".") or not path.is_file():
+        raise ValueError(f"unknown generator {name!r}")
+    return spec.by_path(path, "generator")
 
 
 def params(config: dict) -> dict:
     """The generator and the parameters it takes, from a config."""
     gen = config["generator"]
-    if gen not in GENERATORS:
-        raise ValueError(f"unknown generator {gen!r}")
-    return {"generator": gen, **{k: config[k] for k in GENERATORS[gen]}}
+    return {"generator": gen,
+            **{k: config[k] for k in generator(gen).PARAMS}}
 
 
 def make(config: dict) -> Matrix:
-    """Generate the matrix that a config names."""
-    p = params(config)
-    rows, cols, vals = rmat.graph500(*(p[k] for k in GENERATORS["graph500"]))
-    return Matrix(rows, cols, vals, 1 << p["scale"])
+    """Generate the matrix that a config names, held to the generator's
+    contract: int32 rows and columns, float32 values, square, in CSR
+    order with no duplicates."""
+    name = config["generator"]
+    gen = generator(name)
+    rows, cols, vals, n = gen.make(*(config[k] for k in gen.PARAMS))
+    m = Matrix(rows, cols, vals, int(n))
+    if not (rows.dtype == cols.dtype == np.int32 and vals.dtype == np.float32
+            and rows.shape == cols.shape == vals.shape):
+        raise ValueError(f"{name}: arrays of "
+                         f"{rows.dtype}/{cols.dtype}/{vals.dtype}")
+    if m.nnz and not (0 <= rows.min() and rows.max() < m.n
+                      and 0 <= cols.min() and cols.max() < m.n):
+        raise ValueError(f"{name}: an index outside {m.n} x {m.n}")
+    dr, dc = np.diff(rows), np.diff(cols)
+    if not np.all((dr > 0) | ((dr == 0) & (dc > 0))):
+        raise ValueError(f"{name}: not in CSR order, or a "
+                         "duplicate entry")
+    return m
 
 
 def cache_dir(config: dict, cache: Path = CACHE) -> Path:

@@ -74,15 +74,20 @@ def metrics_of(manifest: dict, cell_name: str, trace: bool) -> list[dict]:
             if "workloads" not in m or cell_name in m["workloads"]]
 
 
-def reader(name: str, here: Path = HERE):
-    """The ``read(ctx)`` of ``metrics/<name>.py``, loaded by path (a
-    metric's name may hold dots)."""
-    path = here / "metrics" / f"{name}.py"
+def by_path(path: Path, kind: str):
+    """The module in file ``path``, loaded by path (a name may hold dots)
+    as ``benchmark_<kind>_<name>``."""
+    name = path.stem.replace(".", "_").replace("-", "_")
     spec = importlib.util.spec_from_file_location(
-        f"benchmark_metric_{name.replace('.', '_').replace('-', '_')}", path)
+        f"benchmark_{kind}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str, here: Path = HERE):
+    """The ``read(ctx)`` of ``metrics/<name>.py``."""
+    return by_path(here / "metrics" / f"{name}.py", "metric").read
 
 
 def _line(s) -> bool:

@@ -14,9 +14,8 @@ from pathlib import Path
 
 import pytest
 
-from benchmark import rmat, spec
-
-TINY_SCALE, TINY_EF = 10, 6
+from benchmark import matrix as mx
+from benchmark import spec
 
 
 def pytest_configure(config):
@@ -25,10 +24,10 @@ def pytest_configure(config):
         "chip: needs a CUDA card; skips inside the test without one")
 
 
-def make_root(tmp: Path, scale: int = TINY_SCALE, ef: int = TINY_EF) -> Path:
+def make_root(tmp: Path) -> Path:
     """A checkout's BENCHMARK.json and benchmark/ files under ``tmp``,
-    each configuration's matrix cut to Graph500 ``scale`` and edge
-    factor ``ef``."""
+    each configuration cut to test size by its generator's ``TINY`` and
+    its ``expect`` made to match."""
     root = tmp / "root"
     shutil.copytree(spec.HERE, root / "benchmark",
                     ignore=shutil.ignore_patterns("cache", "tests",
@@ -36,10 +35,9 @@ def make_root(tmp: Path, scale: int = TINY_SCALE, ef: int = TINY_EF) -> Path:
     manifest = spec.load()
     for c in manifest["configs"]:
         cfg = json.loads((spec.ROOT / c["file"]).read_text())
-        cfg.update(scale=scale, edgefactor=ef)
-        _, _, v = rmat.graph500(scale, ef, cfg["A"], cfg["B"], cfg["C"],
-                                cfg["seed"])
-        cfg["expect"] = {"rows": 1 << scale, "nnz": int(v.shape[0])}
+        cfg.update(mx.generator(cfg["generator"]).TINY)
+        m = mx.make(cfg)
+        cfg["expect"] = {"rows": m.n, "nnz": m.nnz}
         (root / c["file"]).write_text(json.dumps(cfg))
     (root / "BENCHMARK.json").write_text(json.dumps(manifest))
     return root

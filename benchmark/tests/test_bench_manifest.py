@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import json
 import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -73,20 +75,39 @@ def test_names_and_units_use_allowed_characters():
     assert not spec.UNIT.fullmatch("tokens per second")
 
 
+NEW_GENERATOR = '''"""A path graph's Laplacian: 2 on the diagonal, -1 beside it."""
+
+import numpy as np
+
+PARAMS = ("n",)
+TINY = {"n": 300}
+
+
+def make(n):
+    rows = np.repeat(np.arange(n, dtype=np.int32), 3)
+    cols = rows + np.tile(np.array([-1, 0, 1], dtype=np.int32), n)
+    keep = (cols >= 0) & (cols < n)
+    rows, cols = rows[keep], cols[keep]
+    vals = np.where(rows == cols, 2.0, -1.0).astype(np.float32)
+    return rows, cols, vals, n
+'''
+
+
 def test_a_new_cell_is_found_without_editing_a_file(tmp_path):
-    """A configuration, a traffic mix, a limit, a metric and a cell, added
-    as new files and new manifest entries: found by name, and the
-    manifest keeps its rules; no existing file under benchmark/
-    changes."""
+    """A generator, a configuration, a traffic mix, a limit, a metric and
+    a cell, added as new files and new manifest entries: found by name,
+    the manifest keeps its rules, and the cell runs end to end at test
+    size on the CPU from that checkout (its own benchmark/ package, the
+    program beside it); no existing file under benchmark/ changes."""
     here = tmp_path / "root" / "benchmark"
     shutil.copytree(spec.HERE, here,
                     ignore=shutil.ignore_patterns("cache", "__pycache__"))
     before = {p.relative_to(here): p.read_bytes()
               for p in here.rglob("*") if p.is_file()}
+    (here / "generators" / "path_laplacian.py").write_text(NEW_GENERATOR)
     (here / "configs" / "new_cfg.json").write_text(json.dumps(
-        {"name": "new_cfg", "generator": "graph500", "scale": 10,
-         "edgefactor": 4, "A": 0.57, "B": 0.19, "C": 0.19, "seed": 5,
-         "expect": {"rows": 1024, "nnz": 1}, "artifact": "packed",
+        {"name": "new_cfg", "generator": "path_laplacian", "n": 300,
+         "expect": {"rows": 300, "nnz": 898}, "artifact": "packed",
          "dtype": "float32"}))
     (here / "traffic" / "new_mix.json").write_text(json.dumps(
         {"op": "spmm", "rhs": 8, "inputs": 2, "warmup_products": 2,
@@ -107,12 +128,26 @@ def test_a_new_cell_is_found_without_editing_a_file(tmp_path):
     root = here.parent
     assert spec.check(m, root) == []
     c = spec.cell(m, "new.cell")
-    assert spec.config(m, c["config"], root)["expect"]["rows"] == 1024
+    assert spec.config(m, c["config"], root)["expect"]["rows"] == 300
     assert spec.traffic(c["traffic"], here)["rhs"] == 8
     assert spec.limits("new.cell", here)["widest_gap"] == 1e-5
     got = [x["name"] for x in spec.metrics_of(m, "new.cell", True)]
     assert "new_metric.ms" in got
     assert spec.reader("new_metric.ms", here)({}) == 1.5
+    (root / "BENCHMARK.json").write_text(json.dumps(m))
+    code = (f"import sys, time; sys.path[:0] = [{str(root)!r}, "
+            f"{str(spec.ROOT)!r}]\n"
+            "from pathlib import Path\n"
+            "from benchmark import matrix, runner\n"
+            f"assert matrix.GENERATORS == Path({str(here / 'generators')!r})\n"
+            "r = runner.run('new.cell', 7, 0.2, False, time.perf_counter(),"
+            f" device='cpu', root=Path({str(root)!r}),"
+            f" cache=Path({str(tmp_path / 'cache')!r}))\n"
+            "print(r['correct'], r['attempted'] > 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "True True"
     after = {p.relative_to(here): p.read_bytes()
              for p in here.rglob("*") if p.is_file()}
     assert all(after[k] == v for k, v in before.items())

@@ -1,11 +1,13 @@
 """The work a product needs and the least time the card could take.
 
 The counts are of the product Y = A @ X itself, whatever format or
-kernel computes it: each stored entry of A read once (a float32 value
-and an int32 column), the row pointer once, X read once and Y written
-once.  So no change to the program's own layouts moves them.  The peaks
-are the NVIDIA H100 SXM data sheet's: HBM3 at 3.35 TB/s, float32 outside
-the tensor cores at 67 TFLOP/s.
+kernel computes it: each stored value of A read once (4 B, float32), X
+read once and Y written once.  An index (CSR's columns and row pointer,
+SELL's or the routed planes' tables) is one layout's overhead, which a
+banded or stencil layout does not read, so none is counted: the bytes
+are a least for every format, and no change to the program's layouts
+moves them.  The peaks are the NVIDIA H100 SXM data sheet's: HBM3 at
+3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ def flops(nnz: int, K: int) -> int:
 
 
 def bytes_moved(nrows: int, ncols: int, nnz: int, K: int) -> int:
-    return 8 * nnz + 4 * (nrows + 1) + 4 * ncols * K + 4 * nrows * K
+    return 4 * nnz + 4 * ncols * K + 4 * nrows * K
 
 
 def least_seconds(nrows: int, ncols: int, nnz: int, K: int,
