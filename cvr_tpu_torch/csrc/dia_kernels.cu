@@ -15,8 +15,21 @@
 // costs it a relayout.  Here a thread owns one output row and reads
 // x[r + off] directly: neighbouring threads read neighbouring addresses,
 // so every load of a band row and of a shifted x is coalesced whatever
-// the offset, and x (8 MB at 2M rows) stays in the 50 MB L2 across the nd
-// diagonals.  The bounds check takes the place of the TPU's zero padding
+// the offset.  x's nd reads of an element hit the 50 MB L2 because they
+// come close together in time, not because x fits in it: the grid-stride
+// sweep launches at most kSms * kBlocksPerSm blocks, half of which are
+// resident at full occupancy (8 blocks of 256 threads an SM), so a chunk
+// of about 270K consecutive rows is in flight at a time, and the rows
+// r = c - off[k] that read x[c] all lie within the reach (max |off|) of
+// c.  Where the reach is small beside 270K rows, x comes from device
+// memory about once: at banded-2M (reach 13, x 8 MB) and at HPCG's
+// 27-point stencil on 256^3 (reach 65,793 rows, x 67 MB, above the L2)
+// alike.  There the x elements within the reach of a chunk's two edges
+// are fetched again by the chunk on the other side, about (270K + 2 *
+// 65,793) / 270K = 1.5 times x in all, 2% of the pass's bytes.
+// Measured on an H100 (700 W): 0.7317 ms a pass at 256^3 against its
+// 0.5809 ms bound (79.4%), the same share as at banded-2M (0.0923 against
+// 0.0726 ms).  The bounds check takes the place of the TPU's zero padding
 // (and of its slice of x for wide rectangular matrices).  The pass reads
 // each band element once (4 B per stored element) and is bound by device
 // memory bytes.

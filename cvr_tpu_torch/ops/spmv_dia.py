@@ -15,6 +15,7 @@ import torch
 
 from cvr_tpu_torch.formats.dia import DiaMatrix
 from cvr_tpu_torch.ops import dia_kernels as dk
+from cvr_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -27,10 +28,12 @@ class DiaDevice:
 
 def to_device_dia(dm: DiaMatrix, device="cuda") -> DiaDevice:
     """Upload the DIA artifact's planes to ``device``, with K11's window
-    plan of the offsets (kept on the offsets tensor)."""
+    plan of the offsets (kept on the offsets tensor; an ``upload.plan``
+    span, detail ``dia``, while recording)."""
     offsets = torch.from_numpy(
         np.ascontiguousarray(dm.offsets, dtype=np.int64)).to(device)
-    dk.window_plan(offsets, host=dm.offsets)
+    with span("upload.plan", "dia", sync=device):
+        dk.window_plan(offsets, host=dm.offsets)
     return DiaDevice(
         bands=torch.from_numpy(np.ascontiguousarray(dm.bands)).to(device),
         offsets=offsets,

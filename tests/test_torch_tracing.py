@@ -1,7 +1,8 @@
 """The program's record (cvr_tpu_torch.utils.profiling): off by default
 and free there, its spans while on, under torch.profiler, and the spans
-of the artifact load, the upload's plans and the products of a routed
-and a lane artifact, at test size on the CPU.
+of the artifact load, the upload's plans and the products of a routed,
+a lane and a DIA artifact, at test size on the CPU (the DIA product's
+launch span also on a card).
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_tracing.py -q
 """
@@ -16,8 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark import matrix as mx
 from cvr_tpu_torch import cli
 from cvr_tpu_torch.bench import synthetic as tsyn
+from cvr_tpu_torch.formats import pack_auto
+from cvr_tpu_torch.formats.coo import COOMatrix
 from cvr_tpu_torch.formats.sell_routed import sell_pack_routed
 from cvr_tpu_torch.ops import route_kernels as rk
 from cvr_tpu_torch.ops.spmm_lane import spmm_lane_pack
@@ -42,12 +46,15 @@ def coo():
 @pytest.fixture(scope="module")
 def saved(coo, tmp_path_factory):
     """name -> (path of the saved artifact, the artifact, K of its product:
-    0 for an SpMV)."""
+    0 for an SpMV); ``dia`` is HPCG's problem at 8^3."""
     d = tmp_path_factory.mktemp("artifacts")
+    rows, cols, vals, n = mx.generator("hpcg27").make(8, 8, 8)
+    hpcg = COOMatrix(rows=rows, cols=cols, vals=vals, shape=(n, n))
     out = {}
     for name, host, K in (
             ("routed", sell_pack_routed(coo.to_csr(), hot="off"), 0),
-            ("lane", spmm_lane_pack(coo.to_csr()), 16)):
+            ("lane", spmm_lane_pack(coo.to_csr()), 16),
+            ("dia", pack_auto(hpcg.to_csr()), 0)):
         path = str(d / f"{name}.npz")
         cli.save_packed(host, path)
         out[name] = (path, host, K)
@@ -159,12 +166,13 @@ def test_trace_records_while_it_runs(tmp_path):
     assert _names(prof.record()) == ["spmm"]
 
 
-@pytest.mark.parametrize("name", ["routed", "lane"])
+@pytest.mark.parametrize("name", ["routed", "lane", "dia"])
 def test_load_reads_each_member_in_a_span(saved, name):
     path, _, _ = saved[name]
     with prof.recording():
         kind, _ = cli.load_packed(path)
-    assert kind == {"routed": "sell-routed", "lane": "lane"}[name]
+    assert kind == {"routed": "sell-routed", "lane": "lane",
+                    "dia": "dia"}[name]
     spans = prof.record()
     load = spans[0]
     assert load.name == "load" and load.parent is None
@@ -183,7 +191,7 @@ def test_sniffing_reads_no_member(saved):
     assert prof.record() == []
 
 
-@pytest.mark.parametrize("name", ["routed", "lane"])
+@pytest.mark.parametrize("name", ["routed", "lane", "dia"])
 def test_upload_records_its_plans(saved, name):
     _, host, _ = saved[name]
     with prof.recording():
@@ -195,18 +203,22 @@ def test_upload_records_its_plans(saved, name):
     plans = [s for s in spans if s.name == "upload.plan"]
     assert plans and {s.parent for s in plans} <= set(roots)
     assert {s.name for s in spans} == {"upload", "upload.plan"}
+    if name == "dia":  # K11's window plan, once an upload
+        assert [(s.detail, s.parent) for s in plans] == [
+            ("dia", i) for i in roots]
 
 
 @pytest.mark.parametrize("name, stages", [
     ("routed", ["routed.reduce", "routed.y"]),
     ("lane", ["lane.reduce", "lane.fold"]),
+    ("dia", []),
 ])
-def test_product_spans_name_its_stages(saved, coo, name, stages):
+def test_product_spans_name_its_stages(saved, name, stages):
     _, host, K = saved[name]
     sd = upload(host, "cpu")
     with prof.recording():
-        _product(sd, K, coo.shape[1])
-        _product(sd, K, coo.shape[1])
+        _product(sd, K, host.shape[1])
+        _product(sd, K, host.shape[1])
     spans = prof.record()
     root = "spmv" if K == 0 else "spmm"
     assert _names(prof.record()) == ([root] + stages) * 2
@@ -217,15 +229,15 @@ def test_product_spans_name_its_stages(saved, coo, name, stages):
             "x", "x"]
 
 
-@pytest.mark.parametrize("name", ["routed", "lane"])
-def test_recording_leaves_outputs_bit_for_bit(saved, coo, name):
+@pytest.mark.parametrize("name", ["routed", "lane", "dia"])
+def test_recording_leaves_outputs_bit_for_bit(saved, name):
     path, _, K = saved[name]
     outs = []
     for on in (False, True):
         with prof.recording(on):
             _, host = cli.load_packed(path)
             sd = upload(host, "cpu")
-            outs.append((host, sd, _product(sd, K, coo.shape[1], seed=3)))
+            outs.append((host, sd, _product(sd, K, host.shape[1], seed=3)))
     (h0, d0, y0), (h1, d1, y1) = outs
     assert torch.equal(y0, y1)
     for f, v in vars(h0).items():
@@ -258,3 +270,19 @@ def test_launch_span_carries_the_symbol(monkeypatch):
         ("routed.y", None, None), ("launch", "cvr_route_small", 0),
         ("launch", "cvr_tileperm", None)]
     assert len(calls) == 1 and len(calls[0]) == 3
+
+
+def test_dia_product_on_a_card_is_one_k8_launch(saved):
+    """On a card the DIA product is one ``launch`` span, K8's symbol, in
+    its ``spmv`` span; recording leaves y bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel's launch span")
+    _, host, _ = saved["dia"]
+    sd = upload(host, "cuda")
+    x = torch.randn(host.shape[1], generator=torch.Generator().manual_seed(3))
+    y0 = spmv(sd, x.cuda())
+    with prof.recording():
+        y1 = spmv(sd, x.cuda())
+    assert [(s.name, s.detail, s.parent) for s in prof.record()] == [
+        ("spmv", None, None), ("launch", "cvr_dia_spmv", 0)]
+    assert torch.equal(y0, y1)
