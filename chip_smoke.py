@@ -358,7 +358,7 @@ from cvr_tpu_torch.utils.report import append_jsonl, append_result
 ITERS = 100
 KERNEL_ITERS = 20
 EXACT = ("expand", "route_middle", "route_small", "tileperm", "route_m3",
-         "route_flat", "groupperm")
+         "route_flat", "groupperm", "route_small_cols")
 # the pure gathers library_call computes by one torch.take (tileperm: by
 # torch.gather where every index is in range): kernel -> the position of
 # its data input among its arguments
@@ -707,11 +707,29 @@ def spmm_kernel(sd) -> str | None:
                  if isinstance(sd, kind)), None)
 
 
+def per_column(sd, K: int) -> bool:
+    """Whether the SpMM of the device artifact ``sd`` at width K runs one
+    SpMV a column: SELL-W and BELL, and the routed artifact at K 1 (wider,
+    it runs K3w and K4w a tile of columns)."""
+    if isinstance(sd, sp.SellRoutedDevice):
+        return K == 1
+    return spmm_kernel(sd) is None
+
+
 def expected_spmm_launches(sd, K: int) -> dict[str, int]:
     """Launches of each kernel in one SpMM of the device artifact ``sd``
     at width K: the SpMM kernel's (K13's and K14's second pass counted as
-    a launch), or K SpMVs' worth."""
+    a launch); the routed SpMM's K3w (its second pass counted) and K4w a
+    tile of up to rk.COLS_TILE columns and K7 a column; or K SpMVs'
+    worth."""
     name = spmm_kernel(sd)
+    if not per_column(sd, K) and name is None:
+        tiles = -(-K // rk.COLS_TILE)
+        return {**dict.fromkeys(kernels.KERNELS, 0),
+                "reduce_slices_cols": tiles * (
+                    1 + second_pass(sd.red_plan.split)),
+                "route_small_cols": tiles,
+                "reduce_hot": K * int(sd.hot_nslices > 0)}
     if name is None:
         return {k: n * K for k, n in expected_launches(sd).items()}
     plan = {"lane_reduce": "split", "pmm_spmm": "work"}.get(name)
@@ -900,11 +918,53 @@ def kernel_cases(tag, sd, xd):
                       for name, which, args in kernel_cases(
                           f"{tag} spill", sd.spill, xd)]
         return cases
+    if xd.dim() == 2:
+        return spmm_routed_cases(tag, sd, xd)
     g1 = rk.expand(sd.w8, sd.gcls, sd.seg_blk, sd.li, xd, sd.segw,
                    sd.n_segs)
     check_fold(tag, sd, g1, xd)
     cases = [("reduce_slices", "", k3_args(sd, xd))]
     return cases + y_cases(tag, sd, sp.reduce(sd, xd), xd)
+
+
+def spmm_routed_cases(tag, sd, Xd):
+    """The kernel launches of the routed SpMM's first tile of X (Xd's
+    first rk.COLS_TILE columns, read in place), as kernel_cases gives
+    them: K3w, K7 a column on hot planes, K4w.  Before them, each column
+    of K3w's sums and of the SpMM's Y is held bit for bit against K3's and
+    the routed SpMV's on that column (Y under torch's deterministic
+    algorithms: index_add_ adds the split-row extras by atomics
+    otherwise)."""
+    Xt = Xd[:, : rk.COLS_TILE]
+    args = (Xt, sd.vals_ss, sd.red_plan, sd.nslices)
+    ys = rk.reduce_slices_cols(*args)
+    same = all(torch.equal(ys[..., c], sp.reduce(sd, Xt[:, c].contiguous()))
+               for c in range(Xt.shape[1]))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        Y = sp.spmm_routed(sd, Xd)
+        same_y = all(torch.equal(Y[:, c], sp.spmv_routed(sd, Xd[:, c]))
+                     for c in range(Xd.shape[1]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"{tag} reduce_slices_cols over {Xt.shape[1]} columns: each "
+          f"column {'bit-exact with' if same else 'DIFFERS from'} "
+          f"reduce_slices on it; the SpMM's {Xd.shape[1]} columns "
+          f"{'bit-exact with' if same_y else 'DIFFER from'} the routed SpMV "
+          "on each")
+    if not (same and same_y):
+        raise AssertionError(f"{tag} the routed SpMM is not the SpMV a "
+                             "column")
+    cases = [("reduce_slices_cols", "", args)]
+    ysp = sp.y_stream_cols(sd, ys)
+    if sd.hot_nslices:
+        for c in range(Xt.shape[1]):
+            hot = (Xt[:, c][sd.hot_ids], sd.hidx, sd.hvals, sd.hot_row0,
+                   sd.hot_row1, sd.hot_out, sd.hot_nslices)
+            cases.append(("reduce_hot", f"column {c}", hot))
+            ysp[:, : sd.hot_nslices, :, c] += rk.reduce_hot(*hot)
+    ra = sd.yroute
+    return cases + [("route_small_cols", "y side", (ysp, ra.src, ra.n))]
 
 
 def k3_args(sd, src):
@@ -1035,7 +1095,7 @@ def middle_cases(g1, planes, side):
 def row_scale_args(name, args):
     """The kernel's arguments with values and gathered data made
     nonnegative: the plain version then computes the row scale."""
-    if name == "reduce_slices":
+    if name in ("reduce_slices", "reduce_slices_cols"):
         src, vals, *rest = args
         return (src.abs(), vals.abs(), *rest)
     if name == "reduce_stream":
@@ -1658,9 +1718,12 @@ def spmm_case(tag, name, coo, K, entry, want, device):
             None if name_k == "lane_reduce" else lib["csr"])
         rows = check_kernels(tag, f"{name} K {K}", sd, Xd, launches, ours,
                              device, {name_k: lib_ms})
-    else:  # one SpMV per column: its launches at column 0's tensors
+    elif per_column(sd, K):  # its launches at column 0's tensors
         rows = check_kernels(f"{tag} column 0", f"{name} K {K}", sd,
                              Xd[:, 0].contiguous(), launches, ours, device)
+    else:  # the routed SpMM: K3w, K4w at the first tile's tensors
+        rows = check_kernels(tag, f"{name} K {K}", sd, Xd, launches, ours,
+                             device)
     for r in rows:
         r["spmm_ms"], r["cusparse_spmm_ms"] = ms, lib["csr"]
         r["torch_bsr_ms"] = lib["bsr"]
@@ -2478,7 +2541,7 @@ def payload_kernels(tag, path, sd, x, fn, launches, device, per=None,
                         per_call=launches[single[0]] if single else 1)
         print(f"{tag} device time a run: "
               + device_split(per, by_kernel(per)))
-    if x.dim() == 2 and spmm_kernel(sd) is None:
+    if x.dim() == 2 and per_column(sd, x.shape[1]):
         x = x[:, 0]
     return check_kernels(tag, f"models_{path}", sd, x.contiguous(),
                          launches, by_kernel(per), device, library)

@@ -1,10 +1,12 @@
 """Time the routed SpMV's K1 (expand), K3 (reduce_slices), K4
 (route_small) and K15 (expand_ring), the route API's K2 (route_middle),
 K5 (tileperm), K6 (route_m3), K16 (route_flat), K17 (groupperm) and K18
-(reduce_stream), and whole routed SpMVs, of several checkouts of this
+(reduce_stream), the routed SpMM's K3w (reduce_slices_cols) and K4w
+(route_small_cols), and whole routed SpMVs, of several checkouts of this
 repository on one card, in turns.
 
     python3 -m cvr_tpu_torch.bench.ab_routed ROOT [ROOT ...] [--kernels K,..]
+        [--artifact PATH]
 
 Each ROOT is a directory holding a checkout's ``cvr_tpu_torch/`` and
 ``native/`` (for example the parent commit unpacked with ``git archive``
@@ -42,7 +44,17 @@ library, and takes device times from torch.profiler traces:
     composed index above 1024 tiles) on a y stream made from a seed, and
     the whole SpMV's device time per call (every kernel and copy of its
     trace), and the upload's seconds (``upload``, host clock to a
-    synchronize: the compositions of the route run there).
+    synchronize: the compositions of the route run there);
+  * (``reduce_cols``) on the planes of a saved routed artifact
+    (``--artifact``, a file of ``cli.save_packed``: the benchmark's
+    ``benchmark/cache/packed/graph500_s21-spmm8-*.npz`` after a run of
+    the cell ``graph500_s21.spmm_k8``) at K 8, X from a seed: K3w per call
+    against K3 launched once a column (8 launches on the columns copied
+    out before), K4w against K4 a column, and the routed SpMM against the
+    loop of 8 routed SpMVs and a stack that it replaced, device ms per
+    call, with whether K3w's sums and K4w's rows equal the per-column
+    kernels' and the SpMM's Y the loop's bit for bit (``*_equal``; Y under
+    torch's deterministic algorithms).
 
 It prints one JSON line per root with checksums: K1's output, K4's on a
 seeded y stream, K2's, K5's, K6's, K16's and K17's, each matrix's K3 sums
@@ -73,9 +85,13 @@ SHARDS = 4
 # K3's kernels' device event names (the second pass where a checkout has
 # one)
 K3_EVENTS = ("reduce_slices_kernel", "reduce_slices_combine_kernel")
+# K3w's kernels' device event names
+K3W_EVENTS = ("reduce_slices_cols_kernel", "reduce_slices_cols_combine_kernel")
 KERNELS = ("expand", "route_small", "tileperm", "route_flat", "groupperm",
            "route_m3", "route_middle", "reduce_stream", "expand_ring",
-           "reduce_slices", "spmv")
+           "reduce_slices", "spmv", "reduce_cols")
+# what the reduce_cols case alone needs: no generated matrix
+ARTIFACT_ONLY = {"reduce_cols"}
 # the route API's kernels: their device events' names, the parent's (PR 11's
 # tree, where K16 was an instantiation of K6's kernel) and this tree's
 EVENTS = {"tileperm": ("tileperm_kernel<false>",),
@@ -350,14 +366,68 @@ def reduce_stream_cases(rk, sp, rp, sr, sd, g1, iters: int) -> dict:
     return out
 
 
-def worker(root: str, npz: str, iters: int, names) -> dict:
+def reduce_cols_cases(rk, sp, sd, iters: int, K: int = 8) -> dict:
+    """The reduce_cols case (the module's docstring) on the routed device
+    artifact ``sd``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    X = torch.randn((sd.shape[1], K), generator=g, device="cuda")
+    cols = [X[:, k].contiguous() for k in range(K)]
+    plan, vals, nys = sd.red_plan, sd.vals_ss, sd.nslices
+
+    def k3():
+        return [rk.reduce_slices(c, vals, plan, nys) for c in cols]
+
+    out = {"reduce_cols_K": K,
+           "k3_per_column_ms": _device_per_call(k3, K3_EVENTS, iters) / 1e3}
+    per_col = k3()
+
+    def k3w():
+        return rk.reduce_slices_cols(X, vals, plan, nys)
+
+    out["k3w_ms"] = _device_per_call(k3w, K3W_EVENTS, iters) / 1e3
+    ys = k3w()
+    out["k3w_equal"] = all(torch.equal(ys[..., c], per_col[c])
+                           for c in range(K))
+    ysp = sp.y_stream_cols(sd, rk.reduce_slices_cols(X, vals, plan, nys))
+    ra = sd.yroute
+    streams = [ysp[..., c].contiguous() for c in range(K)]
+
+    def k4():
+        return [rk.route_small(y, ra.src, ra.n) for y in streams]
+
+    def k4w():
+        return rk.route_small_cols(ysp, ra.src, ra.n)
+
+    out["k4_per_column_ms"] = _device_per_call(
+        k4, ("route_small_kernel",), iters) / 1e3
+    out["k4w_ms"] = _device_per_call(
+        k4w, ("route_small_cols_kernel",), iters) / 1e3
+    out["k4w_equal"] = torch.equal(k4w(), torch.stack(k4(), 1))
+
+    def loop():
+        return torch.stack([sp.spmv_routed(sd, X[:, k]) for k in range(K)],
+                           1)
+
+    def spmm():
+        return sp.spmm_routed(sd, X)
+
+    out["spmm_loop_ms"] = _device_per_call(loop, None, iters) / 1e3
+    out["spmm_ms"] = _device_per_call(spmm, None, iters) / 1e3
+    out["spmm_equal"] = _y_digest(loop) == _y_digest(spmm)
+    return out
+
+
+def worker(root: str, npz: str, iters: int, names,
+           artifact: str | None = None) -> dict:
     """One root's measurements (run in a subprocess whose path starts at
     ``root``)."""
     import numpy as np
     import torch
 
     import cvr_tpu_torch
-    from cvr_tpu_torch import _native
+    from cvr_tpu_torch import _native, cli
     from cvr_tpu_torch.formats import pack_auto
     from cvr_tpu_torch.formats.coo import COOMatrix
     from cvr_tpu_torch.formats.sell_routed import sell_pack_routed
@@ -377,6 +447,15 @@ def worker(root: str, npz: str, iters: int, names) -> dict:
         raise RuntimeError(f"imported {pkg}, not the package under {root}")
     _native.build()
     _build.load()
+    out = {"root": root, "device": torch.cuda.get_device_name(0)}
+    if "reduce_cols" in names:
+        _, host = cli.load_packed(artifact)
+        rsd = sp.to_device_routed(host, "cuda")
+        del host
+        out.update(reduce_cols_cases(rk, sp, rsd, iters))
+        del rsd
+    if set(names) <= ARTIFACT_ONLY:
+        return out
 
     def load(name):
         z = np.load(str(Path(npz) / f"{name}.npz"))
@@ -403,7 +482,6 @@ def worker(root: str, npz: str, iters: int, names) -> dict:
     def k4():
         return rk.route_small(ysp, ra.src, ra.n)
 
-    out = {"root": root, "device": torch.cuda.get_device_name(0)}
     timed = [("expand", k1, "expand_kernel"),
              ("route_small", k4, "route_small_kernel")]
     if {"tileperm", "route_flat", "groupperm", "route_m3"} & set(names):
@@ -496,14 +574,19 @@ def main(argv=None) -> int:
     ap.add_argument("--worker", nargs=2, metavar=("ROOT", "NPZ"))
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="comma-separated kernels to time")
+    ap.add_argument("--artifact", help="a saved routed artifact, for "
+                    "reduce_cols")
     args = ap.parse_args(argv)
     names = args.kernels.split(",")
     if not set(names) <= set(KERNELS):
         raise SystemExit(f"ab_routed: --kernels among {KERNELS}")
+    if "reduce_cols" in names and not args.artifact:
+        raise SystemExit("ab_routed: reduce_cols needs --artifact")
+    artifact = str(Path(args.artifact).resolve()) if args.artifact else None
     if args.worker:
         # the root's package, not the one beside this file
         sys.path[0] = str(Path(args.worker[0]).resolve())
-        print(json.dumps(worker(*args.worker, args.iters, names)))
+        print(json.dumps(worker(*args.worker, args.iters, names, artifact)))
         return 0
     import numpy as np
     import torch
@@ -513,15 +596,18 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("ab_routed: torch.cuda.is_available() is false")
     print(f"nvidia-smi: {card()}")
-    wanted = set(MATRICES) if "spmv" in names else {"web_google_like"}
+    wanted = (set() if set(names) <= ARTIFACT_ONLY else set(MATRICES)
+              if "spmv" in names else {"web_google_like"})
     with tempfile.TemporaryDirectory() as tmp:
         for name in sorted(wanted):
             coo = getattr(syn, name)()
             np.savez(str(Path(tmp) / f"{name}.npz"), rows=coo.rows,
                      cols=coo.cols, vals=coo.vals, shape=np.asarray(coo.shape))
             del coo
-        rows = run_roots(__file__, args.roots, tmp, args.iters,
-                         ["--kernels", args.kernels])
+        extra = ["--kernels", args.kernels]
+        if artifact:
+            extra += ["--artifact", artifact]
+        rows = run_roots(__file__, args.roots, tmp, args.iters, extra)
     digests = {k for r in rows for k in r if k.endswith("_digest")}
     # a key only some roots have (a body the parent lacks) is compared
     # among those, and a split body's output with its root's other body's

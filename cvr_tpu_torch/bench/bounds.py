@@ -38,7 +38,9 @@ def work(name, args, out) -> tuple[int, int, float]:
     reduce reads its plan's piece tables (in place of emit), and per
     element of those rows its value, p3 entry and one gx element (its
     gemit is not read); K4 its index and the ysp
-    elements it names (none for a -1); K14 its entries (8 B each), its work plan's tables
+    elements it names (none for a -1); K3w and K4w as K3 and K4, each
+    named element a row of X or ysp (the tile's columns); K14 its
+    entries (8 B each), its work plan's tables
     (segment offsets, units, combine table: on the card they take the
     place of the row offsets, which it does not read) and the X rows its
     entries name; K13 the plane rows its slots name and the X rows they
@@ -51,6 +53,10 @@ def work(name, args, out) -> tuple[int, int, float]:
     if name == "route_small":  # the ysp elements the index reaches
         ysp, src, _n = args
         nbytes = (int(torch.unique(src[src >= 0]).numel()) + src.numel()) * 4
+    if name == "route_small_cols":  # the ysp rows the index reaches
+        ysp, src, _n = args
+        named = int(torch.unique(src[src >= 0]).numel())
+        nbytes = named * ysp.shape[-1] * 4 + src.numel() * 4
     if name == "reduce_stream":
         emit, _gemit, vals, gx, p3, nys, plan = args
         row0, row1, _ = rk.reduce_stream_table(emit, nys)
@@ -68,6 +74,16 @@ def work(name, args, out) -> tuple[int, int, float]:
                   + 4 * (plan.split.pieces.numel()
                          + plan.split.combine.numel()))
         ops = 2 * used
+    if name == "reduce_slices_cols":  # the rows of X its index names
+        X, _vals, plan, _nys = args
+        _, rows = rk.slice_rows(plan.row0, plan.row1)
+        used = rows.numel() * 8 * 128
+        idx = plan.idx[:, rows].reshape(-1)
+        named = torch.unique(idx[(idx >= 0) & (idx < X.shape[0])]).numel()
+        nbytes = (used * (4 + 4) + int(named) * X.shape[1] * 4
+                  + 4 * (plan.split.pieces.numel()
+                         + plan.split.combine.numel()))
+        ops = 2 * used * X.shape[1]
     # (row0, row1) index and the planes of each reduce
     reduces = {"reduce_hot": (3, 4, slice(1, 3)),
                "window_reduce": (5, 6, slice(0, 2))}

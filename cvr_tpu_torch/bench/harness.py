@@ -252,6 +252,7 @@ EVENTS = {"tileperm": ("tileperm_kernel<false>",),
 # item's partials; K2's split body's chunk select): kernel -> the second
 # pass's device events' name
 SECOND = {"reduce_slices": "reduce_slices_combine_kernel",
+          "reduce_slices_cols": "reduce_slices_cols_combine_kernel",
           "lane_reduce": "lane_reduce_combine_kernel",
           "pmm_spmm": "pmm_spmm_combine_kernel",
           "reduce_stream": "reduce_stream_combine_kernel",

@@ -24,8 +24,14 @@
 //                        on the middle layout, tileperm_kernel<true>
 //   K18 reduce_stream <- _reduce_kernel with _emission_sweep (:537, :86)
 //
+// Two more passes, in three kernels, replace no TPU kernel: K3w
+// (reduce_slices_cols, and its second pass) and K4w (route_small_cols), K3
+// and K4 over a tile of up to 8 columns, which the routed SpMM runs where
+// the JAX package vmaps the SpMV over the columns.
+//
 // A routed SpMV runs K3, K7 (only where the pack captured hub columns:
-// the hub-column hybrid) and K4.  The TPU stages its route because it
+// the hub-column hybrid) and K4; a routed SpMM K3w, K7 a column and K4w a
+// tile.  The TPU stages its route because it
 // gathers only inside VMEM windows; every stage is a static map, so the
 // upload composes them (ops/spmv_routed.py): K3 gathers x by an index
 // composed through K1's window map, the x side's route middle (K2's map,
@@ -563,6 +569,229 @@ __global__ void route_small_kernel(const float* __restrict__ ysp,
   }
 }
 
+// K3w and K4w: the routed SpMM's K3 and K4 over a tile of kt <= 8 columns
+// of X (ncols, K), so that one pass over the planes serves the tile:
+//   ys[i, out[k], l, c] = sum over the rows R of slice k of
+//                         vals[i,R,l] * X[idx[i,R,l], c0 + c]
+//   Y[e, c0 + c]        = src[e] >= 0 ? ysp[src[e], c] : 0
+// by the same plan as K3 (the index into x composed at upload, its pieces
+// and combine table) and the same index as K4 (the y-route composed), with
+// ys and ysp in the (8, rows, 128, kt) layout: a lane's kt columns side by
+// side.  No TPU kernel: the JAX package runs the routed SpMM as the SpMV
+// vmapped over the columns (cvr_tpu/ops/spmv.py:314 ->
+// spmv_routed._jitted_spmm_routed), which on the card was one K3, K4
+// chain a column, each streaming the same index and values (0.5 GB at
+// Graph500 scale 21) and gathering one 4 B element of x per plane
+// element, then a stack of the columns.
+//
+// What bounds K3w: per plane element a 4 B index and a 4 B value,
+// streamed, and one gather of kt floats of a row of X; with X (ncols, 8)
+// float32, row-major, a row is 32 B, one L2 sector, the sector that K3's
+// 4 B gather of x costs already.  So the tile's bytes are one SpMV's
+// stream plus its sectors, where the column loop paid them kt times.  The
+// design:
+//   * one block a piece and sublane (grid npieces x 8), 128 lanes x tpl
+//     threads, tpl = ceil(kt / 4): a thread takes a quad of 4 columns of
+//     one lane, and the threads of one lane are neighbours, so that their
+//     16 B loads of one row of X fall in one 32 B sector of one warp
+//     request.  The index and the value are streamed with __ldcs (the
+//     threads of a lane load the same 4 B), so they do not evict X;
+//   * kColsRows = 4 plane rows' loads in flight, the rows of the piece
+//     summed into 4 accumulators a column, row j into accumulator j % 4 up
+//     to the last whole 4 rows and the rest into the first, added as
+//     (a0 + a1) + (a2 + a3), with the same fmaf(value, X, acc): K3's
+//     order, so column c of ys equals K3's ys of that column bit for bit.
+//     Registers: 16 accumulators a thread.  The settings were timed alone
+//     on an H100 at graph500_s21's planes, kt 8: 0.742 / 0.802 / 0.794 ms
+//     at 4 / 8 / 16 rows in flight with one quad a thread (40 / 58 / 62
+//     registers), 0.767 / 0.767 / 0.844 with a lane's two quads in one
+//     thread (32 accumulators), against 3.648 ms for K3 launched once a
+//     column; the kernel keeps the fastest, one quad and 4 rows;
+//   * X read in place with its row stride ldx (a tile of a wider X is a
+//     view), by 16 B loads where kt, ldx and the tile's address allow,
+//     else by 4 B loads; a column past kt, an index of -1 and a row at or
+//     past nx read 0 (predicated loads);
+//   * ys stored 16 B a quad (4 B a column where kt is not a multiple of 4);
+//     the pieces of a split slice write partial rows, which
+//     reduce_slices_cols_combine_kernel adds in piece order: no float
+//     atomics, the bits repeat run to run.
+// K4w: each output row's kt floats of ysp (one 32 B sector at kt 8) are
+// gathered and stored into its row of Y, in place with the row stride ldy,
+// by kt / 4 neighbour threads with 16 B each where kt, ldy and the
+// addresses of ysp and Y allow (else one thread a row, 4 B at a time), so
+// that a warp's loads of a row merge into one sector request and its
+// stores cover 512 B of Y side by side.  A first design gave each thread
+// 4 outputs (one 16 B load of src, then 4 rows): a warp's stores then
+// fell 128 B apart, half a sector each, and on an H100 at graph500_s21's
+// y-route, kt 8, it took 0.151 ms against 0.087 ms for K4 once a column.
+// Index arithmetic is 32-bit: the wrappers refuse X, ys, the partials,
+// ysp or Y past 2^31 - 1 elements.
+constexpr int kColsThreads = 256;  // the largest block: 128 lanes x 2
+constexpr int kColsRows = 4;  // plane rows in flight: one an accumulator
+
+__device__ __forceinline__ void fma1x4(float4& a, float v, const float4& g) {
+  a.x = fmaf(v, g.x, a.x);
+  a.y = fmaf(v, g.y, a.y);
+  a.z = fmaf(v, g.z, a.z);
+  a.w = fmaf(v, g.w, a.w);
+}
+
+// X[c, col .. col + 3], 0 where c is not in [0, nx) and past column kt
+template <bool kVec>
+__device__ __forceinline__ float4 gather_quad(const float* __restrict__ X,
+                                              int c, unsigned nx,
+                                              unsigned ldx, unsigned col,
+                                              unsigned kt) {
+  const bool ok = static_cast<unsigned>(c) < nx;
+  const float* p = X + (static_cast<unsigned>(c) * ldx + col);
+  if constexpr (kVec) {
+    return ok && col < kt ? __ldg(reinterpret_cast<const float4*>(p))
+                          : make_float4(0, 0, 0, 0);
+  } else {
+    return make_float4(ok && col < kt ? __ldg(p) : 0.f,
+                       ok && col + 1 < kt ? __ldg(p + 1) : 0.f,
+                       ok && col + 2 < kt ? __ldg(p + 2) : 0.f,
+                       ok && col + 3 < kt ? __ldg(p + 3) : 0.f);
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kColsThreads)
+    reduce_slices_cols_kernel(const float* __restrict__ X, unsigned nx,
+                              unsigned ldx, unsigned kt,
+                              const int32_t* __restrict__ idx,
+                              const float* __restrict__ vals,
+                              const int32_t* __restrict__ pieces,
+                              float* __restrict__ ys, float* __restrict__ part,
+                              unsigned S, unsigned nys, unsigned npart) {
+  // piece: plane rows [r0, r1) and its destination, as K3's
+  const int r0 = __ldg(pieces + 3 * blockIdx.x);
+  const int r1 = __ldg(pieces + 3 * blockIdx.x + 1);
+  const int dst = __ldg(pieces + 3 * blockIdx.x + 2);
+  const unsigned i = blockIdx.y;
+  const unsigned tpl = blockDim.x / 128;  // threads a lane
+  const unsigned l = threadIdx.x / tpl;
+  const unsigned col = threadIdx.x % tpl * 4;
+  const unsigned base = i * S * 128 + l;
+  float4 acc[kColsRows];
+#pragma unroll
+  for (int u = 0; u < kColsRows; ++u) acc[u] = make_float4(0, 0, 0, 0);
+  int R = r0;
+  for (; R + kColsRows <= r1; R += kColsRows) {
+    // the rows' index and value loads all issued before the gathers; row
+    // R + u into accumulator u
+    int ix[kColsRows];
+    float v[kColsRows];
+#pragma unroll
+    for (int u = 0; u < kColsRows; ++u) {
+      const unsigned e = base + static_cast<unsigned>(R + u) * 128;
+      ix[u] = __ldcs(idx + e);
+      v[u] = __ldcs(vals + e);
+    }
+#pragma unroll
+    for (int u = 0; u < kColsRows; ++u)
+      fma1x4(acc[u], v[u], gather_quad<kVec>(X, ix[u], nx, ldx, col, kt));
+  }
+  for (; R < r1; ++R) {  // the piece's last rows % 4
+    const unsigned e = base + static_cast<unsigned>(R) * 128;
+    const int c = __ldcs(idx + e);
+    const float v = __ldcs(vals + e);
+    fma1x4(acc[0], v, gather_quad<kVec>(X, c, nx, ldx, col, kt));
+  }
+  const unsigned row = dst >= 0 ? i * nys + static_cast<unsigned>(dst)
+                                : i * npart + static_cast<unsigned>(-1 - dst);
+  float* o = (dst >= 0 ? ys : part) + (row * 128 + l) * kt;
+  const float4 s = add4(add4(acc[0], acc[1]), add4(acc[2], acc[3]));
+  if constexpr (kVec) {
+    if (col < kt) *reinterpret_cast<float4*>(o + col) = s;
+  } else {
+    if (col < kt) o[col] = s.x;
+    if (col + 1 < kt) o[col + 1] = s.y;
+    if (col + 2 < kt) o[col + 2] = s.z;
+    if (col + 3 < kt) o[col + 3] = s.w;
+  }
+}
+
+// K3w's second pass: combine_partials over the (8, rows, 128, kt) layout,
+// each split slice's partial rows [c0, c1) added in piece order into its
+// ys row out; one block of 256 threads a slice, 16 B a thread and step
+// where kt is a multiple of 4.
+template <bool kVec>
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_slices_cols_combine_kernel(const float* __restrict__ part,
+                                      const int32_t* __restrict__ combine,
+                                      float* __restrict__ ys, unsigned nys,
+                                      unsigned npart, unsigned kt) {
+  const int c0 = __ldg(combine + 3 * blockIdx.x);
+  const int c1 = __ldg(combine + 3 * blockIdx.x + 1);
+  const unsigned out = __ldg(combine + 3 * blockIdx.x + 2);
+  const unsigned w = 128 * kt;  // floats of one sublane's row
+  constexpr unsigned kStep = kVec ? 4 : 1;
+  for (unsigned f = threadIdx.x * kStep; f < 8 * w;
+       f += kReduceThreads * kStep) {
+    const unsigned i = f / w, r = f - i * w;
+    const float* p = part + i * npart * w + r;
+    float* o = ys + (i * nys + out) * w + r;
+    if constexpr (kVec) {
+      float4 s = *reinterpret_cast<const float4*>(
+          p + static_cast<unsigned>(c0) * w);
+      for (int c = c0 + 1; c < c1; ++c)
+        s = add4(s, *reinterpret_cast<const float4*>(
+                        p + static_cast<unsigned>(c) * w));
+      *reinterpret_cast<float4*>(o) = s;
+    } else {
+      float s = p[static_cast<unsigned>(c0) * w];
+      for (int c = c0 + 1; c < c1; ++c) s = s + p[static_cast<unsigned>(c) * w];
+      *o = s;
+    }
+  }
+}
+
+// K4w: kQ threads an output row, each 16 B of it (kt = 4 * kQ), or, for
+// kQ 0, one thread a row moving it 4 B at a time; kColsRowsK4 rows a
+// thread, a block's step apart, their loads all issued before the stores
+constexpr int kColsRowsK4 = 4;
+
+template <int kQ>
+__global__ void __launch_bounds__(kThreads)
+    route_small_cols_kernel(const float* __restrict__ ysp,
+                            const int32_t* __restrict__ src,
+                            float* __restrict__ y, unsigned n, unsigned kt,
+                            unsigned ldy) {
+  constexpr unsigned kTpr = kQ > 0 ? kQ : 1;  // threads a row
+  constexpr unsigned kStep = kThreads / kTpr;  // rows a block's step
+  const unsigned q = threadIdx.x % kTpr;
+  const unsigned e0 = blockIdx.x * (kStep * kColsRowsK4) + threadIdx.x / kTpr;
+  int s[kColsRowsK4];
+#pragma unroll
+  for (int j = 0; j < kColsRowsK4; ++j) {
+    const unsigned e = e0 + j * kStep;
+    s[j] = e < n ? __ldcs(src + e) : -1;
+  }
+  if constexpr (kQ > 0) {
+    float4 v[kColsRowsK4];
+#pragma unroll
+    for (int j = 0; j < kColsRowsK4; ++j)
+      v[j] = s[j] >= 0 ? __ldg(reinterpret_cast<const float4*>(
+                             ysp + static_cast<unsigned>(s[j]) * kt) + q)
+                       : make_float4(0, 0, 0, 0);
+#pragma unroll
+    for (int j = 0; j < kColsRowsK4; ++j) {
+      const unsigned e = e0 + j * kStep;
+      if (e < n) reinterpret_cast<float4*>(y + e * ldy)[q] = v[j];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kColsRowsK4; ++j) {
+      const unsigned e = e0 + j * kStep;
+      if (e >= n) continue;
+      for (unsigned c = 0; c < kt; ++c)
+        y[e * ldy + c] =
+            s[j] >= 0 ? __ldg(ysp + static_cast<unsigned>(s[j]) * kt + c) : 0.f;
+    }
+  }
+}
+
 // K5 and K17: a within-tile permutation over P planes of R rows,
 //   out[i,a,l] = data[v>>7, a, v&127],  v = idx[i,a,l]
 // and 0 where v is not in [0, P*128) (the TPU's select matches no sublane
@@ -955,6 +1184,79 @@ int cvr_route_small(const void* ysp, const void* src, void* y, int n,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ysp), static_cast<const int32_t*>(src),
       static_cast<float*>(y), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_reduce_slices_cols(const void* X, int nx, int ldx, int kt,
+                           const void* idx, const void* vals,
+                           const void* pieces, void* ys, void* part,
+                           int npieces, int S, int nys, int npart,
+                           void* stream) {
+  // one block per piece and sublane: 128 lanes x a thread a quad of 4
+  // columns; 16 B loads of X where kt, ldx and X's address allow
+  if (kt < 1 || kt > 8) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = kt % 4 == 0 && ldx % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  const dim3 grid(static_cast<unsigned int>(npieces), 8);
+  const unsigned threads = 128 * ((kt + 3) / 4);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto x = static_cast<const float*>(X);
+  auto ix = static_cast<const int32_t*>(idx);
+  auto v = static_cast<const float*>(vals);
+  auto pc = static_cast<const int32_t*>(pieces);
+  auto y = static_cast<float*>(ys);
+  auto p = static_cast<float*>(part);
+  if (vec)
+    reduce_slices_cols_kernel<true><<<grid, threads, 0, s>>>(
+        x, nx, ldx, kt, ix, v, pc, y, p, S, nys, npart);
+  else
+    reduce_slices_cols_kernel<false><<<grid, threads, 0, s>>>(
+        x, nx, ldx, kt, ix, v, pc, y, p, S, nys, npart);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_reduce_slices_cols_combine(const void* part, const void* combine,
+                                   void* ys, int ncombine, int nys, int npart,
+                                   int kt, void* stream) {
+  // one block per split slice
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto p = static_cast<const float*>(part);
+  auto c = static_cast<const int32_t*>(combine);
+  auto y = static_cast<float*>(ys);
+  const unsigned blocks = static_cast<unsigned int>(ncombine);
+  if (kt % 4 == 0)
+    reduce_slices_cols_combine_kernel<true><<<blocks, kReduceThreads, 0, s>>>(
+        p, c, y, nys, npart, kt);
+  else
+    reduce_slices_cols_combine_kernel<false><<<blocks, kReduceThreads, 0, s>>>(
+        p, c, y, nys, npart, kt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cvr_route_small_cols(const void* ysp, const void* src, void* y, int n,
+                         int kt, int ldy, void* stream) {
+  // rows of kt floats moved 16 B at a time where kt, ldy and the addresses
+  // of ysp and y allow; kColsRowsK4 rows a thread
+  if (kt < 1 || kt > 8) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto g = static_cast<const float*>(ysp);
+  auto ix = static_cast<const int32_t*>(src);
+  auto o = static_cast<float*>(y);
+  const bool vec = kt % 4 == 0 && ldy % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(ysp) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const int tpr = vec ? kt / 4 : 1;
+  const unsigned rows = kThreads / tpr * kColsRowsK4;  // a block's rows
+  const unsigned blocks = (static_cast<unsigned>(n) + rows - 1) / rows;
+  if (vec && kt == 8)
+    route_small_cols_kernel<2><<<blocks, kThreads, 0, s>>>(g, ix, o, n, kt,
+                                                          ldy);
+  else if (vec)
+    route_small_cols_kernel<1><<<blocks, kThreads, 0, s>>>(g, ix, o, n, kt,
+                                                          ldy);
+  else
+    route_small_cols_kernel<0><<<blocks, kThreads, 0, s>>>(g, ix, o, n, kt,
+                                                          ldy);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -118,6 +118,11 @@ def load():
                                       i32, p]
     lib.cvr_reduce_slices_combine.argtypes = [p, p, p, i32, i32, i32, p]
     lib.cvr_route_small.argtypes = [p, p, p, i32, p]
+    lib.cvr_reduce_slices_cols.argtypes = [p, i32, i32, i32, p, p, p, p, p,
+                                           i32, i32, i32, i32, p]
+    lib.cvr_reduce_slices_cols_combine.argtypes = [p, p, p, i32, i32, i32,
+                                                   i32, p]
+    lib.cvr_route_small_cols.argtypes = [p, p, p, i32, i32, i32, p]
     lib.cvr_tileperm.argtypes = [p, p, p, i32, i32, i32, p]
     lib.cvr_route_m3.argtypes = [p, p, p, i64, p]
     lib.cvr_route_flat.argtypes = [p, p, p, p]
@@ -142,7 +147,9 @@ def load():
         lib.cvr_expand, lib.cvr_route_middle, lib.cvr_route_middle_m1,
         lib.cvr_route_middle_select, lib.cvr_reduce_slices,
         lib.cvr_reduce_slices_combine, lib.cvr_lane_reduce_combine,
-        lib.cvr_route_small, lib.cvr_tileperm, lib.cvr_route_m3,
+        lib.cvr_route_small, lib.cvr_reduce_slices_cols,
+        lib.cvr_reduce_slices_cols_combine, lib.cvr_route_small_cols,
+        lib.cvr_tileperm, lib.cvr_route_m3,
         lib.cvr_route_flat,
         lib.cvr_reduce_hot, lib.cvr_reduce_stream,
         lib.cvr_reduce_stream_combine, lib.cvr_dia_spmv,

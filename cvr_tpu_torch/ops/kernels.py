@@ -1,4 +1,5 @@
 """Every Hopper kernel of the port, by name: K1-K7 of the routed path,
+K3w and K4w of the routed SpMM (K3 and K4 over a tile of columns),
 K15, the ring step of its row-sharded overlapped expand (K1's kernel),
 and K16 flat middle, K17 brute middle (K5's kernel on the middle
 layout) and K18 unfused reduce of the route

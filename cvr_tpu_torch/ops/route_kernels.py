@@ -1,14 +1,15 @@
-"""The routed SpMV's and the route library's device passes: eleven
-wrappers over the Hopper kernels of route_kernels.cu (K1's kernel also
-runs the ring steps of K15 and K5's the brute middle K17; K2 has two
-bodies, its split one of two passes; K3 and K18 add a second pass for
-their split slices).
+"""The routed SpMV's, the routed SpMM's and the route library's device
+passes: thirteen wrappers over the Hopper kernels of route_kernels.cu
+(K1's kernel also runs the ring steps of K15 and K5's the brute middle
+K17; K2 has two bodies, its split one of two passes; K3, K3w and K18 add
+a second pass for their split slices).
 
 Each pass has three parts side by side:
 
   * a wrapper (``expand``, ``route_middle``, ``reduce_slices``,
     ``route_small``, ``tileperm``, ``route_m3``, ``reduce_hot``,
-    ``expand_ring``, ``route_flat``, ``groupperm``, ``reduce_stream``)
+    ``expand_ring``, ``route_flat``, ``groupperm``, ``reduce_stream``,
+    ``reduce_slices_cols``, ``route_small_cols``)
     that launches the CUDA kernel of
     cvr_tpu_torch/csrc/route_kernels.cu for CUDA tensors and counts the
     launch in its ``launches`` attribute.  A wrapper given CPU tensors
@@ -17,7 +18,8 @@ Each pass has three parts side by side:
   * the plain PyTorch version (``*_plain``) of the same function, written
     with advanced indexing and int16 planes widened to int64: the CPU path
     and the reference each kernel is held against on the card;
-  * an entry in KERNELS naming the TPU kernels it replaces.
+  * an entry in KERNELS naming the TPU kernels it replaces (none for K3w
+    and K4w, which the JAX package's vmapped SpMV stands in for).
 
 Layouts: see cvr_tpu_torch/ops/route_planes.py.  The stream<->mstream,
 stream<->middle and flat<->stream relayouts are plain tensor permutes.
@@ -110,13 +112,14 @@ def expand_x_table(x: torch.Tensor, segw: int, n_segs: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _on_card(name: str, *tensors: torch.Tensor, planes=()) -> bool:
+def _on_card(name: str, *tensors: torch.Tensor, planes=(),
+             views=()) -> bool:
     """True when the pass gets CUDA tensors (launch the kernel), False for
     CPU tensors (run the plain version); raise on anything else.
     ``planes``: (P, rows, 128) tensors that may be row slices of larger
     planes (their rows contiguous, read in place) where ``tensors`` must
-    be contiguous."""
-    devs = {t.device for t in (*tensors, *planes)}
+    be contiguous; ``views``: tensors whose layout the caller checks."""
+    devs = {t.device for t in (*tensors, *planes, *views)}
     if all(d.type == "cpu" for d in devs):
         return False
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
@@ -412,12 +415,15 @@ def slice_rows(row0, row1):
 
 
 def slice_sums(P, item, out, nys: int):
-    """ys (8, nys, 128): ys[:, out[k], :] = the sum of the products P
-    (8, len(item), 128) of item k; slices no item names stay zero."""
-    sums = torch.zeros((8, out.shape[0], 128), dtype=P.dtype, device=P.device)
+    """ys (8, nys, 128, ...): ys[:, out[k]] = the sum of the products P
+    (8, len(item), 128, ...) of item k, in item order; slices no item
+    names stay zero."""
+    rest = tuple(P.shape[2:])
+    sums = torch.zeros((8, out.shape[0], *rest), dtype=P.dtype,
+                       device=P.device)
     sums.index_add_(1, item, P)
-    ys = torch.zeros((8, nys, 128), dtype=P.dtype, device=P.device)
-    ys[:, out.long(), :] = sums
+    ys = torch.zeros((8, nys, *rest), dtype=P.dtype, device=P.device)
+    ys[:, out.long()] = sums
     return ys
 
 
@@ -724,6 +730,144 @@ def route_small(ysp, src, n: int):
 
 
 route_small.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3w reduce_slices_cols and K4w route_small_cols: K3 and K4 over a tile of
+# up to COLS_TILE columns of X, the routed SpMM's passes
+# ---------------------------------------------------------------------------
+
+# columns of X a tile holds at most (one 32 B sector of a float32 row)
+COLS_TILE = 8
+
+
+def gather_rows_or_zero(data, idx):
+    """(*idx.shape, KT): the rows of data (n, KT) at the int index idx,
+    zero rows where idx is not in [0, n) (gather_or_zero a column at a
+    time)."""
+    ix = idx.long()
+    n = data.shape[0]
+    ok = (ix >= 0) & (ix < n)
+    return torch.where(ok[..., None], data[ix.clamp(0, max(n - 1, 0))], 0.0)
+
+
+def reduce_slices_cols_plain(X, vals, plan: ReducePlan, nys: int):
+    """ys (8, nys, 128, KT): column c is reduce_slices_plain of X[:, c] by
+    the x plan ``plan``, bit for bit (the same products, summed in the
+    same item order)."""
+    item, rows = slice_rows(plan.row0, plan.row1)
+    P = vals[:, rows, :, None] * gather_rows_or_zero(X, plan.idx[:, rows, :])
+    return slice_sums(P, item, plan.out, nys)
+
+
+def _check_cols(name: str, t: torch.Tensor, what: str) -> tuple[int, int]:
+    """(rows, row stride) of a float32 tile t (rows, KT), 1 <= KT <=
+    COLS_TILE, its columns side by side (unit column stride); raise where
+    its last element lies past the kernels' 32-bit indices."""
+    _check_dtype(name, t, torch.float32)
+    if t.dim() != 2 or not 1 <= t.shape[1] <= COLS_TILE:
+        raise ValueError(f"{name}: {what} is (rows, KT) with 1 <= KT <= "
+                         f"{COLS_TILE}, given {tuple(t.shape)}")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: {what}'s columns must lie side by side")
+    ld = t.stride(0) if t.shape[0] > 1 else t.shape[1]
+    if ld < t.shape[1]:
+        raise ValueError(f"{name}: {what}'s rows overlap")
+    end = (t.shape[0] - 1) * ld + t.shape[1] if t.shape[0] else 0
+    if end > INT32_MAX:
+        raise ValueError(f"{name}: {what} of {end} elements exceeds the "
+                         "kernel's 32-bit indices")
+    return t.shape[0], ld
+
+
+def reduce_slices_cols(X, vals, plan: ReducePlan, nys: int):
+    """K3w: per-slice lane sums ys (8, nys, 128, KT) of the tile X (ncols,
+    KT) f32, KT <= COLS_TILE, read in place (a view of a wider X with its
+    columns side by side), by K3's x plan; see reduce_slices_cols_plain.
+    Column c equals reduce_slices(X[:, c], vals, plan, nys) bit for bit on
+    the card too.  On the card: two launches, the second adding the split
+    slices' partials."""
+    name = "reduce_slices_cols"
+    if plan.source != "x":
+        raise ValueError(f"{name}: the plan indexes {plan.source}, not the "
+                         "columns of x")
+    nx, ldx = _check_cols(name, X, "X")
+    split = plan.split
+    for t, dt in ((vals, torch.float32), (plan.idx, torch.int32),
+                  (split.pieces, torch.int32), (split.combine, torch.int32)):
+        _check_dtype(name, t, dt)
+    KT, S = X.shape[1], vals.shape[1]
+    if vals.shape != (8, S, 128) or plan.idx.shape != vals.shape:
+        raise ValueError(f"{name}: plane shapes disagree with the plan")
+    reduce_geometry(S, 0, nys * KT, split.npart * KT)
+    if not _on_card(name, vals, plan.idx, split.pieces, split.combine,
+                    views=(X,)):
+        return reduce_slices_cols_plain(X, vals, plan, nys)
+    ys = torch.zeros((8, nys, 128, KT), dtype=torch.float32, device=X.device)
+    part = torch.empty((8, split.npart, 128, KT), dtype=torch.float32,
+                       device=X.device)
+    n = split.pieces.shape[0]
+    if n:
+        _launch("cvr_reduce_slices_cols", X.device, _p(X), nx, ldx, KT,
+                _p(plan.idx), _p(vals), _p(split.pieces), _p(ys), _p(part),
+                n, S, nys, split.npart)
+        reduce_slices_cols.launches += 1
+    if split.combine.shape[0]:
+        _launch("cvr_reduce_slices_cols_combine", X.device, _p(part),
+                _p(split.combine), _p(ys), split.combine.shape[0], nys,
+                split.npart, KT)
+        reduce_slices_cols.launches += 1
+    return ys
+
+
+reduce_slices_cols.launches = 0
+
+
+def route_small_cols_plain(ysp, src, n: int, out=None):
+    """Y (n, KT): row e is the row of ysp (8, Tp, 128, KT) at its flat
+    position src[e], zero where src is -1 (route_small_plain a column at a
+    time); written into ``out`` where given."""
+    y = gather_rows_or_zero(ysp.reshape(-1, ysp.shape[-1]), src)
+    if out is None:
+        return y
+    return out.copy_(y)
+
+
+def route_small_cols(ysp, src, n: int, out=None):
+    """K4w: Y (n, KT) from ysp (8, Tp, 128, KT) f32 by K4's int32 index src
+    (n,) (RouteDevice.src); written in place into ``out``,
+    an (n, KT) tile of a wider Y with its columns side by side, where
+    given.  See route_small_cols_plain."""
+    name = "route_small_cols"
+    _check_dtype(name, ysp, torch.float32)
+    _check_dtype(name, src, torch.int32)
+    if (ysp.dim() != 4 or (ysp.shape[0], ysp.shape[2]) != (8, 128)
+            or src.shape != (n,)):
+        raise ValueError(f"{name}: the stream is (8, Tp, 128, KT) with one "
+                         "index per output")
+    Tp, KT = ysp.shape[1], ysp.shape[3]
+    route_small_geometry(Tp, n)
+    if 8 * Tp * 128 * KT > INT32_MAX:
+        raise ValueError(f"{name}: a y stream of {Tp} tiles of {KT} columns "
+                         "exceeds the kernel's 32-bit indices")
+    if out is not None:
+        if out.shape != (n, KT):
+            raise ValueError(f"{name}: out is {tuple(out.shape)}, the route "
+                             f"gives {(n, KT)}")
+        _check_cols(name, out, "out")
+    if not _on_card(name, ysp, src, views=() if out is None else (out,)):
+        return route_small_cols_plain(ysp, src, n, out)
+    if out is None:
+        out = torch.empty((n, KT), dtype=torch.float32, device=ysp.device)
+    _, ldy = _check_cols(name, out, "out")
+    if n:
+        _launch("cvr_route_small_cols", ysp.device, _p(ysp), _p(src),
+                _p(out), n, KT, ldy)
+        route_small_cols.launches += 1
+    return out
+
+
+route_small_cols.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1111,6 +1255,18 @@ KERNELS = {
     "reduce_stream": (
         reduce_stream, reduce_stream_plain,
         "cvr_tpu/ops/pallas_route.py:537",
+    ),
+    "reduce_slices_cols": (
+        reduce_slices_cols, reduce_slices_cols_plain,
+        "none: the JAX package vmaps the SpMV (K3's kernels) over the "
+        "columns, cvr_tpu/ops/spmv.py:314 -> "
+        "spmv_routed._jitted_spmm_routed",
+    ),
+    "route_small_cols": (
+        route_small_cols, route_small_cols_plain,
+        "none: the JAX package vmaps the SpMV (K4's kernels) over the "
+        "columns, cvr_tpu/ops/spmv.py:314 -> "
+        "spmv_routed._jitted_spmm_routed",
     ),
 }
 

@@ -215,8 +215,9 @@ def spmm(A, X, impl: str = "auto", device="cuda") -> torch.Tensor:
     device form of one; a host artifact is uploaded to ``device`` first
     (on each call: ``upload`` it once to reuse it), and X goes to the
     artifact's device.  BSR runs K12 unless ``impl="bsr-xla"`` asks for
-    the torch-ops path (``spmm_bsr``); the routed, SELL-W and BELL
-    artifacts run one SpMV per column."""
+    the torch-ops path (``spmm_bsr``); the routed artifact runs its
+    chain on tiles of 8 columns, the SELL-W and BELL artifacts one SpMV
+    per column."""
     with span("spmm"):
         if isinstance(A, CSRMatrix):
             return _csr(A, X, device)

@@ -11,6 +11,11 @@ Pipeline (cvr_tpu_torch/formats/sell_routed.py packs the planes):
     y   = route_small(ysp, src)           K4  the whole y-route, any Tp
     y   = y * ymask ; y[extra_row] += ysp[extra_src]
 
+The SpMM (spmm_routed) runs the same chain on a tile of up to 8 columns
+of X at once, a lane's columns side by side: K3w (reduce_slices_cols)
+over the same plan, the fold and pad, K7 a column, K4w
+(route_small_cols) into the tile's columns of Y, the mask and the extras.
+
 The TPU stages the route because it gathers only inside VMEM windows: the
 x side's middle (M1 + chunk select, then M3 inside the reduce) and the
 y-route's stage 1, middle and stage 3 are passes of their own there.
@@ -365,10 +370,34 @@ def spmv_routed(sd: SellRoutedDevice, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmm_routed(sd: SellRoutedDevice, X: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X for dense X (ncols, K): one SpMV per column (the JAX
-    package vmaps the SpMV over the K columns)."""
-    return torch.stack([spmv_routed(sd, X[:, k]) for k in range(X.shape[1])],
-                       1)
+    """Y = A @ X for dense X (ncols, K) on sd's device, column k equal to
+    spmv_routed(sd, X[:, k]) bit for bit (the JAX package vmaps the SpMV
+    over the K columns).  K 1 is the SpMV; a wider X runs in tiles of up
+    to rk.COLS_TILE columns, each one K3w pass over the planes that
+    gathers the tile's rows of X in place, then y_from_slices_cols into
+    the tile's columns of one (nrows, K) Y."""
+    if X.shape[1] == 1:
+        return spmv_routed(sd, X[:, 0])[:, None]
+    X = X.to(torch.float32)
+    if X.stride(1) != 1:
+        X = X.contiguous()
+    K = X.shape[1]
+    Y = torch.empty((sd.yroute.n, K), dtype=torch.float32, device=X.device)
+    # past the kernels' 32-bit indices, a tile's columns are copied out
+    big = max(X.shape[0] * X.stride(0), Y.numel()) > rk.INT32_MAX
+    for c0 in range(0, K, rk.COLS_TILE):
+        c1 = min(K, c0 + rk.COLS_TILE)
+        Xt, Yt = X[:, c0:c1], Y[:, c0:c1]
+        if big:
+            Xt, Yt = Xt.contiguous(), torch.empty_like(Yt)
+        with span("routed.reduce", f"X{c1 - c0}"):
+            ys = rk.reduce_slices_cols(Xt, sd.vals_ss, sd.red_plan,
+                                       sd.nslices)
+        with span("routed.y"):
+            y_from_slices_cols(sd, ys, Xt, Yt)
+        if big:
+            Y[:, c0:c1] = Yt
+    return Y
 
 
 def middle(sd: SellRoutedDevice, g1: torch.Tensor):
@@ -512,6 +541,43 @@ def y_from_slices(sd: SellRoutedDevice, ys: torch.Tensor,
     if sd.extra_src.shape[0]:
         y.index_add_(0, sd.extra_row, ysp.reshape(-1)[sd.extra_src])
     return y
+
+
+def y_stream_cols(sd: SellRoutedDevice, ys: torch.Tensor) -> torch.Tensor:
+    """y_stream of each column of a tile's sums ys (8, nslices, 128, KT):
+    ysp (8, Tp, 128, KT), the zone-A fold and the zone-B slices written
+    into it in place of the SpMV's cat and pad."""
+    nA, a = sd.nslA, sd.nslA // 8
+    ysp = ys.new_empty((8, sd.yroute.Tp, *ys.shape[2:]))
+    if nA:
+        ysp[:, :a] = ys[:, :nA].sum(dim=0).reshape(
+            a, 8, *ys.shape[2:]).permute(1, 0, 2, 3)
+    ysp[:, a : sd.yslices] = ys[:, nA:]
+    ysp[:, sd.yslices :] = 0
+    return ysp
+
+
+def y_from_slices_cols(sd: SellRoutedDevice, ys: torch.Tensor,
+                       X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """y_from_slices of each column of a tile, into Y (nrows, KT), a tile
+    of the SpMM's Y written in place: the y stream (y_stream_cols), the
+    hot planes' sums a column (K7 reads the column of X), the y-route by
+    K4w, the row mask and the split-row extras over the tile's columns."""
+    ysp = y_stream_cols(sd, ys)
+    if sd.hot_nslices:
+        for c in range(X.shape[1]):
+            ysp[:, : sd.hot_nslices, :, c] += hot_stream(sd, X[:, c])
+    rk.route_small_cols(ysp, sd.yroute.src, sd.yroute.n, out=Y)
+    if sd.ymask.shape[0]:
+        Y.mul_(sd.ymask[:, None])
+    if sd.extra_src.shape[0]:
+        # a column at a time, as the SpMV adds them: on the card the order
+        # in which index_add_ sums a row's extras differs between a 1-D and
+        # a 2-D tensor (deterministic algorithms' kernels; atomics else)
+        add = ysp.reshape(-1, ysp.shape[-1])[sd.extra_src]
+        for c in range(Y.shape[1]):
+            Y[:, c].index_add_(0, sd.extra_row, add[:, c])
+    return Y
 
 
 def reduce_and_route(sd: SellRoutedDevice, src: torch.Tensor,
